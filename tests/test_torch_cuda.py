@@ -1,0 +1,98 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions, on
+the card.  A kernel has no CPU mode, so every test here skips on a host
+without a card.  The file imports neither jax nor the JAX package, so it
+runs where only PyTorch is installed:
+
+    PYTHONPATH=src python3 -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import alias as talias
+from repro_torch.core import lightlda as tlda
+from repro_torch.kernels import ops, ref
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (a hand-written kernel has no CPU "
+                    "mode)")
+    return torch.device("cuda")
+
+
+def _weights(v, k, seed):
+    """Random rows plus a uniform row, exact-1.0 entries beside one small
+    and one large, a near-one-hot row and an all-zero row."""
+    rng = np.random.default_rng(seed)
+    w = (rng.random((v, k)) ** 2 + 1e-5).astype(np.float32)
+    w[0] = 1.0
+    w[1] = 1.0
+    w[1, 0], w[1, 1 % k] = 0.5, 1.5
+    w[2] = 1e-6
+    w[2, k // 3] = 1e3
+    w[3] = 0.0
+    return torch.from_numpy(w)
+
+
+@pytest.mark.parametrize("k", [1, 7, 130, 1000])
+def test_alias_build_kernel_matches_plain(card, k):
+    w = _weights(64, k, seed=k).to(card)
+    before = ops.launch_counts()["alias_build"]
+    got = ops.alias_build(w)
+    want = ref.alias_build_ref(w)
+    assert ops.launch_counts()["alias_build"] == before + 1
+    torch.testing.assert_close(talias.alias_pmf(got), talias.alias_pmf(want),
+                               rtol=3e-5, atol=3e-6)
+    assert ((got.alias >= 0) & (got.alias < k)).all()
+    assert ((got.prob >= 0) & (got.prob <= 1)).all()
+
+
+@pytest.mark.parametrize("k", [7, 130, 1000])
+@pytest.mark.parametrize("frozen", [True, False])
+def test_mh_sample_kernel_matches_plain_bitwise(card, k, frozen):
+    g = torch.Generator(device=card).manual_seed(k)
+    rows, docs, t, s = 64, 8, 4096, 2
+    nwk = torch.randint(0, 30, (rows, k), generator=g, device=card).float()
+    nk = nwk.sum(0)
+    table = talias.build_alias_rows((nwk + 0.01) / (nk + rows * 0.01))
+
+    def ints(hi, shape):
+        return torch.randint(0, hi, shape, generator=g, device=card,
+                             dtype=torch.int32)
+
+    w, d, z0 = ints(rows, (t,)), ints(docs, (t,)), ints(k, (t,))
+    ndk = ints(5, (docs, k))
+    rng = tlda.MHRandoms(torch.rand((s, t), generator=g, device=card),
+                         torch.rand((s, t), generator=g, device=card),
+                         ints(k, (s, t)),
+                         torch.rand((s, t), generator=g, device=card))
+    cfg = tlda.LDAConfig(num_topics=k, vocab_size=rows, mh_steps=s)
+    args = (rng, z0, w, d, nwk, ndk, nk, table.prob, table.alias, cfg)
+    got = ops.mh_sample(*args, frozen=frozen)
+    want = ref.mh_sample_ref(*args, frozen=frozen)
+    assert torch.equal(got, want)
+    assert (got != z0).float().mean() > 0.5
+
+
+def test_serving_on_card_matches_cpu(card):
+    """A small TopicModel on the card: θ equals the CPU path's bitwise."""
+    from repro_torch.api import TopicModel
+    from repro_torch.infer import EngineConfig, FoldInConfig
+    rng = np.random.default_rng(0)
+    k, v = 12, 300
+    nwk = rng.integers(0, 50, (v, k)).astype(np.int32)
+    ecfg = EngineConfig(max_batch=4, foldin=FoldInConfig(num_sweeps=8,
+                                                         burnin=3))
+    cfg = tlda.LDAConfig(num_topics=k, vocab_size=v)
+    gpu = TopicModel(nwk, nwk.sum(0), cfg, ecfg=ecfg)
+    docs = [rng.integers(0, v, n).astype(np.int32) for n in (5, 40, 17, 90)]
+    theta = gpu.transform(docs)
+    snap = gpu.snapshot.to("cpu")
+    from repro_torch.infer import QueryEngine
+    cpu = QueryEngine(snap, ecfg).infer(docs, list(range(len(docs))))
+    np.testing.assert_array_equal(theta, np.stack([r.theta for r in cpu]))
