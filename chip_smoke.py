@@ -1,31 +1,47 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's topic-serving path on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
 Phases (any failure raises and the script exits non-zero):
 
   1. device   -- require CUDA; print the card's name and power limit;
-  2. build    -- nvcc every kernel of the path from src/repro_torch/kernels/
+  2. build    -- nvcc every kernel of the paths from src/repro_torch/kernels/
                  csrc, one process per source, all at once;
   3. kernels  -- each kernel against its plain PyTorch version on the card:
                  mh_sample bitwise at K in {7, 130, 1000} in both modes,
                  alias_build's pmf at rtol 3e-5 / atol 3e-6, rows with
                  exact-1.0 entries and near-one-hot rows included;
-  4. serving  -- the slice at full width, V = 100,000 and K = 1,000, through
-                 the entry points a user calls: TopicModel -> snapshot ->
-                 transform of 512 documents -> score -> a ConcurrentEngine
-                 under 8 client threads; launch counters, θ sums, batch
-                 independence, and card θ == CPU-plain θ bitwise;
-  5. report   -- one JSON line with each kernel's launches, error, times and
-                 bound, then the device line last.
+                 delta_push and delta_apply_coo bitwise at (rows, K) in
+                 {(300, 7), (2048, 130), (2000, 1000), (100000, 1000)},
+                 with out-of-range rows, padding and Zipf-skewed rows;
+  4. serving  -- the serving slice at full width, V = 100,000 and
+                 K = 1,000: TopicModel -> snapshot -> transform of 512
+                 documents -> score -> a ConcurrentEngine under 8 client
+                 threads; launch counters, θ sums, batch independence, and
+                 card θ == CPU-plain θ bitwise;
+  5. training -- the training slice at the same widths:
+                 APSLDA(LDAJob(..., route=HybridRoute(hot_words=2000))).fit()
+                 on a 2M-token synthetic corpus, 3 sweeps of the snapshot
+                 executor, then one sweep of the pipelined executor (16
+                 model blocks, staleness 1); launch counters, exact count
+                 conservation, falling perplexity, and the trained model
+                 serving 64 held-out documents; then a small job on the card
+                 and on the CPU, both executors, with z and every count
+                 table equal bitwise;
+  6. report   -- per-kernel times at the main paths' shapes, a profile of
+                 one fold-in batch and of one training sweep, one JSON line
+                 with each kernel's launches, error, times and bound, then
+                 the device line last.
 
-Imports nothing of JAX or of the JAX package.  Writes a profile of one
-fold-in batch to chiprun_out/serving_profile.txt.
+Imports nothing of JAX or of the JAX package.  Writes profiles to
+chiprun_out/serving_profile.txt and chiprun_out/training_profile.txt, and
+the training run's trace and metrics to chiprun_out/train_obs/.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -45,6 +61,11 @@ SECTOR = 32                    # bytes moved by one scattered 4-byte read
 
 V_FULL, K_FULL = 100_000, 1_000
 N_DOCS, N_QUERIES, N_CLIENTS, PER_CLIENT = 512, 8, 8, 16
+TRAIN_DOCS, TRAIN_DOC_LEN, TRAIN_TOPICS, HOT_WORDS = 8000, 250, 100, 2000
+DELTA_SHAPES = ((300, 7), (2048, 130), (2000, 1000), (100_000, 1000))
+DELTA_TOKENS = 32 * 1024
+PIPE_BLOCKS, PIPE_STALENESS = 16, 1
+REF_CHUNK = 1 << 18        # tokens per call of mh_sample's plain version
 
 
 def log(msg: str) -> None:
@@ -111,7 +132,8 @@ class Timer:
             self.sleep_cycles *= 2
             if self.sleep_cycles > 1 << 34:
                 raise RuntimeError("the host cannot enqueue the launches "
-                                   "within a sleep of 2^34 cycles")
+                                   "within a sleep of 2^34 cycles (or they "
+                                   "outnumber the device's launch queue)")
         torch.cuda.synchronize()
         times = [a.elapsed_time(b) for a, b in spans]
         return float(np.median(times)) if before else times[0] / reps
@@ -242,6 +264,79 @@ def check_kernels(torch) -> None:
                                  f"version at K={k} (err {err})")
 
 
+def delta_inputs(torch, rows: int, k: int, t: int, seed: int,
+                 changed_frac: float):
+    """A token batch for delta_push: Zipf-skewed rows (thousands of tokens
+    on row 0), 1 % of the rows past ``rows`` (half of those changed),
+    ``changed`` at the given fraction."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cu = dict(device="cuda")
+    u = torch.rand((t,), generator=g, **cu)
+    zipf = torch.floor(torch.exp(u * math.log(rows))).to(torch.int64) - 1
+    r = torch.clamp(zipf, 0, rows - 1).to(torch.int32)
+    out_of_range = torch.rand((t,), generator=g, **cu) < 0.01
+    r = torch.where(out_of_range, rows + (torch.arange(t, **cu) % 7), r)
+    z_old = torch.randint(0, k, (t,), generator=g, dtype=torch.int32, **cu)
+    z_new = torch.randint(0, k, (t,), generator=g, dtype=torch.int32, **cu)
+    changed = torch.rand((t,), generator=g, **cu) < changed_frac
+    return r.to(torch.int32), z_old, z_new, changed
+
+
+def coo_inputs(torch, rows: int, k: int, m: int, seed: int):
+    """A COO buffer for delta_apply_coo: value-0 padding (a quarter),
+    repeated coordinates, Zipf-skewed rows, 1 % out-of-range rows and 1 %
+    out-of-range columns, values in [-3, 3]."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cu = dict(device="cuda")
+    u = torch.rand((m,), generator=g, **cu)
+    r = torch.clamp(torch.floor(torch.exp(u * math.log(rows))).to(
+        torch.int64) - 1, 0, rows - 1)
+    c = torch.randint(0, k, (m,), generator=g, **cu)
+    r[m // 2: m // 2 + m // 8] = r[: m // 8]          # repeated coordinates
+    c[m // 2: m // 2 + m // 8] = c[: m // 8]
+    bad_r = torch.rand((m,), generator=g, **cu) < 0.01
+    bad_c = torch.rand((m,), generator=g, **cu) < 0.01
+    r = torch.where(bad_r, rows + torch.arange(m, **cu) % 5, r)
+    c = torch.where(bad_c, torch.where(torch.arange(m, **cu) % 2 == 0,
+                                       k + 1, -1), c)
+    v = torch.randint(-3, 4, (m,), generator=g, **cu)
+    v[torch.rand((m,), generator=g, **cu) < 0.25] = 0  # padding
+    return r.to(torch.int32), c.to(torch.int32), v.to(torch.int32)
+
+
+def check_delta_kernels(torch) -> None:
+    from repro_torch.kernels import delta_push, ref
+
+    for i, (rows, k) in enumerate(DELTA_SHAPES):
+        for frac in (0.0, 0.5, 1.0):
+            args = delta_inputs(torch, rows, k, DELTA_TOKENS, 17 + i, frac)
+            out = torch.zeros((rows, k), dtype=torch.int32, device="cuda")
+            got = delta_push.delta_push_cuda(*args, out)
+            want = ref.delta_push_ref(*args, rows, k)
+            torch.cuda.synchronize()
+            match = bool(torch.equal(got, want))
+            log(json.dumps({"check": "delta_push", "rows": rows, "K": k,
+                            "tokens": DELTA_TOKENS, "changed_frac": frac,
+                            "nonzero": int((want != 0).sum()),
+                            "match": match}))
+            if not match:
+                raise AssertionError(f"delta_push differs from its plain "
+                                     f"version at {(rows, k)}, changed "
+                                     f"{frac}")
+        args = coo_inputs(torch, rows, k, 2 * DELTA_TOKENS, 29 + i)
+        base = torch.randint(0, 9, (rows, k), dtype=torch.int32,
+                             device="cuda")
+        got = delta_push.delta_apply_coo_cuda(*args, base.clone())
+        want = ref.delta_apply_coo_ref(*args, rows, k, out=base.clone())
+        torch.cuda.synchronize()
+        match = bool(torch.equal(got, want))
+        log(json.dumps({"check": "delta_apply_coo", "rows": rows, "K": k,
+                        "entries": 2 * DELTA_TOKENS, "match": match}))
+        if not match:
+            raise AssertionError(f"delta_apply_coo differs from its plain "
+                                 f"version at {(rows, k)}")
+
+
 # -- phase 4: the serving slice ----------------------------------------------
 
 def serve_slice(torch, seed: int, card: str, device: str = "cuda",
@@ -370,6 +465,191 @@ def serve_slice(torch, seed: int, card: str, device: str = "cuda",
     return out
 
 
+# -- phase 5: the training slice ---------------------------------------------
+
+def sync(torch, device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def conservation(torch, st, what: str) -> None:
+    """Exact count conservation of a trained state: every count table is
+    the histogram of the assignments."""
+    k = st.ndk.shape[1]
+    nwk = st.nwk.to_dense().long()
+    nk, ndk = st.nk.value.long(), st.ndk.long()
+    tokens = int(st.valid.sum())
+    w, z = st.w.long()[st.valid], st.z.long()[st.valid]
+    hist = torch.zeros(nwk.numel(), dtype=torch.long, device=nwk.device)
+    hist.index_add_(0, w * k + z, torch.ones_like(w))
+    checks = {
+        "nwk_sum": int(nwk.sum()) == tokens,
+        "nk_sum": int(nk.sum()) == tokens,
+        "nwk_cols_eq_nk": bool(torch.equal(nwk.sum(0), nk)),
+        "ndk_rows_eq_doc_len": bool(torch.equal(ndk.sum(1),
+                                                st.doc_len.long())),
+        "nwk_eq_histogram": bool(torch.equal(hist.view_as(nwk), nwk)),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"{what}: counts not conserved: {checks}")
+
+
+def sweep_spans(trace_path: Path) -> list:
+    """(sweep ms, dispatch ms) per sweep from the obs trace of a fit."""
+    events = json.loads(trace_path.read_text())["traceEvents"]
+    sweeps = [e for e in events if e.get("name") == "exec.sweep"]
+    disp = [e for e in events if e.get("name") == "exec.dispatch"]
+    return [(a["dur"] / 1e3, b["dur"] / 1e3) for a, b in zip(sweeps, disp)]
+
+
+def groups_per_sweep(info: dict) -> int:
+    return info["n_blocks"] // info["group"]
+
+
+def expected_launches(groups: int, num_rows: int) -> dict:
+    """Launches of the path's kernels for ``groups`` groups whose push
+    rows number ``num_rows``: mh_sample once per group; under
+    HybridRoute(HOT_WORDS), delta_push per group unless no row is hot and
+    delta_apply_coo unless every row is (the route's degenerate plans)."""
+    hot = min(HOT_WORDS, num_rows)
+    return {"mh_sample": groups,
+            "delta_push": groups if hot > 0 else 0,
+            "delta_apply_coo": groups if hot < num_rows else 0}
+
+
+def train_slice(torch, seed: int, card: str, device: str = "cuda",
+                v: int = V_FULL, k: int = K_FULL,
+                n_docs: int = TRAIN_DOCS) -> dict:
+    """Train at (v, k) through APSLDA: the snapshot executor for 3 sweeps,
+    then the pipelined executor for one; check each and serve the model.
+    Launch counts are checked on the card only (the CPU runs the plain
+    versions)."""
+    from repro_torch.api import APSLDA, HybridRoute, LDAJob, ObsConfig
+    from repro_torch.data.corpus import synthetic_corpus
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    corp = synthetic_corpus(n_docs, v, true_topics=TRAIN_TOPICS,
+                            mean_doc_len=TRAIN_DOC_LEN, seed=seed)
+    log(f"[train] corpus V={v} {corp.num_docs} docs {corp.num_tokens} "
+        f"tokens, hot words {HOT_WORDS} hold "
+        f"{corp.word_freq[:HOT_WORDS].sum() / corp.num_tokens:.3f} of them, "
+        f"made in {time.perf_counter() - t0:.2f} s")
+    obs_dir = ROOT / "chiprun_out" / "train_obs"
+    job = LDAJob(corpus=corp, num_topics=k, vocab_size=v,
+                 route=HybridRoute(hot_words=HOT_WORDS), sweeps=3,
+                 eval_every=1, seed=seed,
+                 obs=ObsConfig(enabled=True, out_dir=str(obs_dir)))
+    out = {"corpus": corp}
+
+    ops.reset_launch_counts()
+    # ------------------------------------------------------------ main path
+    est = APSLDA(job, log_fn=log, device=device)
+    model = est.fit()
+    sync(torch, device)
+    counts = ops.launch_counts()
+    # ---------------------------------------------------- end of main path
+    info = est.result_.info
+    want = expected_launches(groups_per_sweep(info) * job.sweeps, v)
+    for name, n in want.items():
+        if device == "cuda" and counts[name] != n:
+            raise AssertionError(f"snapshot executor: {name} launched "
+                                 f"{counts[name]} times, expected {n}")
+    conservation(torch, est.result_.state, "snapshot executor")
+    ppl = [row["perplexity"] for row in model.history]
+    if not (len(ppl) == 3 and ppl[2] < ppl[0]):
+        raise AssertionError(f"perplexity did not fall: {ppl}")
+    spans = sweep_spans(obs_dir / "trace.json")
+    tokens = corp.num_tokens
+    out.update(model=model, state=est.result_.state, cfg=model.cfg,
+               snapshot_counts=counts, info=info)
+    log(json.dumps({"train": {
+        "executor": "snapshot", "V": v, "K": k, "tokens": tokens,
+        "docs": corp.num_docs, "route": info["route"],
+        "groups_per_sweep": groups_per_sweep(info), "sweeps": job.sweeps,
+        "sweep_ms": [a for a, _ in spans],
+        "dispatch_ms": [b for _, b in spans],
+        "tokens_per_s": [tokens / (a / 1e3) for a, _ in spans],
+        "perplexity": ppl, "launches": counts, "checks": "ok",
+        "card": card}}))
+
+    pobs = obs_dir / "pipelined"
+    pjob = dataclasses.replace(job, model_blocks=PIPE_BLOCKS,
+                               staleness=PIPE_STALENESS, sweeps=1,
+                               obs=ObsConfig(enabled=True,
+                                             out_dir=str(pobs)))
+    ops.reset_launch_counts()
+    # ------------------------------------------------------------ main path
+    pest = APSLDA(pjob, log_fn=log, device=device)
+    pmodel = pest.fit()
+    sync(torch, device)
+    pcounts = ops.launch_counts()
+    # ---------------------------------------------------- end of main path
+    pinfo = pest.result_.info
+    want = expected_launches(groups_per_sweep(pinfo),
+                             pinfo["rows_per_block"] * pinfo["group"])
+    for name, n in want.items():
+        if device == "cuda" and pcounts[name] != n:
+            raise AssertionError(f"pipelined executor: {name} launched "
+                                 f"{pcounts[name]} times, expected {n}")
+    conservation(torch, pest.result_.state, "pipelined executor")
+    row = pmodel.history[0]
+    (sweep_ms, dispatch_ms), = sweep_spans(pobs / "trace.json")
+    out["pipelined_counts"] = pcounts
+    log(json.dumps({"train": {
+        "executor": "pipelined", "model_blocks": pinfo["n_blocks"],
+        "rows_per_block": pinfo["rows_per_block"],
+        "staleness": pinfo["staleness"], "token_cap": pinfo["token_cap"],
+        "groups": groups_per_sweep(pinfo), "sweep_ms": sweep_ms,
+        "dispatch_ms": dispatch_ms, "tokens_per_s": tokens / (sweep_ms / 1e3),
+        "perplexity": row["perplexity"], "launches": pcounts,
+        "checks": "ok", "card": card}}))
+    del pest, pmodel
+
+    # the trained model serves: 64 documents drawn from its own topics
+    docs = make_docs(model.nwk, 64, seed + 5)
+    theta = model.transform(docs, [2000 + i for i in range(64)])
+    sums = theta.sum(1)
+    if not (theta.shape == (64, k) and np.isfinite(theta).all()
+            and (np.abs(sums - 1.0) <= 1e-3).all()):
+        raise AssertionError(f"trained model's θ rows do not sum to 1: "
+                             f"{sums.min()} {sums.max()}")
+    log(json.dumps({"train": {"serve_after_training": {
+        "docs": 64, "theta_sum_min": float(sums.min()),
+        "theta_sum_max": float(sums.max())}}}))
+    return out
+
+
+def card_vs_cpu(torch, seed: int) -> None:
+    """A small job on the card and on the CPU, both executors: z and every
+    count table equal bitwise."""
+    from repro_torch.api import APSLDA, HybridRoute, LDAJob
+    from repro_torch.data.corpus import synthetic_corpus
+
+    corp = synthetic_corpus(300, 3000, true_topics=16, seed=seed)
+    for extra in ({}, {"model_blocks": 4, "staleness": 1}):
+        job = LDAJob(corpus=corp, num_topics=64, vocab_size=3000,
+                     route=HybridRoute(hot_words=200), sweeps=2,
+                     eval_every=0, seed=seed, **extra)
+        states = {}
+        for dev in ("cuda", "cpu"):
+            est = APSLDA(job, log_fn=lambda m: None, device=dev)
+            est.fit()
+            st = est.result_.state
+            states[dev] = {"z": st.z, "nwk": st.nwk.to_dense(),
+                           "nk": st.nk.value, "ndk": st.ndk}
+        equal = {name: bool(torch.equal(states["cuda"][name].cpu(),
+                                        states["cpu"][name]))
+                 for name in states["cpu"]}
+        mode = "pipelined" if extra else "snapshot"
+        log(json.dumps({"check": "train_card_vs_cpu", "executor": mode,
+                        "tokens": corp.num_tokens, "V": 3000, "K": 64,
+                        "equal": equal}))
+        if not all(equal.values()):
+            raise AssertionError(f"{mode} training on the card differs from "
+                                 f"the CPU: {equal}")
+
+
 # -- phase 5: kernel times at the main path's shapes -------------------------
 
 def main_path_mh_inputs(torch, model, docs, seeds):
@@ -435,7 +715,259 @@ def mh_sample_bytes(torch, rng, z0, w, d, nwk, ndk, nk, aprob,
     return t * 16 + steps * t * 16 + gathered * SECTOR
 
 
-def kernel_report(torch, timer: Timer, serve: dict, card: str) -> list:
+def snapshot_group_inputs(torch, train: dict):
+    """mh_sample's inputs in the snapshot executor's first group (8192
+    tokens) of a sweep of the trained state: the [V, K] snapshot and its
+    alias tables, the [D, K] n_dk.  Returns them and the group's ``valid``."""
+    from repro_torch import rng as jrng
+    from repro_torch.core import alias as alias_mod
+    from repro_torch.core import lightlda as lda
+
+    st, cfg = train["state"], train["cfg"]
+    g = cfg.block_tokens
+    w_b, d_b = st.w[:g], st.d[:g]
+    nwk_dense, nk = st.nwk.to_dense(), st.nk.value
+    table = alias_mod.build_alias_rows(
+        (nwk_dense.to(torch.float32) + cfg.beta)
+        / (nk.to(torch.float32)[None, :] + cfg.V * cfg.beta))
+    rng = lda.draw_mh_randoms(
+        jrng.PRNGKey(7, "cuda"),
+        lda.make_doc_draw(d_b, st.z, st.doc_start, st.doc_len, cfg), g, cfg)
+    return ((rng, st.z[:g].clone(), w_b, d_b, nwk_dense.to(torch.float32),
+             st.ndk, nk.to(torch.float32), table.prob, table.alias),
+            st.valid[:g])
+
+
+def pipelined_group_inputs(torch, train: dict):
+    """mh_sample's inputs in the pipelined executor's first group (16 model
+    blocks, staleness 1) of a sweep of the trained state: the group's
+    pulled rows and their alias tables, block-local row indices, and the
+    group's padded token slots."""
+    from repro_torch import rng as jrng
+    from repro_torch.core import alias as alias_mod
+    from repro_torch.core import lightlda as lda
+    from repro_torch.train import async_exec
+
+    st, cfg = train["state"], train["cfg"]
+    layout = st.nwk.layout
+    rpb, _, s = async_exec.blocked_geometry(layout, PIPE_BLOCKS,
+                                            PIPE_STALENESS)
+    grp_rows = rpb * (s + 1)
+    idx, _ = lda.block_token_index(st.w.cpu().numpy(),
+                                   st.valid.cpu().numpy(), grp_rows, layout)
+    i = torch.from_numpy(idx[0]).to("cuda").long()
+    rows, nk = st.nwk.pull_block(0, grp_rows).result(), st.nk.value
+    table = alias_mod.build_alias_rows(
+        (rows.to(torch.float32) + cfg.beta)
+        / (nk.to(torch.float32)[None, :] + cfg.V * cfg.beta))
+    wb, db = st.w[i], st.d[i]
+    local = torch.clamp(layout.to_physical(wb), 0, grp_rows - 1).to(
+        torch.int32)
+    rng = lda.draw_mh_randoms(
+        jrng.PRNGKey(7, "cuda"),
+        lda.make_doc_draw(db, st.z, st.doc_start, st.doc_len, cfg),
+        i.shape[0], cfg)
+    return (rng, st.z[i], local, db, rows.to(torch.float32), st.ndk,
+            nk.to(torch.float32), table.prob, table.alias)
+
+
+def mh_sample_ref_chunked(torch, args, cfg, frozen: bool):
+    """mh_sample's plain version over REF_CHUNK tokens at a time: its [T, K]
+    gathers of a pipelined group's 1.8 M slots would not fit the card at
+    once.  Tokens are independent, so the result is the same."""
+    from repro_torch.core import lightlda as lda
+    from repro_torch.kernels import ref
+
+    rng, z0, w, d, *tables = args
+    out = []
+    for lo in range(0, z0.shape[0], REF_CHUNK):
+        sl = slice(lo, lo + REF_CHUNK)
+        part = lda.MHRandoms(*(r[:, sl] for r in rng))
+        out.append(ref.mh_sample_ref(part, z0[sl], w[sl], d[sl], *tables,
+                                     cfg, frozen=frozen))
+    return torch.cat(out)
+
+
+def training_mh_rows(torch, timer: Timer, train: dict, card: str):
+    """mh_sample in training mode (``frozen=False``) at each executor's
+    group shape: held bitwise against its plain version, timed, and reported
+    as its own row with the launches of that executor's run.  Returns the
+    rows and the snapshot group's (inputs, new assignments, valid)."""
+    from repro_torch.kernels import mh_sample
+
+    cfg = train["cfg"]
+    rows, snapshot_group = [], None
+    for executor, reps, ref_reps in (("snapshot", 30, 3),
+                                     ("pipelined", 5, 1)):
+        if executor == "snapshot":
+            args, valid = snapshot_group_inputs(torch, train)
+        else:
+            args = pipelined_group_inputs(torch, train)
+        got = mh_sample.mh_sample_cuda(*args, cfg, frozen=False)
+        want = mh_sample_ref_chunked(torch, args, cfg, frozen=False)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        if err:
+            raise AssertionError(f"mh_sample (training) differs from its "
+                                 f"plain version at the {executor} "
+                                 f"executor's shapes")
+        ms = timer.ms(lambda: mh_sample.mh_sample_cuda(*args, cfg,
+                                                       frozen=False),
+                      reps=reps)
+        plain_ms = timer.ms(lambda: mh_sample_ref_chunked(
+            torch, args, cfg, frozen=False), reps=ref_reps,
+            device_only=False)
+        t, s = args[1].shape[0], cfg.mh_steps
+        rows.append(kernel_row(
+            f"mh_sample_train_{executor}",
+            "src/repro_torch/kernels/csrc/mh_sample.cu",
+            "src/repro/kernels/mh_sample.py:34",
+            train[f"{executor}_counts"]["mh_sample"], float(err), ms,
+            plain_ms, mh_sample_bytes(torch, *args), s * t * 60))
+        log(json.dumps({"timing": {f"mh_sample_train_{executor}": {
+            "table_rows": args[4].shape[0], "K": cfg.K, "tokens": t,
+            "ndk_rows": args[5].shape[0], "match": True, "card": card}}}))
+        if executor == "snapshot":
+            snapshot_group = (args, got, valid)
+        del args, got, want
+    return rows, snapshot_group
+
+
+def touched_sectors(torch, rows, cols, k: int) -> int:
+    """Distinct 32-byte sectors of a row-major int32 [R, k] buffer that
+    the entries (rows, cols) fall in."""
+    flat = rows.long() * k + cols.long()
+    return int(torch.unique(flat // (SECTOR // 4)).numel())
+
+
+def waits_on_host(torch, fn) -> bool:
+    """Whether ``fn`` waits on the host for the device: a sleep kernel
+    queued ahead of it is over by the time ``fn`` has returned."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1 << 28)                # about 0.14 s
+    held = torch.cuda.Event()
+    held.record()
+    fn()
+    done = held.query()
+    torch.cuda.synchronize()
+    return done
+
+
+def time_library(torch, timer: Timer, fn):
+    """Device ms of one library call, and what the profiler saw of ten.
+
+    The Timer's span holds at most 256 launches: a call launches several
+    kernels, and once the device's launch queue is full behind the Timer's
+    sleep, the host blocks as if the call waited on it (``waits_on_host``
+    shows whether it does)."""
+    reps = 10
+    _, busy_ms, stats = device_profile(
+        torch, lambda: [fn() for _ in range(reps)])
+    seen = {"waits_on_host": waits_on_host(torch, fn),
+            "kernels_per_call": sum(n for n, _ in stats.values()) / reps,
+            "profiled_device_ms": busy_ms / reps}
+    per_span = max(1, min(reps, int(256 // max(seen["kernels_per_call"], 1))))
+    return timer.ms(fn, reps=per_span), seen
+
+
+def delta_rows(torch, timer: Timer, train: dict, snapshot_group,
+               card: str) -> list:
+    """Kernel rows of delta_push and delta_apply_coo at the snapshot
+    executor's shapes, on the reassignments of one group of a sweep (the
+    hybrid's hot tokens for the [2000, K] dense block, the cold tail's COO
+    buffer for the [V, K] table).  Each time is the kernel alone
+    accumulating into a buffer made outside the span, as the library call
+    (one index_put_ with accumulate, its flat indices and values made
+    outside the span) is timed; neither kernel writes a fresh buffer, so
+    the bound counts no zero-fill.  Bytes: each input element the data
+    needs read once (every ``changed`` flag / COO value, the indices of the
+    entries that add), and each touched 32-byte output sector read and
+    written once."""
+    from repro_torch.kernels import delta_push, ref
+
+    (_, zo, w, *_), zn, valid = snapshot_group
+    nwk_dense = train["state"].nwk.to_dense()
+    changed = (zn != zo) & valid
+    hot, cold_m = delta_push.split_hot_cold(w, changed, HOT_WORDS)
+    cr, cc, cv = delta_push.cold_coo(w, zo, zn, cold_m)
+    k = nwk_dense.shape[1]
+    launches = {n: train["snapshot_counts"][n] + train["pipelined_counts"][n]
+                for n in ("delta_push", "delta_apply_coo")}
+    rows = []
+
+    # B3: the hybrid's hot block [HOT_WORDS, K], a fresh buffer per group
+    h = HOT_WORDS
+    got = delta_push.delta_push_cuda(w, zo, zn, hot, torch.zeros(
+        (h, k), dtype=torch.int32, device="cuda"))
+    want = ref.delta_push_ref(w, zo, zn, hot, h, k)
+    err = int((got - want).abs().max())
+    if err:
+        raise AssertionError("delta_push differs from its plain version at "
+                             "the main path's shapes")
+    buf = torch.zeros((h, k), dtype=torch.int32, device="cuda")
+    ms = timer.ms(lambda: delta_push.delta_push_cuda(w, zo, zn, hot, buf),
+                  reps=100)
+    plain_ms = timer.ms(lambda: ref.delta_push_ref(w, zo, zn, hot, h, k),
+                        reps=20, device_only=False)
+    m = hot
+    flat = torch.cat([w[m].long() * k + zo[m].long(),
+                      w[m].long() * k + zn[m].long()])
+    vals = torch.cat([-torch.ones_like(zo[m]), torch.ones_like(zn[m])])
+    lib = torch.zeros(h * k, dtype=torch.int32, device="cuda")
+    lib_ms, lib_seen = time_library(torch, timer, lambda: lib.index_put_(
+        (flat,), vals, accumulate=True))
+    n_hot = int(m.sum())
+    sectors = touched_sectors(torch, torch.cat([w[m], w[m]]),
+                              torch.cat([zo[m], zn[m]]), k)
+    nbytes = w.shape[0] * 1 + n_hot * 12 + sectors * 2 * SECTOR
+    rows.append(kernel_row(
+        "delta_push", "src/repro_torch/kernels/csrc/delta_push.cu",
+        "src/repro/kernels/delta_push.py:39", launches["delta_push"],
+        float(err), ms, plain_ms, nbytes, w.shape[0] * 2 + n_hot * 8,
+        lib_ms))
+    log(json.dumps({"timing": {"delta_push": {
+        "rows": h, "K": k, "tokens": w.shape[0], "hot_changed": n_hot,
+        "sectors": sectors, "library": lib_seen,
+        "card": card}}}))
+
+    # B4: the cold tail's COO buffer applied into the [V, K] table
+    v = nwk_dense.shape[0]
+    got = delta_push.delta_apply_coo_cuda(cr, cc, cv, nwk_dense.clone())
+    want = ref.delta_apply_coo_ref(cr, cc, cv, v, k, out=nwk_dense.clone())
+    err = int((got - want).abs().max())
+    if err:
+        raise AssertionError("delta_apply_coo differs from its plain "
+                             "version at the main path's shapes")
+    del got, want
+    table = nwk_dense.clone()
+    ms = timer.ms(lambda: delta_push.delta_apply_coo_cuda(cr, cc, cv, table),
+                  reps=100)
+    plain_ms = timer.ms(lambda: ref.delta_apply_coo_ref(cr, cc, cv, v, k,
+                                                        out=table), reps=20,
+                        device_only=False)
+    flat = cr.long() * k + cc.long()
+    flat_table = table.view(-1)
+    lib_ms, lib_seen = time_library(torch, timer, lambda: flat_table.index_put_(
+        (flat,), cv, accumulate=True))
+    nz = cv != 0
+    n_nz = int(nz.sum())
+    sectors = touched_sectors(torch, cr[nz], cc[nz], k)
+    nbytes = cr.shape[0] * 4 + n_nz * 8 + sectors * 2 * SECTOR
+    rows.append(kernel_row(
+        "delta_apply_coo", "src/repro_torch/kernels/csrc/delta_push.cu",
+        "src/repro/kernels/delta_push.py:133", launches["delta_apply_coo"],
+        float(err), ms, plain_ms, nbytes, cr.shape[0] * 2 + n_nz * 6,
+        lib_ms))
+    log(json.dumps({"timing": {"delta_apply_coo": {
+        "rows": v, "K": k, "entries": cr.shape[0], "nonzero": n_nz,
+        "sectors": sectors, "library": lib_seen,
+        "card": card}}}))
+    return rows
+
+
+def kernel_report(torch, timer: Timer, serve: dict, train: dict,
+                  card: str) -> list:
     from repro_torch.core import alias as alias_mod
     from repro_torch.kernels import alias_build, mh_sample, ref
 
@@ -490,13 +1022,21 @@ def kernel_report(torch, timer: Timer, serve: dict, card: str) -> list:
     rows.append(kernel_row("alias_build", "src/repro_torch/kernels/csrc/"
                            "alias_build.cu",
                            "src/repro/kernels/alias_build.py:38",
-                           serve["counts"]["alias_build"], pmf_err, ms,
-                           plain_ms, v * k * 12, v * k * 10))
-    return rows
+                           serve["counts"]["alias_build"]
+                           + train["snapshot_counts"]["alias_build"]
+                           + train["pipelined_counts"]["alias_build"],
+                           pmf_err, ms, plain_ms, v * k * 12, v * k * 10))
+    del args
+    train_rows, snapshot_group = training_mh_rows(torch, timer, train, card)
+    return (rows[:1] + train_rows + rows[1:]
+            + delta_rows(torch, timer, train, snapshot_group, card))
 
 
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
-               flops) -> dict:
+               flops, library_ms=None) -> dict:
+    # the delta kernels' integer operations are held to the fp32 rate (the
+    # data sheet gives no int32 rate outside the tensor cores); their byte
+    # bound is far above it
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
     return {"name": name, "route": "cuda", "source": source,
@@ -504,12 +1044,45 @@ def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None}
+            "library_ms": library_ms}
 
 
-def _device_us(event) -> float:
-    return (getattr(event, "self_device_time_total", None)
-            or getattr(event, "self_cuda_time_total", 0))
+def device_profile(torch, fn):
+    """Run ``fn`` under ``torch.profiler`` recording the card's activity
+    only (kernels, copies, fills); returns ``(wall ms, device busy ms,
+    {name: [launches, device ms]})``.  The profiler's raw events are read
+    directly: building its per-event Python objects (``key_averages``)
+    takes minutes for a training sweep's 1.6 M launches."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    stats = {}
+    cuda = torch.autograd.DeviceType.CUDA
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            s = stats.setdefault(e.name(), [0, 0.0])
+            s[0] += 1
+            s[1] += e.duration_ns() / 1e6
+    return wall_ms, sum(ms for _, ms in stats.values()), stats
+
+
+def profile_table(stats: dict, rows: int = 30) -> str:
+    busy = sum(ms for _, ms in stats.values()) or 1.0
+    top = sorted(stats.items(), key=lambda kv: -kv[1][1])[:rows]
+    lines = [f"{'device ms':>12} {'share':>7} {'launches':>9}  kernel"]
+    lines += [f"{ms:12.3f} {ms / busy:7.2%} {n:9d}  {name[:100]}"
+              for name, (n, ms) in top]
+    return "\n".join(lines)
+
+
+def of_kernel(stats: dict, name: str) -> dict:
+    hit = [v for k, v in stats.items() if name in k]
+    return {"count": sum(n for n, _ in hit),
+            "device_ms": sum(ms for _, ms in hit)}
 
 
 def profile_batch(torch, serve: dict, card: str) -> None:
@@ -527,33 +1100,101 @@ def profile_batch(torch, serve: dict, card: str) -> None:
     valid = torch.from_numpy(valid).cuda()
     keys = jrng.keys_from_seeds([seeds[j] for j in pick], "cuda")
     snap = model.snapshot
-    act = [torch.profiler.ProfilerActivity.CPU,
-           torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.profiler.profile(activities=act) as prof:
-        fold_in_batch(snap.model, w, valid, keys, snap.cfg, eng.ecfg.foldin)
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    dev_us = sum(_device_us(e) for e in events)
-    launches = sum(e.count for e in events if _device_us(e) > 0)
-    table = events.table(sort_by="self_device_time_total", row_limit=25)
+    wall_ms, busy_ms, stats = device_profile(torch, lambda: fold_in_batch(
+        snap.model, w, valid, keys, snap.cfg, eng.ecfg.foldin))
     outdir = ROOT / "chiprun_out"
     outdir.mkdir(exist_ok=True)
     (outdir / "serving_profile.txt").write_text(
         f"{card}\none fold-in batch [{mb} x {bucket}], wall {wall_ms:.3f} ms "
-        f"(profiler on), device busy {dev_us / 1e3:.3f} ms\n\n{table}\n")
-    mh = [e for e in events if "mh_sample" in e.key]
-    if not dev_us or not mh:
+        f"(profiler on), device busy {busy_ms:.3f} ms\n\n"
+        f"{profile_table(stats)}\n")
+    mh = of_kernel(stats, "mh_sample")
+    if not busy_ms or not mh["count"]:
         raise AssertionError("the profile of a fold-in batch shows no device "
                              "time or no mh_sample launch")
     log(json.dumps({"profile": {
         "batch": [mb, bucket], "wall_ms_profiled": wall_ms,
-        "device_busy_ms": dev_us / 1e3,
-        "device_idle_share": 1.0 - dev_us / 1e3 / wall_ms,
-        "device_kernels": launches,
-        "mh_sample_device_ms": sum(_device_us(e) for e in mh) / 1e3,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "device_kernels": sum(n for n, _ in stats.values()),
+        "mh_sample_device_ms": mh["device_ms"], "card": card}}))
+
+
+def profile_sweep(torch, train: dict, card: str) -> None:
+    """Device time by kernel over one snapshot sweep of the trained state,
+    the device's busy share of its wall time, and the host-timed parts of
+    a sweep: the plain alias build, and per group the threefry draws,
+    mh_sample, the route's push and token_deltas' [D, K] buffer."""
+    from repro_torch import ps
+    from repro_torch import rng as jrng
+    from repro_torch.core import alias as alias_mod
+    from repro_torch.core import lightlda as lda
+    from repro_torch.kernels import ops
+    from repro_torch.train import async_exec
+
+    st, cfg = train["state"], train["cfg"]
+    route = ps.HybridRoute(hot_words=HOT_WORDS)
+    wall_ms, busy_ms, stats = device_profile(
+        torch, lambda: async_exec.snapshot_sweep(
+            st, jrng.PRNGKey(11, "cuda"), cfg, route=route))
+    outdir = ROOT / "chiprun_out"
+    outdir.mkdir(exist_ok=True)
+    (outdir / "training_profile.txt").write_text(
+        f"{card}\none snapshot sweep, V={cfg.V} K={cfg.K}, "
+        f"{int(st.valid.sum())} tokens, wall {wall_ms:.3f} ms (profiler "
+        f"on), device busy {busy_ms:.3f} ms\n\n{profile_table(stats)}\n")
+    by_kernel = {}
+    for name in ("mh_sample_kernel", "delta_push_kernel",
+                 "delta_apply_coo_kernel"):
+        by_kernel[name] = of_kernel(stats, name)
+        if not by_kernel[name]["count"]:
+            raise AssertionError(f"the profile of a training sweep shows no "
+                                 f"{name} launch")
+    if not busy_ms:
+        raise AssertionError("the profile of a training sweep shows no "
+                             "device time")
+
+    # host clock around synchronised parts, profiler off
+    def timed(fn, reps=1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / reps, out
+
+    g = cfg.block_tokens
+    groups = st.w.shape[0] // g
+    nwk_dense, nk = st.nwk.to_dense(), st.nk.value
+    weights = ((nwk_dense.to(torch.float32) + cfg.beta)
+               / (nk.to(torch.float32)[None, :] + cfg.V * cfg.beta))
+    alias_ms, tbl = timed(lambda: alias_mod.build_alias_rows(weights))
+    w_b, d_b, valid_b = st.w[:g], st.d[:g], st.valid[:g]
+    z0 = st.z[:g].clone()
+    key = jrng.PRNGKey(3, "cuda")
+    draw_ms, rng = timed(lambda: lda.draw_mh_randoms(
+        key, lda.make_doc_draw(d_b, st.z, st.doc_start, st.doc_len, cfg), g,
+        cfg), reps=5)
+    nwk_f = nwk_dense.to(torch.float32)
+    nk_f = nk.to(torch.float32)
+    mh_ms, z_new = timed(lambda: ops.mh_sample(
+        rng, z0, w_b, d_b, nwk_f, st.ndk, nk_f, tbl.prob, tbl.alias, cfg),
+        reps=5)
+    changed = (z_new != z0) & valid_b
+    re = ps.Reassign(w_b, w_b, z0, z_new, changed)
+    plan_ms, _ = timed(lambda: route.plan(re, cfg.V, cfg.K,
+                                          prefix_rows=True), reps=5)
+    deltas_ms, _ = timed(lambda: async_exec.token_deltas(
+        d_b, z0, z_new, changed, st.ndk.shape[0], cfg.K), reps=5)
+    log(json.dumps({"profile_training": {
+        "executor": "snapshot", "wall_ms_profiled": wall_ms,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "device_kernels": sum(n for n, _ in stats.values()),
+        "kernels": by_kernel,
+        "groups": groups, "alias_build_plain_ms_per_sweep": alias_ms,
+        "per_group_ms": {"threefry_draws": draw_ms, "mh_sample": mh_ms,
+                         "route_plan": plan_ms, "token_deltas": deltas_ms},
         "card": card}}))
 
 
@@ -576,18 +1217,30 @@ def main(argv=None) -> int:
     log(card)
 
     t0 = time.perf_counter()
-    logs = _build.build(["mh_sample", "alias_build"], ptxas_info=True)
+    logs = _build.build(["mh_sample", "alias_build", "delta_push"],
+                        ptxas_info=True)
     log(f"[build] {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
-    check_kernels(torch)
-    serve = serve_slice(torch, args.seed, card)
+    def phase(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        log(f"[phase] {name} {time.perf_counter() - t:.1f} s")
+        return out
+
+    phase("check_kernels", check_kernels, torch)
+    phase("check_delta_kernels", check_delta_kernels, torch)
+    serve = phase("serve", serve_slice, torch, args.seed, card)
+    train = phase("train", train_slice, torch, args.seed, card)
+    phase("card_vs_cpu", card_vs_cpu, torch, args.seed)
     timer = Timer(torch)
-    rows = kernel_report(torch, timer, serve, card)
-    profile_batch(torch, serve, card)
+    rows = phase("kernel_report", kernel_report, torch, timer, serve, train,
+                 card)
+    phase("profile_batch", profile_batch, torch, serve, card)
+    phase("profile_sweep", profile_sweep, torch, train, card)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,12 +21,13 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core import lightlda as lda
+from repro_torch.device import Device, resolve_device
 from repro_torch.infer.engine import EngineConfig, QueryEngine
 from repro_torch.infer.snapshot import Snapshot, SnapshotPublisher, build_snapshot
 
@@ -34,19 +35,6 @@ from repro_torch.infer.snapshot import Snapshot, SnapshotPublisher, build_snapsh
 # has no such switch (a CUDA tensor always runs the kernel), but its npz
 # files carry them so that the JAX package can load them
 _JAX_ONLY_CFG = {"use_kernels": False, "kernel_interpret": None}
-
-Device = Union[str, torch.device, None]
-
-
-def resolve_device(device: Device = None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller asks for
-    another.  Raises when CUDA is asked for (or defaulted to) and absent."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device available: repro_torch runs on the card by "
-            "default; pass device='cpu' to run the plain PyTorch path")
-    return dev
 
 
 def as_tensor(x, device: torch.device) -> torch.Tensor:

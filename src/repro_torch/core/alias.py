@@ -19,6 +19,9 @@ from typing import NamedTuple
 
 import torch
 
+# the reduce-window width XLA's CPU backend splits a long row sum into
+_XLA_WINDOW = 32
+
 
 class AliasTable(NamedTuple):
     """Alias table rows.  ``prob[i]`` is the acceptance probability of bucket
@@ -37,13 +40,40 @@ def _set_col(mat: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> None:
     mat.scatter_(1, idx[:, None], val[:, None].to(mat.dtype))
 
 
+def row_sum(p_rows: torch.Tensor) -> torch.Tensor:
+    """Row sums of ``p_rows`` [V, K] in the order XLA's CPU backend takes
+    them, so that the alias tables equal the JAX package's bitwise.
+
+    XLA rewrites a row reduction longer than 32 as a reduce-window of
+    size and stride 32 (the columns padded with zeros, half of the padding
+    before them and half after), then reduces the window sums, again in
+    windows while more than 32 remain.  Each window, and the last reduce,
+    adds from left to right.  Written as elementwise adds, the order is
+    the same on every device.
+    """
+    while p_rows.shape[1] > _XLA_WINDOW:
+        pad = (-p_rows.shape[1]) % _XLA_WINDOW
+        p_rows = torch.nn.functional.pad(p_rows, (pad // 2, pad - pad // 2))
+        p_rows = _sum_left_to_right(
+            p_rows.reshape(p_rows.shape[0], -1, _XLA_WINDOW))
+    return _sum_left_to_right(p_rows)
+
+
+def _sum_left_to_right(x: torch.Tensor) -> torch.Tensor:
+    """((x[..., 0] + x[..., 1]) + x[..., 2]) + ... over the last axis."""
+    acc = x[..., 0]
+    for j in range(1, x.shape[-1]):
+        acc = acc + x[..., j]
+    return acc
+
+
 def build_alias_rows(p_rows: torch.Tensor) -> AliasTable:
     """Vose construction for every row of ``p_rows`` [V, K] (unnormalised
     weights); sampling bucket ``i ~ U{0..K-1}`` and accepting with
     ``prob[i]`` (else ``alias[i]``) draws exactly from ``p / p.sum()``."""
     v, k = p_rows.shape
     dev = p_rows.device
-    psum = torch.clamp_min(p_rows.sum(-1, keepdim=True), 1e-30)
+    psum = torch.clamp_min(row_sum(p_rows)[:, None], 1e-30)
     # a tensor numerator: ``k / psum`` would be ``psum.reciprocal() * k``
     q = p_rows.float() * (psum.new_tensor(float(k)) / psum)   # mean 1
 

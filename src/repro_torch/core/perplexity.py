@@ -13,6 +13,9 @@ from __future__ import annotations
 
 import torch
 
+# log_likelihood forms the [N, K] gathered rows this many elements at a time
+_CHUNK_ELEMS = 1 << 26
+
 
 def theta_from_counts(ndk: torch.Tensor, alpha: float) -> torch.Tensor:
     k = ndk.shape[-1]
@@ -28,10 +31,18 @@ def phi_from_counts(nwk: torch.Tensor, nk: torch.Tensor,
 
 def log_likelihood(w: torch.Tensor, d: torch.Tensor, valid: torch.Tensor,
                    theta: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
-    """Σ_i log p(w_i | θ_{d_i}, φ) over valid tokens."""
-    p = (theta[d.long()] * phi[w.long()]).sum(-1)
-    logp = torch.log(torch.clamp_min(p, 1e-30))
-    return torch.where(valid, logp, torch.zeros_like(logp)).sum()
+    """Σ_i log p(w_i | θ_{d_i}, φ) over valid tokens.  The [N, K] gathered
+    rows are formed ``_CHUNK_ELEMS`` elements at a time (256 MB of float32),
+    so a corpus of millions of tokens at K = 1000 fits beside the model."""
+    step = max(1, _CHUNK_ELEMS // max(phi.shape[1], 1))
+    total = torch.zeros((), dtype=torch.float32, device=phi.device)
+    for lo in range(0, w.shape[0], step):
+        sl = slice(lo, lo + step)
+        p = (theta[d[sl].long()] * phi[w[sl].long()]).sum(-1)
+        logp = torch.log(torch.clamp_min(p, 1e-30))
+        total = total + torch.where(valid[sl], logp,
+                                    torch.zeros_like(logp)).sum()
+    return total
 
 
 def fold_in_theta(w: torch.Tensor, d: torch.Tensor, valid: torch.Tensor,

@@ -10,7 +10,7 @@ arrays grouped by document.  Same seed, same arrays as the JAX package's
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -67,6 +67,18 @@ def generate_lda_corpus(seed: int, num_docs: int, mean_doc_len: int,
     doc_lens = np.maximum(rng.poisson(mean_doc_len, size=num_docs), 4)
     thetas = rng.dirichlet(np.full(num_topics, doc_topic_alpha), size=num_docs)
 
+    # ``rng.choice(n, size, p=p)`` is ``cdf.searchsorted(rng.random(size),
+    # side="right")`` with ``cdf = p.cumsum(); cdf /= cdf[-1]``: the same
+    # draws, with each topic's [V] cdf built once instead of per document
+    cdfs: dict = {}
+
+    def word_cdf(k):
+        if k not in cdfs:
+            cdf = phi[k].cumsum()
+            cdf /= cdf[-1]
+            cdfs[k] = cdf
+        return cdfs[k]
+
     ws: List[np.ndarray] = []
     ds: List[np.ndarray] = []
     for doc in range(num_docs):
@@ -75,7 +87,8 @@ def generate_lda_corpus(seed: int, num_docs: int, mean_doc_len: int,
         wdoc = np.empty(n, dtype=np.int64)
         for k in np.unique(zs):
             m = zs == k
-            wdoc[m] = rng.choice(vocab_size, size=m.sum(), p=phi[k])
+            wdoc[m] = word_cdf(k).searchsorted(rng.random(m.sum()),
+                                               side="right")
         ws.append(wdoc)
         ds.append(np.full(n, doc, dtype=np.int64))
 
@@ -106,3 +119,74 @@ def _starts_of(doc_len: np.ndarray) -> np.ndarray:
     if doc_len.shape[0] == 0:
         return np.zeros(0, np.int32)
     return np.concatenate([[0], np.cumsum(doc_len)[:-1]]).astype(np.int32)
+
+
+def corpus_from_docs(docs, vocab_size: Optional[int] = None) -> Corpus:
+    """Build a ``Corpus`` from an iterable of token-id documents.
+
+    The entry point behind ``LDAJob(docs=...)``.  NOTE: word ids are
+    re-ranked by corpus frequency (``reindex`` -- the section-3.2
+    contract every downstream component assumes); keep your own id->rank
+    map if you need to translate back.  Empty documents are dropped.
+    """
+    ws: List[np.ndarray] = []
+    ds: List[np.ndarray] = []
+    for i, doc in enumerate(docs):
+        a = np.asarray(doc, dtype=np.int64).ravel()
+        if a.size == 0:
+            continue
+        ws.append(a)
+        ds.append(np.full(a.size, i, np.int64))
+    if not ws:
+        raise ValueError("docs yielded no tokens; pass at least one "
+                         "non-empty document")
+    w = np.concatenate(ws)
+    d = np.concatenate(ds)
+    if w.min() < 0:
+        raise ValueError("negative token ids in docs")
+    if vocab_size is None:
+        vocab_size = int(w.max()) + 1
+    elif int(w.max()) >= vocab_size:
+        raise ValueError(f"token id {int(w.max())} out of range for "
+                         f"vocab_size={vocab_size}")
+    return reindex(w, d, vocab_size)
+
+
+def train_heldout_split(corpus: Corpus, heldout_frac: float = 0.1,
+                        seed: int = 1) -> Tuple[Corpus, Corpus]:
+    """Split documents into train/held-out sets.  Both keep the parent's
+    word ids (``reindex`` would re-rank each split by its own
+    frequencies), so that the held-out split is scored in the same id
+    space."""
+    rng = np.random.default_rng(seed)
+    held = rng.random(corpus.num_docs) < heldout_frac
+    held_tok = held[corpus.d]
+    heldout = Corpus(corpus.w[held_tok].astype(np.int32),
+                     _compact_docs(corpus.d[held_tok]),
+                     *_offsets(corpus.d[held_tok]),
+                     corpus.vocab_size, corpus.word_freq)
+    train = Corpus(corpus.w[~held_tok].astype(np.int32),
+                   _compact_docs(corpus.d[~held_tok]),
+                   *_offsets(corpus.d[~held_tok]),
+                   corpus.vocab_size, corpus.word_freq)
+    return train, heldout
+
+
+def _compact_docs(d: np.ndarray) -> np.ndarray:
+    _, inv = np.unique(d, return_inverse=True)
+    return inv.astype(np.int32)
+
+
+def _offsets(d: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    dc = _compact_docs(d)
+    doc_len = np.bincount(dc).astype(np.int32)
+    return _starts_of(doc_len), doc_len
+
+
+def fold_eval_split(corpus: Corpus, seed: int = 2
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Alternate tokens of each held-out doc into fold-in vs eval halves.
+    Returns boolean masks (fold_mask, eval_mask) plus (w, d) unchanged."""
+    rng = np.random.default_rng(seed)
+    coin = rng.random(corpus.num_tokens) < 0.5
+    return corpus.w, corpus.d, coin, ~coin

@@ -15,13 +15,16 @@ observe a half-built snapshot.  The version counter is strictly monotonic.
 from __future__ import annotations
 
 import threading
-from typing import NamedTuple, Optional
+from typing import TYPE_CHECKING, NamedTuple, Optional
 
 import torch
 
 from repro_torch import obs as _obs
 from repro_torch.core import lightlda as lda
 from repro_torch.core import perplexity as ppl
+
+if TYPE_CHECKING:
+    from repro_torch import ps
 
 
 class Snapshot(NamedTuple):
@@ -116,6 +119,20 @@ class SnapshotPublisher:
         if reg is not None:
             reg.gauge("snapshot.version").set(version)
         return snap
+
+    def publish_view(self, view: "ps.ReadOnlyView",
+                     nk: "ps.VectorHandle") -> Snapshot:
+        """Publish from a read-only view of the training handles (the
+        serving-side read: pull, never push).  The ``snapshot.pull`` span
+        covers the pull, synchronised."""
+        with _obs.span("snapshot.pull", cat="snapshot") as sp:
+            dense = sp.sync_on(view.to_dense())
+            nk_val = nk.pull_all().result()
+        return self.publish(dense, nk_val)
+
+    def publish_state(self, state: "lda.SamplerState") -> Snapshot:
+        """Publish straight from a training ``SamplerState``."""
+        return self.publish_view(state.nwk.read_view(), state.nk)
 
     def acquire(self) -> Optional[Snapshot]:
         """Latest published snapshot (never blocks; None before the first

@@ -12,9 +12,12 @@ anew.  ``--fmad=false`` is part of the kernels' contract: they must equal
 their plain versions bitwise, and a fused multiply-add rounds once where the
 plain version rounds twice.
 
-Each C entry point launches on the stream it is given (PyTorch's current
-stream) and returns ``cudaGetLastError()``; ``CudaKernel.launch`` raises if
-that is not 0 and counts the launches that succeeded.
+A source may hold several kernels (``delta_push.cu`` holds two); each has
+its own C entry point ``<kernel>_launch`` and the source one
+``<source>_error_string``.  Each entry point launches on the stream it is
+given (PyTorch's current stream) and returns ``cudaGetLastError()``;
+``CudaKernel.launch`` raises if that is not 0 and counts the launches that
+succeeded.
 """
 from __future__ import annotations
 
@@ -80,10 +83,12 @@ def build(names: Iterable[str], ptxas_info: bool = False) -> Dict[str, str]:
 
 class CudaKernel:
     """One kernel's C entry point, loaded at first launch, with a plain
-    integer count of its successful launches."""
+    integer count of its successful launches.  ``source`` names the
+    ``csrc/<source>.cu`` file that holds it (default: ``name``)."""
 
-    def __init__(self, name: str, argtypes: List):
+    def __init__(self, name: str, argtypes: List, source: str = ""):
         self.name = name
+        self.source = source or name
         self.argtypes = argtypes
         self.launches = 0
         self._fn = None
@@ -92,12 +97,12 @@ class CudaKernel:
     def _load(self):
         with _LOCK:
             if self._fn is None:
-                build([self.name])
-                lib = ctypes.CDLL(str(library_path(self.name)))
+                build([self.source])
+                lib = ctypes.CDLL(str(library_path(self.source)))
                 fn = getattr(lib, f"{self.name}_launch")
                 fn.argtypes = self.argtypes
                 fn.restype = ctypes.c_int
-                err = getattr(lib, f"{self.name}_error_string")
+                err = getattr(lib, f"{self.source}_error_string")
                 err.argtypes = [ctypes.c_int]
                 err.restype = ctypes.c_char_p
                 self._lib, self._err, self._fn = lib, err, fn

@@ -17,10 +17,13 @@ import torch
 
 from repro_torch.core.alias import AliasTable
 from repro_torch.kernels import alias_build as _ab
+from repro_torch.kernels import delta_push as _dp
 from repro_torch.kernels import mh_sample as _mh
 from repro_torch.kernels import ref
 
-KERNELS = {"mh_sample": _mh.KERNEL, "alias_build": _ab.KERNEL}
+KERNELS = {"mh_sample": _mh.KERNEL, "alias_build": _ab.KERNEL,
+           "delta_push": _dp.PUSH_KERNEL,
+           "delta_apply_coo": _dp.COO_KERNEL}
 
 
 def _route(t: torch.Tensor, name: str) -> bool:
@@ -45,6 +48,49 @@ def alias_build(weights: torch.Tensor) -> AliasTable:
     if _route(weights, "alias_build"):
         return _ab.alias_build_cuda(weights.contiguous())
     return ref.alias_build_ref(weights)
+
+
+def _out(out, rows: torch.Tensor, num_rows: int,
+         num_topics: int) -> torch.Tensor:
+    if out is None:
+        return torch.zeros((num_rows, num_topics), dtype=torch.int32,
+                           device=rows.device)
+    if tuple(out.shape) != (num_rows, num_topics):
+        raise ValueError(f"out has shape {tuple(out.shape)}, expected "
+                         f"{(num_rows, num_topics)}")
+    return out
+
+
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.int32).contiguous()
+
+
+def delta_push(rows, z_old, z_new, changed, num_rows: int, num_topics: int,
+               out=None) -> torch.Tensor:
+    """Dense [num_rows, K] int32 reassignment delta of a token batch:
+    -1 at ``(rows, z_old)`` and +1 at ``(rows, z_new)`` where ``changed``
+    is non-zero and ``0 <= rows < num_rows``.  Accumulates into ``out``
+    when given (the table the delta is for, where nothing else reads it),
+    else into a fresh zeroed buffer; returns it."""
+    out = _out(out, rows, num_rows, num_topics)
+    if _route(rows, "delta_push"):
+        return _dp.delta_push_cuda(_i32(rows), _i32(z_old), _i32(z_new),
+                                   (changed != 0).contiguous(), out)
+    return ref.delta_push_ref(rows, z_old, z_new, changed, num_rows,
+                              num_topics, out=out)
+
+
+def delta_apply_coo(rows, cols, vals, num_rows: int, num_topics: int,
+                    out=None) -> torch.Tensor:
+    """Apply a ``(row, col, val)`` COO buffer as a dense [num_rows, K]
+    int32 delta (value-0 entries are padding; entries outside the matrix
+    are dropped), accumulating into ``out`` when given; returns it."""
+    out = _out(out, rows, num_rows, num_topics)
+    if _route(rows, "delta_apply_coo"):
+        return _dp.delta_apply_coo_cuda(_i32(rows), _i32(cols), _i32(vals),
+                                        out)
+    return ref.delta_apply_coo_ref(rows, cols, vals, num_rows, num_topics,
+                                   out=out)
 
 
 def launch_counts() -> Dict[str, int]:

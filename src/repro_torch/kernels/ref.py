@@ -23,3 +23,40 @@ def mh_sample_ref(rng: "lda.MHRandoms", z0, w, d, nwk, ndk, nk, aprob,
 def alias_build_ref(weights: torch.Tensor) -> "alias_mod.AliasTable":
     """Plain version of ``kernels/alias_build.py``: Vose construction."""
     return alias_mod.build_alias_rows(weights)
+
+
+def _in_range(x: torch.Tensor, n: int) -> torch.Tensor:
+    return (x >= 0) & (x < n)
+
+
+def delta_push_ref(rows, z_old, z_new, changed, num_rows: int,
+                   num_topics: int, out=None) -> torch.Tensor:
+    """Plain version of ``kernels/delta_push.py::delta_push_cuda``: one
+    ``index_put_`` with accumulate of the 2T entries (-1 at ``(rows,
+    z_old)``, +1 at ``(rows, z_new)`` for changed tokens with rows in
+    ``[0, num_rows)``) into ``out`` [num_rows, K] int32 (zeros if None)."""
+    if out is None:
+        out = torch.zeros((num_rows, num_topics), dtype=torch.int32,
+                          device=rows.device)
+    ok = (changed != 0) & _in_range(rows, num_rows)
+    return delta_apply_coo_ref(
+        torch.cat([rows, rows]), torch.cat([z_old, z_new]),
+        torch.cat([-ok.to(torch.int32), ok.to(torch.int32)]), num_rows,
+        num_topics, out=out)
+
+
+def delta_apply_coo_ref(rows, cols, vals, num_rows: int, num_topics: int,
+                        out=None) -> torch.Tensor:
+    """Plain version of ``kernels/delta_push.py::delta_apply_coo_cuda``:
+    ``vals`` added at ``(rows, cols)`` into ``out`` [num_rows, K] int32
+    (zeros if None) by one ``index_put_`` with accumulate; value-0 padding
+    and entries outside the matrix add nothing."""
+    if out is None:
+        out = torch.zeros((num_rows, num_topics), dtype=torch.int32,
+                          device=rows.device)
+    ok = _in_range(rows, num_rows) & _in_range(cols, num_topics)
+    flat = (torch.where(ok, rows, 0).long() * num_topics
+            + torch.where(ok, cols, 0).long())
+    vals = torch.where(ok, vals.to(torch.int32), 0)
+    out.view(-1).index_put_((flat,), vals, accumulate=True)
+    return out

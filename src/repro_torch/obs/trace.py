@@ -3,7 +3,9 @@
 A ``Span`` is a host-timed interval (``time.perf_counter_ns``) recorded as
 a Chrome ``"ph": "X"`` complete event.  The tracer is process-wide and
 thread-safe: each thread's spans land on its own track (``tid``), so the
-serving threads' overlap is visible in the Perfetto timeline.
+serving threads' overlap is visible in the Perfetto timeline, and
+synthetic *lanes* (tids >= ``LANE_BASE``) hold timelines that are not
+threads, such as the device's share of a training sweep.
 
 Two invariants, enforced here rather than at every call site:
 
@@ -28,6 +30,9 @@ import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional
+
+LANE_BASE = 1_000_000   # first tid of the synthetic lanes, past any thread
+
 
 def _host_time_ok() -> bool:
     """True when it is safe to record host wall time (i.e. we are NOT
@@ -137,6 +142,7 @@ class Tracer:
         self._events: List[dict] = []
         self._lock = threading.Lock()
         self._tids: Dict[int, int] = {}      # thread ident -> small tid
+        self._lanes: Dict[str, int] = {}     # lane name -> synthetic tid
         self._epoch_ns = time.perf_counter_ns()
 
     # -- track bookkeeping ------------------------------------------------
@@ -153,14 +159,27 @@ class Tracer:
                     "tid": tid, "args": {"name": name}})
         return tid
 
+    def lane(self, name: str) -> int:
+        """A synthetic track for a timeline that is not a host thread (the
+        device's share of a sweep).  Stable per name."""
+        with self._lock:
+            tid = self._lanes.get(name)
+            if tid is None:
+                tid = LANE_BASE + len(self._lanes)
+                self._lanes[name] = tid
+                self._events.append({
+                    "name": "thread_name", "ph": "M", "pid": self.pid,
+                    "tid": tid, "args": {"name": f"[{name}]"}})
+        return tid
+
     def _us(self, t_ns: int) -> float:
         return (t_ns - self._epoch_ns) / 1e3
 
     # -- event emission ---------------------------------------------------
     def _complete(self, name: str, cat: str, t0_ns: int, t1_ns: int,
-                  args: Optional[dict]) -> None:
+                  args: Optional[dict], tid: Optional[int] = None) -> None:
         ev = {"name": name, "cat": cat, "ph": "X", "pid": self.pid,
-              "tid": self._tid(),
+              "tid": self._tid() if tid is None else tid,
               "ts": self._us(t0_ns), "dur": (t1_ns - t0_ns) / 1e3}
         if args:
             ev["args"] = args
@@ -174,6 +193,12 @@ class Tracer:
             return NULL_SPAN
         return Span(self, name, cat, args or None,
                     sync=sync if self.sync_spans else None)
+
+    def complete(self, name: str, t0_ns: int, t1_ns: int, cat: str = "host",
+                 tid: Optional[int] = None, **args) -> None:
+        """Record an interval measured elsewhere (``perf_counter_ns``
+        endpoints), on the calling thread's track or on lane ``tid``."""
+        self._complete(name, cat, t0_ns, t1_ns, args or None, tid)
 
     # -- output -----------------------------------------------------------
     def events(self) -> List[dict]:

@@ -1,0 +1,31 @@
+"""Glint-style parameter-server client layer (paper section 2).
+
+The one gateway to the distributed count tables:
+
+  client  = PSClient.create(...)            # in-process backend
+  nwk     = client.matrix(V, K)             # MatrixHandle (Glint BigMatrix)
+  fut     = nwk.pull_block(b, rpb)          # PullHandle future: issue ...
+  rows    = fut.result()                    # ... overlap ... await
+  nwk     = nwk.push(reassign)              # routed via the handle's PushRoute
+
+Routes (``DenseRoute`` / ``CooRoute`` / ``HybridRoute``) make the paper's
+section-3.3 hybrid push a declarative policy; ``core/pserver.py`` is the
+storage layer underneath.
+"""
+from repro_torch.ps.backend import Backend, InProcessBackend
+from repro_torch.ps.client import (BACKEND_NAMES, BackendConfigError,
+                                   MatrixHandle, PSClient, PullHandle,
+                                   ReadOnlyView, VectorHandle, client_for)
+from repro_torch.ps.routes import (CooRoute, DenseRoute, HybridRoute,
+                                   PushRoute, Reassign, RouteDelta,
+                                   partition_by_mask, partition_reassign,
+                                   route_for)
+
+__all__ = [
+    "Backend", "InProcessBackend",
+    "MatrixHandle", "PSClient", "PullHandle", "ReadOnlyView",
+    "VectorHandle", "client_for",
+    "CooRoute", "DenseRoute", "HybridRoute", "PushRoute", "Reassign",
+    "RouteDelta", "partition_by_mask", "partition_reassign", "route_for",
+    "BACKEND_NAMES", "BackendConfigError",
+]

@@ -6,6 +6,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax
 import jax.numpy as jnp
 
 from repro.core import alias as jalias
@@ -114,3 +115,28 @@ def test_ops_alias_build_on_cpu_is_the_plain_version():
     assert torch.equal(got.alias, want.alias)
     assert tops.launch_counts()["alias_build"] == 0
 
+
+
+@pytest.mark.parametrize("v,k", [(400, 64), (300, 7), (300, 130),
+                                 (100, 1000), (8, 1), (5, 33)])
+def test_alias_table_of_training_weights_equals_jax_bitwise(v, k):
+    """Training rebuilds its alias tables from (n_wk + β)/(n_k + Vβ) every
+    sweep, so ``prob`` must equal the JAX package's to the last ulp, or an
+    MH coin can flip.  That holds because ``row_sum`` adds in XLA's CPU
+    order (windows of 32); ``p.sum(-1)`` differs in the last ulp in most
+    rows, as the second half shows."""
+    rng = np.random.default_rng(k)
+    nwk = (rng.zipf(1.5, (v, k)) % 300).astype(np.float32)
+    nk = nwk.sum(0) + 3
+    w = ((nwk + np.float32(0.01))
+         / (nk[None] + np.float32(v * 0.01))).astype(np.float32)
+    got = talias.build_alias_rows(torch.from_numpy(w))
+    want = jalias.build_alias_rows(jnp.asarray(w))
+    np.testing.assert_array_equal(got.prob.numpy(), np.asarray(want.prob))
+    np.testing.assert_array_equal(got.alias.numpy(), np.asarray(want.alias))
+    xla = np.asarray(jax.jit(lambda x: x.sum(-1))(jnp.asarray(w)))
+    np.testing.assert_array_equal(talias.row_sum(torch.from_numpy(w)).numpy(),
+                                  xla)
+    if k > 32:
+        torch_order = torch.from_numpy(w).sum(-1).numpy()
+        assert (torch_order != xla).any()

@@ -96,3 +96,66 @@ def test_serving_on_card_matches_cpu(card):
     from repro_torch.infer import QueryEngine
     cpu = QueryEngine(snap, ecfg).infer(docs, list(range(len(docs))))
     np.testing.assert_array_equal(theta, np.stack([r.theta for r in cpu]))
+
+
+def _delta_batch(card, rows, k, t, seed, frac):
+    """Zipf-skewed rows (thousands of tokens on row 0), some past the
+    matrix, ``changed`` at the given fraction."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    u = torch.rand((t,), generator=g, device=card)
+    r = torch.clamp(torch.floor(torch.exp(u * np.log(rows))).long() - 1, 0,
+                    rows - 1)
+    past = torch.rand((t,), generator=g, device=card) < 0.01
+    r = torch.where(past, rows + 3, r).int()
+    zo = torch.randint(0, k, (t,), generator=g, device=card,
+                       dtype=torch.int32)
+    zn = torch.randint(0, k, (t,), generator=g, device=card,
+                       dtype=torch.int32)
+    return r, zo, zn, torch.rand((t,), generator=g, device=card) < frac
+
+
+@pytest.mark.parametrize("rows,k", [(300, 7), (2048, 130), (2000, 1000)])
+@pytest.mark.parametrize("frac", [0.0, 0.5, 1.0])
+def test_delta_push_kernel_matches_plain_bitwise(card, rows, k, frac):
+    args = _delta_batch(card, rows, k, 32 * 1024, rows + k, frac)
+    before = ops.launch_counts()["delta_push"]
+    got = ops.delta_push(*args, rows, k)
+    assert ops.launch_counts()["delta_push"] == before + 1
+    assert torch.equal(got, ref.delta_push_ref(*args, rows, k))
+
+
+@pytest.mark.parametrize("rows,k", [(300, 7), (2048, 130), (2000, 1000)])
+def test_delta_apply_coo_kernel_matches_plain_bitwise(card, rows, k):
+    g = torch.Generator(device=card).manual_seed(k)
+    m = 64 * 1024
+    r = torch.randint(-2, rows + 2, (m,), generator=g, device=card)
+    c = torch.randint(-1, k + 1, (m,), generator=g, device=card)
+    r[m // 2:] = r[: m // 2]                      # every coordinate twice
+    v = torch.randint(-3, 4, (m,), generator=g, device=card)
+    base = torch.randint(0, 9, (rows, k), generator=g, device=card,
+                         dtype=torch.int32)
+    before = ops.launch_counts()["delta_apply_coo"]
+    got = ops.delta_apply_coo(r, c, v, rows, k, out=base.clone())
+    assert ops.launch_counts()["delta_apply_coo"] == before + 1
+    assert torch.equal(got, ref.delta_apply_coo_ref(r, c, v, rows, k,
+                                                    out=base.clone()))
+
+
+@pytest.mark.parametrize("extra", [{}, {"model_blocks": 4, "staleness": 1}])
+def test_training_on_card_matches_cpu(card, extra):
+    """A small job through APSLDA on the card and on the CPU: z and every
+    count table equal bitwise, and the card ran the training kernels."""
+    from repro_torch.api import APSLDA, HybridRoute, LDAJob
+    from repro_torch.data.corpus import synthetic_corpus
+
+    corp = synthetic_corpus(120, 900, true_topics=8, seed=2)
+    job = LDAJob(corpus=corp, num_topics=24, block_tokens=1024, sweeps=2,
+                 eval_every=0, route=HybridRoute(hot_words=60), **extra)
+    ops.reset_launch_counts()
+    gpu = APSLDA(job, log_fn=lambda m: None).fit()
+    counts = ops.launch_counts()
+    assert counts["mh_sample"] > 0 and counts["delta_push"] > 0
+    est = APSLDA(job, log_fn=lambda m: None, device="cpu")
+    cpu = est.fit()
+    np.testing.assert_array_equal(gpu.nwk, cpu.nwk)
+    np.testing.assert_array_equal(gpu.nk, cpu.nk)

@@ -47,7 +47,12 @@ def test_source_has_no_jax_or_repro_import():
     pattern = re.compile(r"^\s*(import jax|from jax|import repro(\.|\s|$)|"
                          r"from repro(\.| import))", re.M)
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 15
+    assert len(files) > 30
+    # the training slice's modules are among them
+    for mod in ("core/pserver.py", "ps/client.py", "ps/routes.py",
+                "train/async_exec.py", "api/session.py", "api/job.py",
+                "kernels/delta_push.py", "core/coherence.py"):
+        assert PKG / mod in files, mod
     for f in files:
         assert not pattern.search(f.read_text()), f
 
@@ -73,10 +78,16 @@ def test_ops_dispatch_on_device():
     meta = torch.empty((4, 3), device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.alias_build(meta)
-    assert set(ops.launch_counts()) == {"mh_sample", "alias_build"}
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.delta_push(meta[0].int(), meta[0].int(), meta[0].int(),
+                       meta[0].bool(), 4, 3,
+                       out=torch.empty((4, 3), device="meta"))
+    names = {"mh_sample", "alias_build", "delta_push", "delta_apply_coo"}
+    assert set(ops.launch_counts()) == names
     ops.KERNELS["mh_sample"].launches = 7
+    ops.KERNELS["delta_apply_coo"].launches = 2
     ops.reset_launch_counts()
-    assert ops.launch_counts() == {"mh_sample": 0, "alias_build": 0}
+    assert ops.launch_counts() == dict.fromkeys(names, 0)
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -93,10 +104,15 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_build_names_library_by_source_hash():
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, ops
     a = _build.library_path("mh_sample")
     b = _build.library_path("alias_build")
     assert a.parent == b.parent == ROOT / "build" / "kernels"
+    # both delta kernels live in one source, built once
+    assert ops.KERNELS["delta_push"].source == "delta_push"
+    assert ops.KERNELS["delta_apply_coo"].source == "delta_push"
+    assert {k.source for k in ops.KERNELS.values()} == {
+        p.stem for p in _build.CSRC.glob("*.cu")}
     assert a.name.startswith("mh_sample-") and a.suffix == ".so"
     assert a != b
     assert "--fmad=false" in _build.NVCC_FLAGS
