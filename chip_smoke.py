@@ -9,9 +9,10 @@ Phases (any failure raises and the script exits non-zero):
   2. build    -- nvcc every kernel of the paths from src/repro_torch/kernels/
                  csrc, one process per source, all at once;
   3. kernels  -- each kernel against its plain PyTorch version on the card:
-                 mh_sample bitwise at K in {7, 130, 1000} in both modes,
-                 alias_build's pmf at rtol 3e-5 / atol 3e-6, rows with
-                 exact-1.0 entries and near-one-hot rows included;
+                 mh_sample bitwise at K in {7, 130, 1000} in both modes, at
+                 32,768, 8,192 and 100 tokens; alias_build bitwise in prob
+                 and alias at K in {7, 130, 1000, 2000}, rows with exact-1.0
+                 entries and near-one-hot rows included;
                  delta_push and delta_apply_coo bitwise at (rows, K) in
                  {(300, 7), (2048, 130), (2000, 1000), (100000, 1000)},
                  with out-of-range rows, padding and Zipf-skewed rows;
@@ -19,20 +20,24 @@ Phases (any failure raises and the script exits non-zero):
                  K = 1,000: TopicModel -> snapshot -> transform of 512
                  documents -> score -> a ConcurrentEngine under 8 client
                  threads; launch counters, θ sums, batch independence, and
-                 card θ == CPU-plain θ bitwise;
+                 a TopicModel built on the CPU from the same counts: its
+                 alias tables and its θ of 8 documents equal the card's
+                 bitwise;
   5. training -- the training slice at the same widths:
                  APSLDA(LDAJob(..., route=HybridRoute(hot_words=2000))).fit()
                  on a 2M-token synthetic corpus, 3 sweeps of the snapshot
                  executor, then one sweep of the pipelined executor (16
-                 model blocks, staleness 1); launch counters, exact count
-                 conservation, falling perplexity, and the trained model
-                 serving 64 held-out documents; then a small job on the card
-                 and on the CPU, both executors, with z and every count
-                 table equal bitwise;
-  6. report   -- per-kernel times at the main paths' shapes, a profile of
-                 one fold-in batch and of one training sweep, one JSON line
-                 with each kernel's launches, error, times and bound, then
-                 the device line last.
+                 model blocks, staleness 1); launch counters (alias_build
+                 once per snapshot sweep and once per pipelined group),
+                 exact count conservation, falling perplexity, and the
+                 trained model serving 64 held-out documents; then a small
+                 job on the card and on the CPU, both executors, with z and
+                 every count table equal bitwise;
+  6. report   -- per-kernel times at the main paths' shapes (alias_build
+                 held bitwise at serving's φ and at each executor's
+                 weights), a profile of one fold-in batch and of one
+                 training sweep, one JSON line with each kernel's launches,
+                 error, times and bound, then the device line last.
 
 Imports nothing of JAX or of the JAX package.  Writes profiles to
 chiprun_out/serving_profile.txt and chiprun_out/training_profile.txt, and
@@ -224,44 +229,53 @@ def alias_test_weights(torch, rows: int, k: int, seed: int):
     return wts
 
 
+def alias_bitwise(torch, got, want, what: str) -> float:
+    """Raise unless two alias tables are equal bitwise; return the largest
+    prob difference (0.0)."""
+    equal = bool(torch.equal(got.prob, want.prob)
+                 and torch.equal(got.alias, want.alias))
+    if not equal:
+        raise AssertionError(
+            f"alias_build differs from its plain version at {what}: prob max "
+            f"{float((got.prob - want.prob).abs().max())}, "
+            f"{int((got.alias != want.alias).sum())} alias entries")
+    return float((got.prob - want.prob).abs().max())
+
+
 def check_kernels(torch) -> None:
-    from repro_torch.core import alias as alias_mod
     from repro_torch.core import lightlda as lda
     from repro_torch.kernels import alias_build, mh_sample, ref
 
     for k in (7, 130, 1000):
-        for frozen in (True, False):
-            args = random_mh_inputs(torch, lda, rows=2048, k=k, t=32 * 1024,
-                                    docs=32, seed=k)
-            cfg = lda.LDAConfig(num_topics=k, vocab_size=2048)
-            got = mh_sample.mh_sample_cuda(*args, cfg, frozen=frozen)
-            want = ref.mh_sample_ref(*args, cfg, frozen=frozen)
-            torch.cuda.synchronize()
-            match = bool(torch.equal(got, want))
-            moved = float((got != args[1]).float().mean())
-            log(json.dumps({"check": "mh_sample", "K": k, "frozen": frozen,
-                            "tokens": 32 * 1024, "match": match,
-                            "moved_frac": round(moved, 4)}))
-            if not match:
-                raise AssertionError(f"mh_sample differs from its plain "
-                                     f"version at K={k}, frozen={frozen}")
+        for tokens in (32 * 1024, 8192, 100):
+            for frozen in (True, False):
+                args = random_mh_inputs(torch, lda, rows=2048, k=k, t=tokens,
+                                        docs=32, seed=k + tokens)
+                cfg = lda.LDAConfig(num_topics=k, vocab_size=2048)
+                got = mh_sample.mh_sample_cuda(*args, cfg, frozen=frozen)
+                want = ref.mh_sample_ref(*args, cfg, frozen=frozen)
+                torch.cuda.synchronize()
+                match = bool(torch.equal(got, want))
+                moved = float((got != args[1]).float().mean())
+                log(json.dumps({"check": "mh_sample", "K": k,
+                                "frozen": frozen, "tokens": tokens,
+                                "match": match,
+                                "moved_frac": round(moved, 4)}))
+                if not match:
+                    raise AssertionError(
+                        f"mh_sample differs from its plain version at K={k},"
+                        f" {tokens} tokens, frozen={frozen}")
 
-        wts = alias_test_weights(torch, rows=512, k=k, seed=k)
+    for k in (7, 130, 1000, 2000):
+        wts = alias_test_weights(torch, rows=511, k=k, seed=k)
         got = alias_build.alias_build_cuda(wts)
         want = ref.alias_build_ref(wts)
-        pmf_got = alias_mod.alias_pmf(got)
-        pmf_want = alias_mod.alias_pmf(want)
         torch.cuda.synchronize()
-        err = float((pmf_got - pmf_want).abs().max())
-        close = bool(torch.allclose(pmf_got, pmf_want, rtol=3e-5, atol=3e-6))
-        in_range = bool(((got.alias >= 0) & (got.alias < k)).all()
-                        and ((got.prob >= 0) & (got.prob <= 1)).all())
-        log(json.dumps({"check": "alias_build", "K": k, "rows": 512,
-                        "pmf_max_abs_err": err, "match": close,
-                        "ranges_ok": in_range}))
-        if not (close and in_range):
-            raise AssertionError(f"alias_build disagrees with its plain "
-                                 f"version at K={k} (err {err})")
+        alias_bitwise(torch, got, want, f"K={k}")
+        warps, rows_per_sm = alias_build.launch_config(k)
+        log(json.dumps({"check": "alias_build", "K": k, "rows": 511,
+                        "bitwise": True, "warps_per_block": warps,
+                        "rows_per_sm": rows_per_sm}))
 
 
 def delta_inputs(torch, rows: int, k: int, t: int, seed: int,
@@ -345,7 +359,7 @@ def serve_slice(torch, seed: int, card: str, device: str = "cuda",
     results (the main-path launch counts among them)."""
     from repro_torch.api import TopicModel
     from repro_torch.core.lightlda import LDAConfig
-    from repro_torch.infer import ConcurrentEngine, EngineConfig, QueryEngine
+    from repro_torch.infer import ConcurrentEngine, EngineConfig
     from repro_torch.kernels import ops
 
     t0 = time.perf_counter()
@@ -439,15 +453,26 @@ def serve_slice(torch, seed: int, card: str, device: str = "cuda",
     if not np.array_equal(alone, theta[i]):
         raise AssertionError("θ of a request alone differs from its θ in a "
                              "full batch")
-    # card against CPU: the same FrozenModel, the plain path, same seeds
+    # card against CPU: a TopicModel built on the CPU from the same counts
+    # (its alias tables by the plain construction), the same seeds
     if device == "cuda":
-        cpu_eng = QueryEngine(snap.to("cpu"), EngineConfig(max_batch=1))
+        t0 = time.perf_counter()
+        cpu_model = TopicModel(nwk, nk, cfg, ecfg=EngineConfig(max_batch=1),
+                               device="cpu")
+        cpu_snap = cpu_model.snapshot
+        out["cpu_publish_s"] = time.perf_counter() - t0
+        for name in ("aprob", "aalias"):
+            if not torch.equal(getattr(snap.model, name).cpu(),
+                               getattr(cpu_snap.model, name)):
+                raise AssertionError(f"the card's alias tables ({name}) "
+                                     f"differ from the CPU's")
         idx = list(range(8))
-        cpu_theta = np.stack([r.theta for r in cpu_eng.infer(
-            [docs[j] for j in idx], [seeds[j] for j in idx])])
+        cpu_theta = cpu_model.transform([docs[j] for j in idx],
+                                        [seeds[j] for j in idx])
         if not np.array_equal(cpu_theta, theta[idx]):
             raise AssertionError("card θ differs from CPU-plain θ: max "
                                  f"{np.abs(cpu_theta - theta[idx]).max()}")
+        del cpu_model, cpu_snap
     out["docs_per_s"] = n_docs / out["transform_s"]
     out["p50_ms"] = float(np.percentile(lat, 50))
     out["p90_ms"] = float(np.percentile(lat, 90))
@@ -459,7 +484,8 @@ def serve_slice(torch, seed: int, card: str, device: str = "cuda",
         "transform_s": out["transform_s"],
         "docs_per_s": out["docs_per_s"], "concurrent_requests": len(lat),
         "concurrent_s": out["concurrent_s"], "request_p50_ms": out["p50_ms"],
-        "request_p90_ms": out["p90_ms"], "request_p99_ms": out["p99_ms"], "launches": out["counts"],
+        "request_p90_ms": out["p90_ms"], "request_p99_ms": out["p99_ms"],
+        "launches": out["counts"], "cpu_publish_s": out.get("cpu_publish_s"),
         "checks": "ok", "card": card}}))
     out.update(model=model, docs=docs, seeds=seeds)
     return out
@@ -506,15 +532,18 @@ def groups_per_sweep(info: dict) -> int:
     return info["n_blocks"] // info["group"]
 
 
-def expected_launches(groups: int, num_rows: int) -> dict:
+def expected_launches(groups: int, num_rows: int, alias_builds: int) -> dict:
     """Launches of the path's kernels for ``groups`` groups whose push
     rows number ``num_rows``: mh_sample once per group; under
     HybridRoute(HOT_WORDS), delta_push per group unless no row is hot and
-    delta_apply_coo unless every row is (the route's degenerate plans)."""
+    delta_apply_coo unless every row is (the route's degenerate plans);
+    alias_build ``alias_builds`` times (once per snapshot sweep, once per
+    pipelined group)."""
     hot = min(HOT_WORDS, num_rows)
     return {"mh_sample": groups,
             "delta_push": groups if hot > 0 else 0,
-            "delta_apply_coo": groups if hot < num_rows else 0}
+            "delta_apply_coo": groups if hot < num_rows else 0,
+            "alias_build": alias_builds}
 
 
 def train_slice(torch, seed: int, card: str, device: str = "cuda",
@@ -550,7 +579,8 @@ def train_slice(torch, seed: int, card: str, device: str = "cuda",
     counts = ops.launch_counts()
     # ---------------------------------------------------- end of main path
     info = est.result_.info
-    want = expected_launches(groups_per_sweep(info) * job.sweeps, v)
+    want = expected_launches(groups_per_sweep(info) * job.sweeps, v,
+                             alias_builds=job.sweeps)
     for name, n in want.items():
         if device == "cuda" and counts[name] != n:
             raise AssertionError(f"snapshot executor: {name} launched "
@@ -587,7 +617,8 @@ def train_slice(torch, seed: int, card: str, device: str = "cuda",
     # ---------------------------------------------------- end of main path
     pinfo = pest.result_.info
     want = expected_launches(groups_per_sweep(pinfo),
-                             pinfo["rows_per_block"] * pinfo["group"])
+                             pinfo["rows_per_block"] * pinfo["group"],
+                             alias_builds=groups_per_sweep(pinfo))
     for name, n in want.items():
         if device == "cuda" and pcounts[name] != n:
             raise AssertionError(f"pipelined executor: {name} launched "
@@ -738,6 +769,19 @@ def snapshot_group_inputs(torch, train: dict):
             st.valid[:g])
 
 
+def pipelined_group_rows(train: dict):
+    """The pipelined executor's (16 model blocks, staleness 1) rows per
+    group and its first group's pulled [rows, K] counts, from the trained
+    state."""
+    from repro_torch.train import async_exec
+
+    st = train["state"]
+    rpb, _, s = async_exec.blocked_geometry(st.nwk.layout, PIPE_BLOCKS,
+                                            PIPE_STALENESS)
+    grp_rows = rpb * (s + 1)
+    return grp_rows, st.nwk.pull_block(0, grp_rows).result()
+
+
 def pipelined_group_inputs(torch, train: dict):
     """mh_sample's inputs in the pipelined executor's first group (16 model
     blocks, staleness 1) of a sweep of the trained state: the group's
@@ -746,17 +790,14 @@ def pipelined_group_inputs(torch, train: dict):
     from repro_torch import rng as jrng
     from repro_torch.core import alias as alias_mod
     from repro_torch.core import lightlda as lda
-    from repro_torch.train import async_exec
 
     st, cfg = train["state"], train["cfg"]
     layout = st.nwk.layout
-    rpb, _, s = async_exec.blocked_geometry(layout, PIPE_BLOCKS,
-                                            PIPE_STALENESS)
-    grp_rows = rpb * (s + 1)
+    grp_rows, rows = pipelined_group_rows(train)
     idx, _ = lda.block_token_index(st.w.cpu().numpy(),
                                    st.valid.cpu().numpy(), grp_rows, layout)
     i = torch.from_numpy(idx[0]).to("cuda").long()
-    rows, nk = st.nwk.pull_block(0, grp_rows).result(), st.nk.value
+    nk = st.nk.value
     table = alias_mod.build_alias_rows(
         (rows.to(torch.float32) + cfg.beta)
         / (nk.to(torch.float32)[None, :] + cfg.V * cfg.beta))
@@ -826,7 +867,8 @@ def training_mh_rows(torch, timer: Timer, train: dict, card: str):
             plain_ms, mh_sample_bytes(torch, *args), s * t * 60))
         log(json.dumps({"timing": {f"mh_sample_train_{executor}": {
             "table_rows": args[4].shape[0], "K": cfg.K, "tokens": t,
-            "ndk_rows": args[5].shape[0], "match": True, "card": card}}}))
+            "ndk_rows": args[5].shape[0], "match": True, "ms": ms,
+            "card": card}}}))
         if executor == "snapshot":
             snapshot_group = (args, got, valid)
         del args, got, want
@@ -966,10 +1008,53 @@ def delta_rows(torch, timer: Timer, train: dict, snapshot_group,
     return rows
 
 
+def alias_row(torch, timer: Timer, name: str, weights, launches: int,
+              reps: int, card: str) -> dict:
+    """alias_build at ``weights``: held bitwise against its plain version,
+    timed cold (each caller has just written the weights: serving's
+    phi_from_counts, the executors' (n_wk + β)/(n_k + Vβ)), and its row."""
+    from repro_torch.kernels import alias_build, ref
+
+    v, k = weights.shape
+    err = alias_bitwise(torch, alias_build.alias_build_cuda(weights),
+                        ref.alias_build_ref(weights), name)
+    ms = timer.ms(lambda: alias_build.alias_build_cuda(weights), reps=reps,
+                  before=timer.evict)
+    plain_ms = timer.ms(lambda: ref.alias_build_ref(weights), reps=1,
+                        device_only=False, before=timer.evict)
+    warps, rows_per_sm = alias_build.launch_config(k)
+    log(json.dumps({"timing": {name: {
+        "rows": v, "K": k, "bitwise": True, "ms": ms, "plain_ms": plain_ms,
+        "warps_per_block": warps, "rows_per_sm": rows_per_sm,
+        "card": card}}}))
+    return kernel_row(name, "src/repro_torch/kernels/csrc/alias_build.cu",
+                      "src/repro/kernels/alias_build.py:38", launches, err,
+                      ms, plain_ms, v * k * 12, v * k * 10)
+
+
+def training_alias_rows(torch, timer: Timer, train: dict,
+                        card: str) -> list:
+    """alias_build at each executor's weights of a sweep of the trained
+    state: the snapshot's [V, K] table and the pipelined executor's first
+    group of rows, each with the launches of that executor's run."""
+    from repro_torch.train import async_exec
+
+    st, cfg = train["state"], train["cfg"]
+    snap_w = async_exec._weights(st.nwk.to_dense(), st.nk.value, cfg)
+    rows = [alias_row(torch, timer, "alias_build_train_snapshot", snap_w,
+                      train["snapshot_counts"]["alias_build"], 5, card)]
+    del snap_w
+    _, pulled = pipelined_group_rows(train)
+    pipe_w = async_exec._weights(pulled, st.nk.value, cfg)
+    rows.append(alias_row(torch, timer, "alias_build_train_pipelined",
+                          pipe_w, train["pipelined_counts"]["alias_build"],
+                          10, card))
+    return rows
+
+
 def kernel_report(torch, timer: Timer, serve: dict, train: dict,
                   card: str) -> list:
-    from repro_torch.core import alias as alias_mod
-    from repro_torch.kernels import alias_build, mh_sample, ref
+    from repro_torch.kernels import mh_sample, ref
 
     model = serve["model"]
     cfg = model.cfg
@@ -1002,33 +1087,14 @@ def kernel_report(torch, timer: Timer, serve: dict, train: dict,
                            "mh_sample.cu", "src/repro/kernels/mh_sample.py:34",
                            serve["counts"]["mh_sample"], float(err), ms,
                            plain_ms, nbytes, flops))
+    del args, got, want
 
-    phi = model.snapshot.phi
-    v, k = phi.shape
-    got = alias_build.alias_build_cuda(phi)
-    want = ref.alias_build_ref(phi)
-    pmf_err = float((alias_mod.alias_pmf(got)
-                     - alias_mod.alias_pmf(want)).abs().max())
-    if not torch.allclose(alias_mod.alias_pmf(got), alias_mod.alias_pmf(want),
-                          rtol=3e-5, atol=3e-6):
-        raise AssertionError("alias_build pmf differs at the main path's "
-                             "shapes")
-    del got, want
     # once per publish, after phi_from_counts wrote 400 MB: cold
-    ms = timer.ms(lambda: alias_build.alias_build_cuda(phi), reps=5,
-                  before=timer.evict)
-    plain_ms = timer.ms(lambda: ref.alias_build_ref(phi), reps=1,
-                        device_only=False, before=timer.evict)
-    rows.append(kernel_row("alias_build", "src/repro_torch/kernels/csrc/"
-                           "alias_build.cu",
-                           "src/repro/kernels/alias_build.py:38",
-                           serve["counts"]["alias_build"]
-                           + train["snapshot_counts"]["alias_build"]
-                           + train["pipelined_counts"]["alias_build"],
-                           pmf_err, ms, plain_ms, v * k * 12, v * k * 10))
-    del args
+    serve_alias = alias_row(torch, timer, "alias_build", model.snapshot.phi,
+                            serve["counts"]["alias_build"], 5, card)
     train_rows, snapshot_group = training_mh_rows(torch, timer, train, card)
-    return (rows[:1] + train_rows + rows[1:]
+    return (rows + train_rows + [serve_alias]
+            + training_alias_rows(torch, timer, train, card)
             + delta_rows(torch, timer, train, snapshot_group, card))
 
 
@@ -1054,12 +1120,17 @@ def device_profile(torch, fn):
     directly: building its per-event Python objects (``key_averages``)
     takes minutes for a training sweep's 1.6 M launches."""
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        # A margin on each side of ``fn``: the profiler drops device events
+        # it places outside its window, and one run's profile lacked a
+        # sweep's single alias_build launch, a few ms after the start.
+        time.sleep(0.05)
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(0.05)
     stats = {}
     cuda = torch.autograd.DeviceType.CUDA
     for e in prof.profiler.kineto_results.events():
@@ -1121,10 +1192,12 @@ def profile_batch(torch, serve: dict, card: str) -> None:
 
 
 def profile_sweep(torch, train: dict, card: str) -> None:
-    """Device time by kernel over one snapshot sweep of the trained state,
-    the device's busy share of its wall time, and the host-timed parts of
-    a sweep: the plain alias build, and per group the threefry draws,
-    mh_sample, the route's push and token_deltas' [D, K] buffer."""
+    """One snapshot sweep of the trained state without the profiler (ms
+    and tokens/s), then one under it: device time by kernel and the
+    device's busy share of its wall time; and the host-timed parts of a
+    sweep: the alias build (the kernel, and the plain version beside it),
+    and per group the threefry draws, mh_sample, the route's push and
+    token_deltas' [D, K] buffer."""
     from repro_torch import ps
     from repro_torch import rng as jrng
     from repro_torch.core import alias as alias_mod
@@ -1134,9 +1207,18 @@ def profile_sweep(torch, train: dict, card: str) -> None:
 
     st, cfg = train["state"], train["cfg"]
     route = ps.HybridRoute(hot_words=HOT_WORDS)
-    wall_ms, busy_ms, stats = device_profile(
-        torch, lambda: async_exec.snapshot_sweep(
-            st, jrng.PRNGKey(11, "cuda"), cfg, route=route))
+    tokens = int(st.valid.sum())
+
+    def sweep():
+        return async_exec.snapshot_sweep(st, jrng.PRNGKey(11, "cuda"), cfg,
+                                         route=route)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweep()
+    torch.cuda.synchronize()
+    sweep_ms = (time.perf_counter() - t0) * 1e3
+    wall_ms, busy_ms, stats = device_profile(torch, sweep)
     outdir = ROOT / "chiprun_out"
     outdir.mkdir(exist_ok=True)
     (outdir / "training_profile.txt").write_text(
@@ -1145,7 +1227,7 @@ def profile_sweep(torch, train: dict, card: str) -> None:
         f"on), device busy {busy_ms:.3f} ms\n\n{profile_table(stats)}\n")
     by_kernel = {}
     for name in ("mh_sample_kernel", "delta_push_kernel",
-                 "delta_apply_coo_kernel"):
+                 "delta_apply_coo_kernel", "alias_build_kernel"):
         by_kernel[name] = of_kernel(stats, name)
         if not by_kernel[name]["count"]:
             raise AssertionError(f"the profile of a training sweep shows no "
@@ -1166,9 +1248,9 @@ def profile_sweep(torch, train: dict, card: str) -> None:
     g = cfg.block_tokens
     groups = st.w.shape[0] // g
     nwk_dense, nk = st.nwk.to_dense(), st.nk.value
-    weights = ((nwk_dense.to(torch.float32) + cfg.beta)
-               / (nk.to(torch.float32)[None, :] + cfg.V * cfg.beta))
-    alias_ms, tbl = timed(lambda: alias_mod.build_alias_rows(weights))
+    weights = async_exec._weights(nwk_dense, nk, cfg)
+    alias_ms, tbl = timed(lambda: ops.alias_build(weights), reps=3)
+    alias_plain_ms, _ = timed(lambda: alias_mod.build_alias_rows(weights))
     w_b, d_b, valid_b = st.w[:g], st.d[:g], st.valid[:g]
     z0 = st.z[:g].clone()
     key = jrng.PRNGKey(3, "cuda")
@@ -1187,12 +1269,14 @@ def profile_sweep(torch, train: dict, card: str) -> None:
     deltas_ms, _ = timed(lambda: async_exec.token_deltas(
         d_b, z0, z_new, changed, st.ndk.shape[0], cfg.K), reps=5)
     log(json.dumps({"profile_training": {
-        "executor": "snapshot", "wall_ms_profiled": wall_ms,
-        "device_busy_ms": busy_ms,
+        "executor": "snapshot", "tokens": tokens, "sweep_ms": sweep_ms,
+        "tokens_per_s": tokens / (sweep_ms / 1e3),
+        "wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_kernels": sum(n for n, _ in stats.values()),
         "kernels": by_kernel,
-        "groups": groups, "alias_build_plain_ms_per_sweep": alias_ms,
+        "groups": groups, "alias_build_ms_per_sweep": alias_ms,
+        "alias_build_plain_ms_per_sweep": alias_plain_ms,
         "per_group_ms": {"threefry_draws": draw_ms, "mh_sample": mh_ms,
                          "route_plan": plan_ms, "token_deltas": deltas_ms},
         "card": card}}))

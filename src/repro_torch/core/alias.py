@@ -11,7 +11,9 @@ once per snapshot from the word-topic counts.  This module implements
 ``alias_build`` kernel (``repro_torch.kernels.alias_build``): the two-stack
 algorithm runs as a bounded loop of ``2K`` vectorised steps over all rows at
 once (each step retires one "small" entry per row; each index enters the
-small stack at most once), with fixed-size stacks and counters.
+small stack at most once), with fixed-size stacks and counters.  The kernel
+replays the same retirement order without stacks, so the two are bitwise
+equal in ``prob`` and ``alias``.
 """
 from __future__ import annotations
 

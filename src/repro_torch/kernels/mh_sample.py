@@ -5,8 +5,11 @@ Replaces the Pallas TPU kernel ``repro/kernels/mh_sample.py::_mh_kernel``
 The kernel (``csrc/mh_sample.cu``) runs one thread per token and reads the
 model tables in place by row index, so the caller passes whole tables plus
 per-token indices -- ``w`` into ``nwk``/``aprob``/``aalias`` and ``d`` into
-``ndk`` -- instead of the TPU path's pre-gathered [T, K] rows.  Its plain
-version is ``kernels.ref.mh_sample_ref``; the two are bitwise equal.
+``ndk`` -- instead of the TPU path's pre-gathered [T, K] rows.  For up to
+four MH steps it issues every load in three dependent levels and runs the
+chain as register selects; the launch sizes its blocks to T and the SM
+count.  Its plain version is ``kernels.ref.mh_sample_ref``; the two are
+bitwise equal.
 """
 from __future__ import annotations
 

@@ -21,7 +21,8 @@ def mh_sample_ref(rng: "lda.MHRandoms", z0, w, d, nwk, ndk, nk, aprob,
 
 
 def alias_build_ref(weights: torch.Tensor) -> "alias_mod.AliasTable":
-    """Plain version of ``kernels/alias_build.py``: Vose construction."""
+    """Plain version of ``kernels/alias_build.py``: Vose construction; the
+    kernel's tables equal these bitwise."""
     return alias_mod.build_alias_rows(weights)
 
 

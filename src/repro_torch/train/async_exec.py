@@ -20,7 +20,9 @@ group boundary.
 **Eager groups.**  The JAX package scans over groups under ``jit``; here a
 Python loop runs them, each group a handful of launches on the card: the
 threefry draws, the ``mh_sample`` kernel in training mode, the route's
-``delta_push`` / ``delta_apply_coo`` kernels, and the merges.  A sweep
+``delta_push`` / ``delta_apply_coo`` kernels, and the merges; the alias
+tables come from the ``alias_build`` kernel, once per snapshot sweep or
+once per pipelined group.  A sweep
 never writes into the state it was given: the executor works on its own
 copies of ``z`` and the count table, and builds new ``n_k``/``n_dk``.
 
@@ -47,7 +49,6 @@ import torch
 from repro_torch import obs as _obs
 from repro_torch import ps
 from repro_torch import rng as jrng
-from repro_torch.core import alias as alias_mod
 from repro_torch.core import lightlda as lda
 from repro_torch.kernels import ops
 from repro_torch.obs import ObsConfig
@@ -164,8 +165,9 @@ def pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
       1. the group's ``n_wk`` rows arrive from the previous step's
          ``PullHandle``; the next group's pull is issued at once (exact:
          a group's write-back touches only its own rows);
-      2. alias tables for the group's rows only (plain construction, as the
-         JAX package builds them in training);
+      2. alias tables for the group's rows only, by ``alias_build`` (on
+         the card its kernel, bitwise equal to the plain construction the
+         JAX package uses in training);
       3. all of the group's tokens resampled by ``mh_sample`` (training
          mode) against the group-start counts, the pulled rows as its
          table and block-local row indices;
@@ -200,7 +202,7 @@ def pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
         pulled = nwk.pull_block((grp + 1) % n_groups, grp_rows)
 
         # 2. alias tables for the group's rows only
-        table = alias_mod.build_alias_rows(_weights(rows, nk, cfg))
+        table = ops.alias_build(_weights(rows, nk, cfg))
 
         # 3. fused resample of the group's tokens against the stale view
         idx = gidx[grp].long()
@@ -251,7 +253,8 @@ def snapshot_sweep(state: "lda.SamplerState", key: torch.Tensor,
     """One full-snapshot sweep with staleness-grouped token blocks.
 
     The word rows and alias tables come from the sweep-start snapshot
-    (built once, with the plain construction, as the JAX package does);
+    (built once by ``alias_build``: on the card its kernel, bitwise equal to
+    the plain construction the JAX package uses);
     groups of ``staleness + 1`` consecutive token blocks are resampled by
     ``mh_sample`` against the group-start ``n_k``/``n_dk``, and the group's
     deltas (shaped by ``route``) merge once per group: the dense part --
@@ -277,7 +280,7 @@ def snapshot_sweep(state: "lda.SamplerState", key: torch.Tensor,
     nk = state.nk.value
 
     # --- alias tables and the chain's float table from the snapshot ---
-    table = alias_mod.build_alias_rows(_weights(nwk_dense, nk, cfg))
+    table = ops.alias_build(_weights(nwk_dense, nk, cfg))
     nwk_table = nwk_dense.to(torch.float32)
 
     ndk, z_flat = state.ndk, state.z.clone()

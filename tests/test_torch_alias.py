@@ -1,6 +1,8 @@
 """Alias tables: the port's Vose build induces the JAX package's pmf (and
-that of its Pallas kernel in interpret mode); alias draws are bitwise given
-one table."""
+that of its Pallas kernel in interpret mode) and equals its tables bitwise;
+alias draws are bitwise given one table.  A numpy replay of the order the
+CUDA kernel (``csrc/alias_build.cu``) retires entries in pins that order on
+the CPU: it equals ``build_alias_rows`` bitwise."""
 import numpy as np
 import pytest
 
@@ -116,27 +118,124 @@ def test_ops_alias_build_on_cpu_is_the_plain_version():
     assert tops.launch_counts()["alias_build"] == 0
 
 
-
-@pytest.mark.parametrize("v,k", [(400, 64), (300, 7), (300, 130),
-                                 (100, 1000), (8, 1), (5, 33)])
-def test_alias_table_of_training_weights_equals_jax_bitwise(v, k):
-    """Training rebuilds its alias tables from (n_wk + β)/(n_k + Vβ) every
-    sweep, so ``prob`` must equal the JAX package's to the last ulp, or an
-    MH coin can flip.  That holds because ``row_sum`` adds in XLA's CPU
-    order (windows of 32); ``p.sum(-1)`` differs in the last ulp in most
-    rows, as the second half shows."""
-    rng = np.random.default_rng(k)
+def _training_rows(v, k, seed):
+    """(n_wk + β)/(n_k + Vβ) of Zipf counts, as the executors build it."""
+    rng = np.random.default_rng(seed)
     nwk = (rng.zipf(1.5, (v, k)) % 300).astype(np.float32)
     nk = nwk.sum(0) + 3
-    w = ((nwk + np.float32(0.01))
-         / (nk[None] + np.float32(v * 0.01))).astype(np.float32)
-    got = talias.build_alias_rows(torch.from_numpy(w))
+    return ((nwk + np.float32(0.01))
+            / (nk[None] + np.float32(v * 0.01))).astype(np.float32)
+
+
+def _edge_rows(k, seed):
+    """``chip_smoke.alias_test_weights``' rows: random, all q exactly 1,
+    q == 1 beside one small and one large, near one-hot, all zero, one 1.0
+    among 1e-6."""
+    w = _weights(8, k, seed)
+    w[4] = 1e-6
+    w[4, 0] = 1.0
+    return w
+
+
+def _rows(kind, v, k):
+    return _edge_rows(k, k) if kind == "edge" else _training_rows(v, k, k)
+
+
+@pytest.mark.parametrize("kind,v,k", [
+    *(pytest.param("training", v, k, id=f"{v}-{k}")
+      for v, k in [(400, 64), (300, 7), (300, 130), (100, 1000), (8, 1),
+                   (5, 33), (8, 7), (8, 130), (8, 1000), (8, 2000)]),
+    *(pytest.param("edge", 8, k, id=f"edge-{k}")
+      for k in (7, 130, 1000, 2000))])
+def test_alias_table_of_training_weights_equals_jax_bitwise(kind, v, k):
+    """Training rebuilds its alias tables from (n_wk + β)/(n_k + Vβ) every
+    sweep, through ``ops.alias_build`` (the plain version on the CPU), so
+    ``prob`` must equal the JAX package's to the last ulp, or an MH coin can
+    flip.  That holds because ``row_sum`` adds in XLA's CPU order (windows
+    of 32, twice past K = 1024); ``p.sum(-1)`` differs in the last ulp in
+    most rows, as the second half shows.  The edge rows add q == 1, all-zero
+    and near one-hot rows."""
+    w = _rows(kind, v, k)
+    got = tops.alias_build(torch.from_numpy(w))
     want = jalias.build_alias_rows(jnp.asarray(w))
     np.testing.assert_array_equal(got.prob.numpy(), np.asarray(want.prob))
     np.testing.assert_array_equal(got.alias.numpy(), np.asarray(want.alias))
     xla = np.asarray(jax.jit(lambda x: x.sum(-1))(jnp.asarray(w)))
     np.testing.assert_array_equal(talias.row_sum(torch.from_numpy(w)).numpy(),
                                   xla)
-    if k > 32:
+    if kind == "training" and k > 32:
         torch_order = torch.from_numpy(w).sum(-1).numpy()
         assert (torch_order != xla).any()
+
+
+# -- the CUDA kernel's order, replayed in numpy --------------------------------
+
+def _xla_row_sum(w):
+    """Row sums in XLA's CPU order: zero padding to a multiple of 32 split
+    before/after, each window of 32 added left to right, again while more
+    than 32 remain, the rest left to right (float32 throughout)."""
+    x = w.astype(np.float32)
+    while x.shape[1] > 32:
+        n = x.shape[1]
+        pad = (-n) % 32
+        x = np.pad(x, ((0, 0), (pad // 2, pad - pad // 2)))
+        win = x.reshape(x.shape[0], -1, 32)
+        acc = np.zeros(win.shape[:2], np.float32)
+        for i in range(32):
+            acc = (acc + win[:, :, i]).astype(np.float32)
+        x = acc
+    acc = x[:, 0].copy()
+    for i in range(1, x.shape[1]):
+        acc = (acc + x[:, i]).astype(np.float32)
+    return acc
+
+
+def _replay_b2(w):
+    """The kernel's construction: q = w * (K / sum); larges (not q < 1: NaN
+    and q == 1 included) taken from the top index down, smalls the same
+    way, a large whose residual falls below 1 retired next; each step
+    alias[s] = l and q_l = (q_l + q_s) - 1.  Entries never retired keep
+    prob 1 and alias themselves."""
+    v, k = w.shape
+    psum = np.maximum(_xla_row_sum(w), np.float32(1e-30))
+    q = (w * (np.float32(k) / psum)[:, None]).astype(np.float32)
+    prob = np.ones((v, k), np.float32)
+    alias = np.tile(np.arange(k, dtype=np.int32), (v, 1))
+    one = np.float32(1.0)
+    for r in range(v):
+        small = q[r] < one
+        larges = iter(np.flatnonzero(~small)[::-1])
+        smalls = iter(np.flatnonzero(small)[::-1])
+        l, s = next(larges, None), next(smalls, None)
+        if l is None or s is None:
+            continue
+        ql, qs = q[r, l], q[r, s]
+        while True:
+            prob[r, s], alias[r, s] = qs, l
+            ql = np.float32(np.float32(ql + qs) - one)
+            if ql < one:                     # l demoted: retired next
+                s, qs = l, ql
+                l = next(larges, None)
+                if l is None:
+                    prob[r, s] = one         # never retired
+                    break
+                ql = q[r, l]
+            else:
+                s = next(smalls, None)
+                if s is None:
+                    break
+                qs = q[r, s]
+    return np.clip(prob, 0.0, 1.0), alias
+
+
+@pytest.mark.parametrize("kind", ["edge", "training"])
+@pytest.mark.parametrize("k", [1, 7, 33, 130, 1000, 2000])
+def test_kernel_order_replay_equals_build_alias_rows(k, kind):
+    w = _rows(kind, 8, k)
+    prob, alias = _replay_b2(w)
+    want = talias.build_alias_rows(torch.from_numpy(w))
+    np.testing.assert_array_equal(prob, want.prob.numpy())
+    np.testing.assert_array_equal(alias, want.alias.numpy())
+    np.testing.assert_array_equal(
+        _xla_row_sum(w), talias.row_sum(torch.from_numpy(w)).numpy())
+

@@ -39,24 +39,25 @@ def _weights(v, k, seed):
     return torch.from_numpy(w)
 
 
-@pytest.mark.parametrize("k", [1, 7, 130, 1000])
-def test_alias_build_kernel_matches_plain(card, k):
-    w = _weights(64, k, seed=k).to(card)
+@pytest.mark.parametrize("v,k", [(64, 1), (64, 7), (64, 130), (64, 1000),
+                                 (64, 2000), (61, 1000), (61, 2000)])
+def test_alias_build_kernel_matches_plain(card, v, k):
+    """Bitwise in prob and alias; K = 2000 takes the two-level row sum, and
+    V = 61 is no multiple of the rows per block."""
+    w = _weights(v, k, seed=k).to(card)
+    w[4] = 1e-6
+    w[4, 0] = 1.0
     before = ops.launch_counts()["alias_build"]
     got = ops.alias_build(w)
     want = ref.alias_build_ref(w)
     assert ops.launch_counts()["alias_build"] == before + 1
-    torch.testing.assert_close(talias.alias_pmf(got), talias.alias_pmf(want),
-                               rtol=3e-5, atol=3e-6)
-    assert ((got.alias >= 0) & (got.alias < k)).all()
-    assert ((got.prob >= 0) & (got.prob <= 1)).all()
+    assert torch.equal(got.prob, want.prob)
+    assert torch.equal(got.alias, want.alias)
 
 
-@pytest.mark.parametrize("k", [7, 130, 1000])
-@pytest.mark.parametrize("frozen", [True, False])
-def test_mh_sample_kernel_matches_plain_bitwise(card, k, frozen):
-    g = torch.Generator(device=card).manual_seed(k)
-    rows, docs, t, s = 64, 8, 4096, 2
+def _mh_args(card, k, t, s, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    rows, docs = 64, 8
     nwk = torch.randint(0, 30, (rows, k), generator=g, device=card).float()
     nk = nwk.sum(0)
     table = talias.build_alias_rows((nwk + 0.01) / (nk + rows * 0.01))
@@ -72,11 +73,29 @@ def test_mh_sample_kernel_matches_plain_bitwise(card, k, frozen):
                          ints(k, (s, t)),
                          torch.rand((s, t), generator=g, device=card))
     cfg = tlda.LDAConfig(num_topics=k, vocab_size=rows, mh_steps=s)
-    args = (rng, z0, w, d, nwk, ndk, nk, table.prob, table.alias, cfg)
+    return (rng, z0, w, d, nwk, ndk, nk, table.prob, table.alias, cfg)
+
+
+@pytest.mark.parametrize("t", [100, 4096, 8192])
+@pytest.mark.parametrize("k", [7, 130, 1000])
+@pytest.mark.parametrize("frozen", [True, False])
+def test_mh_sample_kernel_matches_plain_bitwise(card, k, frozen, t):
+    """T = 100 is fewer tokens than SMs; 8,192 is a training group."""
+    args = _mh_args(card, k, t, 2, seed=k + t)
     got = ops.mh_sample(*args, frozen=frozen)
     want = ref.mh_sample_ref(*args, frozen=frozen)
     assert torch.equal(got, want)
-    assert (got != z0).float().mean() > 0.5
+    assert (got != args[1]).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("steps", [1, 3, 4, 5])
+def test_mh_sample_kernel_step_counts(card, steps):
+    """Every unrolled step count and the generic loop (5 steps): bitwise
+    equal to the plain version."""
+    args = _mh_args(card, 130, 4096, steps, seed=steps)
+    for frozen in (True, False):
+        got = ops.mh_sample(*args, frozen=frozen)
+        assert torch.equal(got, ref.mh_sample_ref(*args, frozen=frozen))
 
 
 def test_serving_on_card_matches_cpu(card):
@@ -155,6 +174,7 @@ def test_training_on_card_matches_cpu(card, extra):
     gpu = APSLDA(job, log_fn=lambda m: None).fit()
     counts = ops.launch_counts()
     assert counts["mh_sample"] > 0 and counts["delta_push"] > 0
+    assert counts["alias_build"] > 0      # the executors' tables
     est = APSLDA(job, log_fn=lambda m: None, device="cpu")
     cpu = est.fit()
     np.testing.assert_array_equal(gpu.nwk, cpu.nwk)
