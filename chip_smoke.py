@@ -16,6 +16,11 @@ Phases (any failure raises and the script exits non-zero):
                  delta_push and delta_apply_coo bitwise at (rows, K) in
                  {(300, 7), (2048, 130), (2000, 1000), (100000, 1000)},
                  with out-of-range rows, padding and Zipf-skewed rows;
+                 delta_push's merge form (n_wk, n_dk and n_k in one launch)
+                 bitwise at (R, D, K) in {(300, 50, 7), (2048, 400, 130),
+                 (100000, 8000, 1000), (12500, 8000, 1000)} and 8,192 and
+                 1,809,664 tokens, none, half and all changed, rows and
+                 docs past their tables;
   4. serving  -- the serving slice at full width, V = 100,000 and
                  K = 1,000: TopicModel -> snapshot -> transform of 512
                  documents -> score -> a ConcurrentEngine under 8 client
@@ -27,17 +32,29 @@ Phases (any failure raises and the script exits non-zero):
                  APSLDA(LDAJob(..., route=HybridRoute(hot_words=2000))).fit()
                  on a 2M-token synthetic corpus, 3 sweeps of the snapshot
                  executor, then one sweep of the pipelined executor (16
-                 model blocks, staleness 1); launch counters (alias_build
-                 once per snapshot sweep and once per pipelined group),
+                 model blocks, staleness 1); launch counters (one
+                 delta_push per group in both executors -- the whole merge
+                 -- and no delta_apply_coo; alias_build once per snapshot
+                 sweep and once per pipelined group),
                  exact count conservation, falling perplexity, and the
                  trained model serving 64 held-out documents; then a small
                  job on the card and on the CPU, both executors, with z and
                  every count table equal bitwise;
-  6. report   -- per-kernel times at the main paths' shapes (alias_build
+  6. push     -- the message path: the trained n_wk handle pushes one
+                 snapshot group through MatrixHandle.push with
+                 HybridRoute(2000), launching delta_push's dense form and
+                 delta_apply_coo once each; its table equals the one-launch
+                 merge's bitwise;
+  7. report   -- per-kernel times at the main paths' shapes (alias_build
                  held bitwise at serving's φ and at each executor's
-                 weights), a profile of one fold-in batch and of one
-                 training sweep, one JSON line with each kernel's launches,
-                 error, times and bound, then the device line last.
+                 weights; the merge at each executor's group, also by
+                 destination), the whole merge of one group as the
+                 executors composed it before (route plan, token_deltas,
+                 adds) against the one-launch merge, in turns, then one
+                 pipelined sweep taken each way; a
+                 profile of one fold-in batch and of one training sweep, one
+                 JSON line with each kernel's launches, error, times and
+                 bound, then the device line last.
 
 Imports nothing of JAX or of the JAX package.  Writes profiles to
 chiprun_out/serving_profile.txt and chiprun_out/training_profile.txt, and
@@ -69,6 +86,9 @@ N_DOCS, N_QUERIES, N_CLIENTS, PER_CLIENT = 512, 8, 8, 16
 TRAIN_DOCS, TRAIN_DOC_LEN, TRAIN_TOPICS, HOT_WORDS = 8000, 250, 100, 2000
 DELTA_SHAPES = ((300, 7), (2048, 130), (2000, 1000), (100_000, 1000))
 DELTA_TOKENS = 32 * 1024
+MERGE_SHAPES = ((300, 50, 7), (2048, 400, 130), (100_000, 8000, 1000),
+                (12_500, 8000, 1000))
+MERGE_TOKENS = (8192, 1_809_664)
 PIPE_BLOCKS, PIPE_STALENESS = 16, 1
 REF_CHUNK = 1 << 18        # tokens per call of mh_sample's plain version
 
@@ -349,6 +369,71 @@ def check_delta_kernels(torch) -> None:
         if not match:
             raise AssertionError(f"delta_apply_coo differs from its plain "
                                  f"version at {(rows, k)}")
+    check_merge(torch)
+
+
+def merge_inputs(torch, rows: int, docs: int, k: int, t: int, seed: int,
+                 changed_frac: float):
+    """A group's reassignments for delta_push's merge form: the batch of
+    ``delta_inputs`` plus doc ids in runs, as a group's tokens come
+    (document order), 1 % of them past ``docs``."""
+    r, z_old, z_new, changed = delta_inputs(torch, rows, k, t, seed,
+                                            changed_frac)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    cu = dict(device="cuda")
+    d = torch.sort(torch.randint(0, docs, (t,), generator=g, **cu)).values
+    past = torch.rand((t,), generator=g, **cu) < 0.01
+    d = torch.where(past, docs + torch.arange(t, **cu) % 5, d)
+    return r, z_old, z_new, changed, d.to(torch.int32)
+
+
+def merge_ref(torch, batch, tables):
+    """delta_push's plain merge of ``batch`` into ``tables`` [out, ndk,
+    nk] in place."""
+    from repro_torch.kernels import ref
+
+    r, zo, zn, changed, d = batch
+    out, ndk, nk = tables
+    ref.delta_push_ref(r, zo, zn, changed, out.shape[0], out.shape[1],
+                       out=out, docs=d, ndk_out=ndk, nk_out=nk)
+
+
+def merge_cuda(torch, batch, tables):
+    from repro_torch.kernels import delta_push
+
+    r, zo, zn, changed, d = batch
+    out, ndk, nk = tables
+    delta_push.delta_push_cuda(r, zo, zn, changed, out, docs=d, ndk_out=ndk,
+                               nk_out=nk)
+
+
+def check_merge(torch) -> None:
+    """delta_push's merge form against its plain version, bitwise in all
+    three tables: at MERGE_SHAPES, a snapshot group's and a pipelined
+    group's token counts, none, half and all changed."""
+    for i, (rows, docs, k) in enumerate(MERGE_SHAPES):
+        g = torch.Generator(device="cuda").manual_seed(53 + i)
+        base = [torch.randint(0, 9, shape, generator=g, dtype=torch.int32,
+                              device="cuda")
+                for shape in ((rows, k), (docs, k), (k,))]
+        for t in MERGE_TOKENS:
+            for frac in (0.0, 0.5, 1.0):
+                batch = merge_inputs(torch, rows, docs, k, t, 41 + i, frac)
+                want = [x.clone() for x in base]
+                merge_ref(torch, batch, want)
+                got = [x.clone() for x in base]
+                merge_cuda(torch, batch, got)
+                torch.cuda.synchronize()
+                match = all(torch.equal(a, b) for a, b in zip(got, want))
+                log(json.dumps({"check": "delta_push_merge", "rows": rows,
+                                "docs": docs, "K": k, "tokens": t,
+                                "changed_frac": frac, "match": match}))
+                if not match:
+                    raise AssertionError(
+                        f"delta_push's merge differs from its plain version "
+                        f"at {(rows, docs, k)}, {t} tokens, changed {frac}")
+                del got, want, batch
+        del base
 
 
 # -- phase 4: the serving slice ----------------------------------------------
@@ -532,17 +617,12 @@ def groups_per_sweep(info: dict) -> int:
     return info["n_blocks"] // info["group"]
 
 
-def expected_launches(groups: int, num_rows: int, alias_builds: int) -> dict:
-    """Launches of the path's kernels for ``groups`` groups whose push
-    rows number ``num_rows``: mh_sample once per group; under
-    HybridRoute(HOT_WORDS), delta_push per group unless no row is hot and
-    delta_apply_coo unless every row is (the route's degenerate plans);
-    alias_build ``alias_builds`` times (once per snapshot sweep, once per
-    pipelined group)."""
-    hot = min(HOT_WORDS, num_rows)
-    return {"mh_sample": groups,
-            "delta_push": groups if hot > 0 else 0,
-            "delta_apply_coo": groups if hot < num_rows else 0,
+def expected_launches(groups: int, alias_builds: int) -> dict:
+    """Launches of the path's kernels for ``groups`` groups: mh_sample once
+    per group; delta_push once per group, the whole merge on one process,
+    whatever the route; no delta_apply_coo; alias_build ``alias_builds``
+    times (once per snapshot sweep, once per pipelined group)."""
+    return {"mh_sample": groups, "delta_push": groups, "delta_apply_coo": 0,
             "alias_build": alias_builds}
 
 
@@ -579,7 +659,7 @@ def train_slice(torch, seed: int, card: str, device: str = "cuda",
     counts = ops.launch_counts()
     # ---------------------------------------------------- end of main path
     info = est.result_.info
-    want = expected_launches(groups_per_sweep(info) * job.sweeps, v,
+    want = expected_launches(groups_per_sweep(info) * job.sweeps,
                              alias_builds=job.sweeps)
     for name, n in want.items():
         if device == "cuda" and counts[name] != n:
@@ -617,7 +697,6 @@ def train_slice(torch, seed: int, card: str, device: str = "cuda",
     # ---------------------------------------------------- end of main path
     pinfo = pest.result_.info
     want = expected_launches(groups_per_sweep(pinfo),
-                             pinfo["rows_per_block"] * pinfo["group"],
                              alias_builds=groups_per_sweep(pinfo))
     for name, n in want.items():
         if device == "cuda" and pcounts[name] != n:
@@ -786,7 +865,8 @@ def pipelined_group_inputs(torch, train: dict):
     """mh_sample's inputs in the pipelined executor's first group (16 model
     blocks, staleness 1) of a sweep of the trained state: the group's
     pulled rows and their alias tables, block-local row indices, and the
-    group's padded token slots."""
+    group's padded token slots.  Returns them, the slots' ``valid`` and
+    their logical word ids."""
     from repro_torch import rng as jrng
     from repro_torch.core import alias as alias_mod
     from repro_torch.core import lightlda as lda
@@ -794,8 +874,9 @@ def pipelined_group_inputs(torch, train: dict):
     st, cfg = train["state"], train["cfg"]
     layout = st.nwk.layout
     grp_rows, rows = pipelined_group_rows(train)
-    idx, _ = lda.block_token_index(st.w.cpu().numpy(),
-                                   st.valid.cpu().numpy(), grp_rows, layout)
+    idx, bval = lda.block_token_index(st.w.cpu().numpy(),
+                                      st.valid.cpu().numpy(), grp_rows,
+                                      layout)
     i = torch.from_numpy(idx[0]).to("cuda").long()
     nk = st.nk.value
     table = alias_mod.build_alias_rows(
@@ -808,8 +889,9 @@ def pipelined_group_inputs(torch, train: dict):
         jrng.PRNGKey(7, "cuda"),
         lda.make_doc_draw(db, st.z, st.doc_start, st.doc_len, cfg),
         i.shape[0], cfg)
-    return (rng, st.z[i], local, db, rows.to(torch.float32), st.ndk,
-            nk.to(torch.float32), table.prob, table.alias)
+    return ((rng, st.z[i], local, db, rows.to(torch.float32), st.ndk,
+             nk.to(torch.float32), table.prob, table.alias),
+            torch.from_numpy(bval[0]).to("cuda"), wb)
 
 
 def mh_sample_ref_chunked(torch, args, cfg, frozen: bool):
@@ -833,17 +915,19 @@ def training_mh_rows(torch, timer: Timer, train: dict, card: str):
     """mh_sample in training mode (``frozen=False``) at each executor's
     group shape: held bitwise against its plain version, timed, and reported
     as its own row with the launches of that executor's run.  Returns the
-    rows and the snapshot group's (inputs, new assignments, valid)."""
+    rows and, per executor, its group's reassignments: (rows, words, docs,
+    z_old, z_new, changed), as its merge receives them."""
     from repro_torch.kernels import mh_sample
 
     cfg = train["cfg"]
-    rows, snapshot_group = [], None
+    rows, groups = [], {}
     for executor, reps, ref_reps in (("snapshot", 30, 3),
                                      ("pipelined", 5, 1)):
         if executor == "snapshot":
             args, valid = snapshot_group_inputs(torch, train)
+            words = args[2]
         else:
-            args = pipelined_group_inputs(torch, train)
+            args, valid, words = pipelined_group_inputs(torch, train)
         got = mh_sample.mh_sample_cuda(*args, cfg, frozen=False)
         want = mh_sample_ref_chunked(torch, args, cfg, frozen=False)
         torch.cuda.synchronize()
@@ -869,10 +953,12 @@ def training_mh_rows(torch, timer: Timer, train: dict, card: str):
             "table_rows": args[4].shape[0], "K": cfg.K, "tokens": t,
             "ndk_rows": args[5].shape[0], "match": True, "ms": ms,
             "card": card}}}))
-        if executor == "snapshot":
-            snapshot_group = (args, got, valid)
+        z0 = args[1]
+        z_new = torch.where(valid, got, z0)
+        groups[executor] = (args[2], words, args[3], z0, z_new,
+                            (z_new != z0) & valid)
         del args, got, want
-    return rows, snapshot_group
+    return rows, groups
 
 
 def touched_sectors(torch, rows, cols, k: int) -> int:
@@ -880,6 +966,14 @@ def touched_sectors(torch, rows, cols, k: int) -> int:
     the entries (rows, cols) fall in."""
     flat = rows.long() * k + cols.long()
     return int(torch.unique(flat // (SECTOR // 4)).numel())
+
+
+def stream_sectors(torch, adds) -> int:
+    """32-byte sectors of a [T] 4-byte stream that hold an entry for which
+    ``adds`` is set: the sectors of an index stream that a function must
+    read."""
+    return int(torch.unique(torch.nonzero(adds).flatten()
+                            // (SECTOR // 4)).numel())
 
 
 def waits_on_host(torch, fn) -> bool:
@@ -913,32 +1007,29 @@ def time_library(torch, timer: Timer, fn):
     return timer.ms(fn, reps=per_span), seen
 
 
-def delta_rows(torch, timer: Timer, train: dict, snapshot_group,
-               card: str) -> list:
-    """Kernel rows of delta_push and delta_apply_coo at the snapshot
-    executor's shapes, on the reassignments of one group of a sweep (the
-    hybrid's hot tokens for the [2000, K] dense block, the cold tail's COO
-    buffer for the [V, K] table).  Each time is the kernel alone
+def delta_rows(torch, timer: Timer, train: dict, groups: dict,
+               push_counts: dict, card: str) -> list:
+    """Kernel rows of delta_push's single-destination form and of
+    delta_apply_coo at the routed push's shapes (``routed_push``): one
+    snapshot group's reassignments, the hybrid's hot tokens into the
+    [2000, K] dense block and the cold tail's COO buffer into the [V, K]
+    table, with that push's launches.  Each time is the kernel alone
     accumulating into a buffer made outside the span, as the library call
     (one index_put_ with accumulate, its flat indices and values made
-    outside the span) is timed; neither kernel writes a fresh buffer, so
-    the bound counts no zero-fill.  Bytes: each input element the data
-    needs read once (every ``changed`` flag / COO value, the indices of the
-    entries that add), and each touched 32-byte output sector read and
+    outside the span) is timed.  Bytes: the mask (B3) or the values (B4)
+    read once per entry; of the index streams only the 32-byte sectors that
+    hold an entry that adds; each touched 32-byte output sector read and
     written once."""
     from repro_torch.kernels import delta_push, ref
 
-    (_, zo, w, *_), zn, valid = snapshot_group
+    w, _, _, zo, zn, changed = groups["snapshot"]
     nwk_dense = train["state"].nwk.to_dense()
-    changed = (zn != zo) & valid
     hot, cold_m = delta_push.split_hot_cold(w, changed, HOT_WORDS)
     cr, cc, cv = delta_push.cold_coo(w, zo, zn, cold_m)
     k = nwk_dense.shape[1]
-    launches = {n: train["snapshot_counts"][n] + train["pipelined_counts"][n]
-                for n in ("delta_push", "delta_apply_coo")}
     rows = []
 
-    # B3: the hybrid's hot block [HOT_WORDS, K], a fresh buffer per group
+    # B3, single destination: the hybrid's hot block [HOT_WORDS, K]
     h = HOT_WORDS
     got = delta_push.delta_push_cuda(w, zo, zn, hot, torch.zeros(
         (h, k), dtype=torch.int32, device="cuda"))
@@ -946,7 +1037,7 @@ def delta_rows(torch, timer: Timer, train: dict, snapshot_group,
     err = int((got - want).abs().max())
     if err:
         raise AssertionError("delta_push differs from its plain version at "
-                             "the main path's shapes")
+                             "the routed push's shapes")
     buf = torch.zeros((h, k), dtype=torch.int32, device="cuda")
     ms = timer.ms(lambda: delta_push.delta_push_cuda(w, zo, zn, hot, buf),
                   reps=100)
@@ -962,16 +1053,15 @@ def delta_rows(torch, timer: Timer, train: dict, snapshot_group,
     n_hot = int(m.sum())
     sectors = touched_sectors(torch, torch.cat([w[m], w[m]]),
                               torch.cat([zo[m], zn[m]]), k)
-    nbytes = w.shape[0] * 1 + n_hot * 12 + sectors * 2 * SECTOR
+    t = w.shape[0]
+    nbytes = t + (3 * stream_sectors(torch, m) + 2 * sectors) * SECTOR
     rows.append(kernel_row(
         "delta_push", "src/repro_torch/kernels/csrc/delta_push.cu",
-        "src/repro/kernels/delta_push.py:39", launches["delta_push"],
-        float(err), ms, plain_ms, nbytes, w.shape[0] * 2 + n_hot * 8,
-        lib_ms))
+        "src/repro/kernels/delta_push.py:39", push_counts["delta_push"],
+        float(err), ms, plain_ms, nbytes, t * 2 + n_hot * 8, lib_ms))
     log(json.dumps({"timing": {"delta_push": {
-        "rows": h, "K": k, "tokens": w.shape[0], "hot_changed": n_hot,
-        "sectors": sectors, "library": lib_seen,
-        "card": card}}}))
+        "rows": h, "K": k, "tokens": t, "hot_changed": n_hot,
+        "sectors": sectors, "library": lib_seen, "card": card}}}))
 
     # B4: the cold tail's COO buffer applied into the [V, K] table
     v = nwk_dense.shape[0]
@@ -980,7 +1070,7 @@ def delta_rows(torch, timer: Timer, train: dict, snapshot_group,
     err = int((got - want).abs().max())
     if err:
         raise AssertionError("delta_apply_coo differs from its plain "
-                             "version at the main path's shapes")
+                             "version at the routed push's shapes")
     del got, want
     table = nwk_dense.clone()
     ms = timer.ms(lambda: delta_push.delta_apply_coo_cuda(cr, cc, cv, table),
@@ -995,17 +1085,289 @@ def delta_rows(torch, timer: Timer, train: dict, snapshot_group,
     nz = cv != 0
     n_nz = int(nz.sum())
     sectors = touched_sectors(torch, cr[nz], cc[nz], k)
-    nbytes = cr.shape[0] * 4 + n_nz * 8 + sectors * 2 * SECTOR
+    nbytes = cr.shape[0] * 4 + (2 * stream_sectors(torch, nz)
+                                + 2 * sectors) * SECTOR
     rows.append(kernel_row(
         "delta_apply_coo", "src/repro_torch/kernels/csrc/delta_push.cu",
-        "src/repro/kernels/delta_push.py:133", launches["delta_apply_coo"],
-        float(err), ms, plain_ms, nbytes, cr.shape[0] * 2 + n_nz * 6,
-        lib_ms))
+        "src/repro/kernels/delta_push.py:133",
+        push_counts["delta_apply_coo"], float(err), ms, plain_ms, nbytes,
+        cr.shape[0] * 2 + n_nz * 6, lib_ms))
     log(json.dumps({"timing": {"delta_apply_coo": {
         "rows": v, "K": k, "entries": cr.shape[0], "nonzero": n_nz,
-        "sectors": sectors, "library": lib_seen,
-        "card": card}}}))
+        "sectors": sectors, "library": lib_seen, "card": card}}}))
     return rows
+
+
+def group_tables(torch, train: dict, executor: str) -> list:
+    """Fresh copies of the tables an executor's group merges into, from
+    the trained state: [n_wk rows, n_dk, n_k] -- the whole [V, K] snapshot
+    for the snapshot executor, the first group's pulled rows for the
+    pipelined one."""
+    st = train["state"]
+    rows = (st.nwk.to_dense() if executor == "snapshot"
+            else pipelined_group_rows(train)[1])
+    return [rows, st.ndk.clone(), st.nk.value.clone()]
+
+
+def merge_batch(groups: dict, executor: str):
+    rows, _, docs, z0, z_new, changed = groups[executor]
+    return rows, z0, z_new, changed, docs
+
+
+def merge_bytes(torch, batch, tables):
+    """The merge's bytes and the touched 32-byte sectors of its three
+    tables: ``changed`` read once per token; of the index streams only the
+    sectors that hold a token that adds (rows: a changed token inside n_wk,
+    docs: inside n_dk, z_old/z_new: any changed token); each touched table
+    sector read and written once."""
+    r, zo, zn, changed, d = batch
+    out, ndk, _ = tables
+    k = out.shape[1]
+    sectors, streams = 0, 2 * stream_sectors(torch, changed)
+    for idx, n in ((r, out.shape[0]), (d, ndk.shape[0])):
+        ok = changed & (idx >= 0) & (idx < n)
+        streams += stream_sectors(torch, ok)
+        sectors += touched_sectors(torch, torch.cat([idx[ok], idx[ok]]),
+                                   torch.cat([zo[ok], zn[ok]]), k)
+    sectors += touched_sectors(
+        torch, torch.zeros_like(zo[changed]).repeat(2),
+        torch.cat([zo[changed], zn[changed]]), k)
+    return changed.shape[0] + (streams + 2 * sectors) * SECTOR, sectors
+
+
+def merge_by_destination(torch, timer: Timer, batch, tables,
+                         reps: int) -> dict:
+    """Device ms of the merge kernel with fewer destinations, to see where
+    its time goes: the token streams alone (no token changed: every load,
+    no atomic), n_wk alone, n_wk with n_dk, n_wk with n_k."""
+    from repro_torch.kernels import delta_push
+
+    r, zo, zn, changed, d = batch
+    out, ndk, nk = tables
+    none = torch.zeros_like(changed)
+    variants = {
+        "streams_only": lambda: delta_push.delta_push_cuda(
+            r, zo, zn, none, out, docs=d, ndk_out=ndk, nk_out=nk),
+        "n_wk": lambda: delta_push.delta_push_cuda(r, zo, zn, changed, out),
+        "n_wk_n_dk": lambda: delta_push.delta_push_cuda(
+            r, zo, zn, changed, out, docs=d, ndk_out=ndk),
+        "n_wk_n_k": lambda: delta_push.delta_push_cuda(
+            r, zo, zn, changed, out, nk_out=nk),
+    }
+    return {name: timer.ms(fn, reps=reps) for name, fn in variants.items()}
+
+
+def merge_rows(torch, timer: Timer, train: dict, groups: dict,
+               card: str) -> list:
+    """delta_push's merge form at each executor's group: held bitwise
+    against its plain version in all three tables, timed warm back to back
+    (and by destination, ``merge_by_destination``), and reported as its own
+    row with the launches of that executor's run.
+    Bytes: ``merge_bytes``.  No single PyTorch
+    call writes three tables: library_ms is null."""
+    rows = []
+    for executor, reps, plain_reps in (("snapshot", 100, 10),
+                                       ("pipelined", 20, 3)):
+        batch = merge_batch(groups, executor)
+        tables = group_tables(torch, train, executor)
+        want = [x.clone() for x in tables]
+        merge_ref(torch, batch, want)
+        got = [x.clone() for x in tables]
+        merge_cuda(torch, batch, got)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"delta_push's merge differs from its plain "
+                                 f"version at the {executor} executor's "
+                                 f"group")
+        del got, want
+        nbytes, sectors = merge_bytes(torch, batch, tables)
+        ms = timer.ms(lambda: merge_cuda(torch, batch, tables), reps=reps)
+        by_dest = merge_by_destination(torch, timer, batch, tables, reps)
+        plain_ms = timer.ms(lambda: merge_ref(torch, batch, tables),
+                            reps=plain_reps, device_only=False)
+        t, n_changed = batch[0].shape[0], int(batch[3].sum())
+        name = f"delta_push_train_{executor}"
+        rows.append(kernel_row(
+            name, "src/repro_torch/kernels/csrc/delta_push.cu",
+            "src/repro/kernels/delta_push.py:39",
+            train[f"{executor}_counts"]["delta_push"], 0.0, ms, plain_ms,
+            nbytes, t * 4 + n_changed * 12))
+        log(json.dumps({"timing": {name: {
+            "tables": [list(x.shape) for x in tables], "tokens": t,
+            "changed": n_changed, "sectors": sectors, "ms": ms,
+            "by_destination_ms": by_dest, "bitwise": True, "card": card}}}))
+        del batch, tables
+    return rows
+
+
+def routed_push(torch, train: dict, groups: dict, card: str) -> dict:
+    """The message path: the trained state's n_wk handle pushes one
+    snapshot group's reassignments through ``MatrixHandle.push`` with
+    ``HybridRoute(HOT_WORDS)`` -- the hot [H, K] block by delta_push's
+    single-destination form, the cold tail's COO buffer by
+    delta_apply_coo, one launch each.  The pushed table equals the
+    one-launch merge's bitwise.  Returns the push's launch counts."""
+    from repro_torch import ps
+    from repro_torch.kernels import ops
+
+    st = train["state"]
+    w, words, _, z0, z_new, changed = groups["snapshot"]
+    handle = st.nwk.with_route(ps.HybridRoute(hot_words=HOT_WORDS))
+    re = ps.Reassign(w, words, z0, z_new, changed)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    # ------------------------------------------------------------ main path
+    pushed = handle.push(re)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    # ---------------------------------------------------- end of main path
+    if counts["delta_push"] != 1 or counts["delta_apply_coo"] != 1:
+        raise AssertionError(f"the routed push launched {counts}, expected "
+                             f"one delta_push and one delta_apply_coo")
+    tables = group_tables(torch, train, "snapshot")
+    merge_cuda(torch, merge_batch(groups, "snapshot"), tables)
+    equal = bool(torch.equal(pushed.to_dense(), tables[0]))
+    log(json.dumps({"push": {
+        "route": repr(handle.route), "tokens": int(w.shape[0]),
+        "changed": int(changed.sum()),
+        "hot_changed": int((changed & (words < HOT_WORDS)).sum()),
+        "launches": counts, "table_equals_merge": equal, "card": card}}))
+    if not equal:
+        raise AssertionError("the routed push's table differs from the "
+                             "one-launch merge's")
+    return counts
+
+
+@dataclasses.dataclass(frozen=True)
+class IdentityBackend:
+    """Collective moments that are the identity, as the in-process
+    backend's are, in a type that is not it: an executor on this backend
+    takes the routed merge (route plan, backend moments, token_deltas)."""
+
+    axis_name = None
+    model_axis = None
+
+    def pull_full(self, storage):
+        return storage
+
+    def reduce(self, delta):
+        return delta
+
+    def gather_concat(self, x):
+        return x
+
+    def localize(self, full):
+        return full
+
+
+def merge_compare(torch, timer: Timer, train: dict, groups: dict,
+                  card: str) -> None:
+    """The whole merge of one group, routed (the executors' merge on a
+    backend that is not the in-process one: ``routed_merge_snapshot``,
+    ``routed_merge_block``) against the one-launch merge, at both executors'
+    groups, on the same card in turns (routed, merged, merged, routed):
+    device ms per group (CUDA events over back-to-back merges), launches
+    per group (the profiler's device kernels, memsets and copies included)
+    and host ms per group (host clock around one merge, synchronised before
+    and after; the median of 10).  Both give the same tables bitwise."""
+    from repro_torch import ps
+    from repro_torch.train import async_exec
+
+    k = train["cfg"].K
+    route = ps.HybridRoute(hot_words=HOT_WORDS)
+    for executor, reps_old, reps_new in (("snapshot", 5, 100),
+                                         ("pipelined", 2, 20)):
+        batch = merge_batch(groups, executor)
+        words = groups[executor][1]
+        old_tables = group_tables(torch, train, executor)
+        new_tables = [x.clone() for x in old_tables]
+
+        def old():
+            rows, z0, z_new, changed, docs = batch
+            out, ndk, nk = old_tables
+            if executor == "snapshot":
+                nk, ndk = async_exec.routed_merge_snapshot(
+                    route, IdentityBackend(), out, nk, ndk, rows, docs, z0,
+                    z_new, changed, k)
+            else:
+                out, nk, ndk = async_exec.routed_merge_block(
+                    route, out, nk, ndk, rows, words, docs, z0, z_new,
+                    changed, k)
+            return out, ndk, nk
+
+        def new():
+            merge_cuda(torch, batch, new_tables)
+            return new_tables
+
+        if not all(torch.equal(a, b) for a, b in zip(old(), new())):
+            raise AssertionError(f"the routed and the one-launch merge "
+                                 f"differ at the {executor} executor's group")
+        seen = {"routed": {}, "one_launch": {}}
+        for name in ("routed", "one_launch", "one_launch", "routed"):
+            fn, reps = ((old, reps_old) if name == "routed"
+                        else (new, reps_new))
+            host = []
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                host.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+            _, busy_ms, stats = device_profile(
+                torch, lambda: [fn() for _ in range(reps_old)])
+            for key, val in (
+                    ("device_ms", timer.ms(fn, reps=reps)),
+                    ("host_ms", float(np.median(host))),
+                    ("launches", sum(n for n, _ in stats.values())
+                     / reps_old),
+                    ("profiled_device_ms", busy_ms / reps_old)):
+                seen[name].setdefault(key, []).append(val)
+        log(json.dumps({"merge_compare": {
+            "executor": executor, "tokens": int(batch[0].shape[0]),
+            "changed": int(batch[3].sum()), **seen, "card": card}}))
+        del old_tables, new_tables
+
+
+def sweep_compare(torch, train: dict, card: str) -> None:
+    """One pipelined sweep from the trained state with the routed merge
+    (the state's n_wk handle on ``IdentityBackend``) and one with the
+    one-launch merge, each under the profiler: wall ms (host clock around
+    the sweep, closed by a device synchronise), device busy ms and device
+    kernels, and a profile of each in
+    ``chiprun_out/pipelined_{routed,one_launch}_profile.txt``.  Both give
+    the same z and count tables bitwise."""
+    from repro_torch import ps
+    from repro_torch import rng as jrng
+    from repro_torch.train import async_exec
+
+    st, cfg = train["state"], train["cfg"]
+    client = st.nwk.client.with_backend(IdentityBackend())
+    routed = st._replace(nwk=dataclasses.replace(st.nwk, client=client))
+    step, _ = async_exec.make_executor(st, cfg, async_exec.ExecConfig(
+        model_blocks=PIPE_BLOCKS, staleness=PIPE_STALENESS,
+        route=ps.HybridRoute(hot_words=HOT_WORDS)))
+    outs, profiled = {}, {}
+    for name, state in (("routed", routed), ("one_launch", st)):
+        def sweep():
+            out = step.raw(state, jrng.PRNGKey(23, "cuda"))
+            outs[name] = (out.z, out.nk.value, out.ndk, out.nwk.to_dense())
+
+        wall_ms, busy_ms, stats = device_profile(torch, sweep)
+        profiled[name] = {
+            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_kernels": sum(n for n, _ in stats.values())}
+        (ROOT / "chiprun_out" / f"pipelined_{name}_profile.txt").write_text(
+            f"{card}\none pipelined sweep, {name} merge, wall "
+            f"{wall_ms:.3f} ms (profiler on), device busy {busy_ms:.3f} ms"
+            f"\n\n{profile_table(stats)}\n")
+    equal = all(torch.equal(a, b) for a, b in zip(outs["routed"],
+                                                 outs["one_launch"]))
+    if not equal:
+        raise AssertionError("the pipelined sweep differs between the "
+                             "routed and the one-launch merge")
+    log(json.dumps({"sweep_compare": {
+        "executor": "pipelined", "tokens": int(st.valid.sum()),
+        "equal": equal, "profiled": profiled, "card": card}}))
 
 
 def alias_row(torch, timer: Timer, name: str, weights, launches: int,
@@ -1092,10 +1454,13 @@ def kernel_report(torch, timer: Timer, serve: dict, train: dict,
     # once per publish, after phi_from_counts wrote 400 MB: cold
     serve_alias = alias_row(torch, timer, "alias_build", model.snapshot.phi,
                             serve["counts"]["alias_build"], 5, card)
-    train_rows, snapshot_group = training_mh_rows(torch, timer, train, card)
+    train_rows, groups = training_mh_rows(torch, timer, train, card)
+    push_counts = routed_push(torch, train, groups, card)
     return (rows + train_rows + [serve_alias]
             + training_alias_rows(torch, timer, train, card)
-            + delta_rows(torch, timer, train, snapshot_group, card))
+            + merge_rows(torch, timer, train, groups, card)
+            + delta_rows(torch, timer, train, groups, push_counts, card)), \
+        groups
 
 
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
@@ -1196,8 +1561,9 @@ def profile_sweep(torch, train: dict, card: str) -> None:
     and tokens/s), then one under it: device time by kernel and the
     device's busy share of its wall time; and the host-timed parts of a
     sweep: the alias build (the kernel, and the plain version beside it),
-    and per group the threefry draws, mh_sample, the route's push and
-    token_deltas' [D, K] buffer."""
+    and per group the threefry draws, mh_sample, the one-launch merge the
+    executor runs, and beside it the route's plan and token_deltas' [D, K]
+    buffer, which the routed merge would run."""
     from repro_torch import ps
     from repro_torch import rng as jrng
     from repro_torch.core import alias as alias_mod
@@ -1227,7 +1593,7 @@ def profile_sweep(torch, train: dict, card: str) -> None:
         f"on), device busy {busy_ms:.3f} ms\n\n{profile_table(stats)}\n")
     by_kernel = {}
     for name in ("mh_sample_kernel", "delta_push_kernel",
-                 "delta_apply_coo_kernel", "alias_build_kernel"):
+                 "alias_build_kernel"):
         by_kernel[name] = of_kernel(stats, name)
         if not by_kernel[name]["count"]:
             raise AssertionError(f"the profile of a training sweep shows no "
@@ -1268,6 +1634,10 @@ def profile_sweep(torch, train: dict, card: str) -> None:
                                           prefix_rows=True), reps=5)
     deltas_ms, _ = timed(lambda: async_exec.token_deltas(
         d_b, z0, z_new, changed, st.ndk.shape[0], cfg.K), reps=5)
+    ndk, nk_own = st.ndk.clone(), nk.clone()
+    merge_ms, _ = timed(lambda: ops.delta_push(
+        w_b, z0, z_new, changed, cfg.V, cfg.K, out=nwk_dense, docs=d_b,
+        ndk_out=ndk, nk_out=nk_own), reps=5)
     log(json.dumps({"profile_training": {
         "executor": "snapshot", "tokens": tokens, "sweep_ms": sweep_ms,
         "tokens_per_s": tokens / (sweep_ms / 1e3),
@@ -1278,7 +1648,8 @@ def profile_sweep(torch, train: dict, card: str) -> None:
         "groups": groups, "alias_build_ms_per_sweep": alias_ms,
         "alias_build_plain_ms_per_sweep": alias_plain_ms,
         "per_group_ms": {"threefry_draws": draw_ms, "mh_sample": mh_ms,
-                         "route_plan": plan_ms, "token_deltas": deltas_ms},
+                         "merge": merge_ms, "route_plan": plan_ms,
+                         "token_deltas": deltas_ms},
         "card": card}}))
 
 
@@ -1321,8 +1692,10 @@ def main(argv=None) -> int:
     train = phase("train", train_slice, torch, args.seed, card)
     phase("card_vs_cpu", card_vs_cpu, torch, args.seed)
     timer = Timer(torch)
-    rows = phase("kernel_report", kernel_report, torch, timer, serve, train,
-                 card)
+    rows, groups = phase("kernel_report", kernel_report, torch, timer, serve,
+                         train, card)
+    phase("merge_compare", merge_compare, torch, timer, train, groups, card)
+    phase("sweep_compare", sweep_compare, torch, train, card)
     phase("profile_batch", profile_batch, torch, serve, card)
     phase("profile_sweep", profile_sweep, torch, train, card)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -66,18 +66,29 @@ def _i32(t: torch.Tensor) -> torch.Tensor:
 
 
 def delta_push(rows, z_old, z_new, changed, num_rows: int, num_topics: int,
-               out=None) -> torch.Tensor:
+               out=None, docs=None, ndk_out=None, nk_out=None
+               ) -> torch.Tensor:
     """Dense [num_rows, K] int32 reassignment delta of a token batch:
     -1 at ``(rows, z_old)`` and +1 at ``(rows, z_new)`` where ``changed``
     is non-zero and ``0 <= rows < num_rows``.  Accumulates into ``out``
     when given (the table the delta is for, where nothing else reads it),
-    else into a fresh zeroed buffer; returns it."""
+    else into a fresh zeroed buffer; returns it.
+
+    With ``docs`` and ``ndk_out`` [D, K] the same -1/+1 also land in
+    ``ndk_out`` at row ``docs`` (rows outside ``[0, D)`` dropped), and with
+    ``nk_out`` [K] in ``nk_out``: a training group's whole merge, one
+    launch on the card."""
     out = _out(out, rows, num_rows, num_topics)
     if _route(rows, "delta_push"):
-        return _dp.delta_push_cuda(_i32(rows), _i32(z_old), _i32(z_new),
-                                   (changed != 0).contiguous(), out)
+        if changed.dtype != torch.bool:
+            changed = changed != 0
+        return _dp.delta_push_cuda(
+            _i32(rows), _i32(z_old), _i32(z_new), changed.contiguous(), out,
+            docs=None if docs is None else _i32(docs), ndk_out=ndk_out,
+            nk_out=nk_out)
     return ref.delta_push_ref(rows, z_old, z_new, changed, num_rows,
-                              num_topics, out=out)
+                              num_topics, out=out, docs=docs,
+                              ndk_out=ndk_out, nk_out=nk_out)
 
 
 def delta_apply_coo(rows, cols, vals, num_rows: int, num_topics: int,

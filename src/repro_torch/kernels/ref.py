@@ -31,19 +31,28 @@ def _in_range(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def delta_push_ref(rows, z_old, z_new, changed, num_rows: int,
-                   num_topics: int, out=None) -> torch.Tensor:
-    """Plain version of ``kernels/delta_push.py::delta_push_cuda``: one
-    ``index_put_`` with accumulate of the 2T entries (-1 at ``(rows,
-    z_old)``, +1 at ``(rows, z_new)`` for changed tokens with rows in
-    ``[0, num_rows)``) into ``out`` [num_rows, K] int32 (zeros if None)."""
+                   num_topics: int, out=None, docs=None, ndk_out=None,
+                   nk_out=None) -> torch.Tensor:
+    """Plain version of ``kernels/delta_push.py::delta_push_cuda``: for
+    changed tokens, -1 at ``z_old`` and +1 at ``z_new`` by one
+    ``index_put_`` with accumulate per destination -- ``out`` [num_rows, K]
+    int32 (zeros if None) at ``rows``, ``ndk_out`` [D, K] at ``docs`` and
+    ``nk_out`` [K], each when given.  Rows and topics outside a
+    destination add nothing there.  Returns ``out``."""
     if out is None:
         out = torch.zeros((num_rows, num_topics), dtype=torch.int32,
                           device=rows.device)
-    ok = (changed != 0) & _in_range(rows, num_rows)
-    return delta_apply_coo_ref(
-        torch.cat([rows, rows]), torch.cat([z_old, z_new]),
-        torch.cat([-ok.to(torch.int32), ok.to(torch.int32)]), num_rows,
-        num_topics, out=out)
+    m = (changed != 0).to(torch.int32)
+    cols, vals = torch.cat([z_old, z_new]), torch.cat([-m, m])
+    delta_apply_coo_ref(torch.cat([rows, rows]), cols, vals, num_rows,
+                        num_topics, out=out)
+    if ndk_out is not None:
+        delta_apply_coo_ref(torch.cat([docs, docs]), cols, vals,
+                            ndk_out.shape[0], num_topics, out=ndk_out)
+    if nk_out is not None:
+        delta_apply_coo_ref(torch.zeros_like(cols), cols, vals, 1,
+                            num_topics, out=nk_out.view(1, num_topics))
+    return out
 
 
 def delta_apply_coo_ref(rows, cols, vals, num_rows: int, num_topics: int,

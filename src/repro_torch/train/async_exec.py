@@ -5,8 +5,9 @@ in flight, and reassignment deltas are buffered -- the hottest words
 aggregated densely, the cold tail shipped as per-reassignment messages.
 This module is that schedule, made deterministic, and expressed through the
 client API (``repro_torch.ps``): the executor holds ``MatrixHandle`` /
-``VectorHandle``s, prefetches through ``PullHandle`` futures and merges
-through the handle's ``PushRoute``.
+``VectorHandle``s, prefetches through ``PullHandle`` futures and merges a
+group in one launch on one process, through the handle's ``PushRoute``
+across processes.
 
 **Staleness bound ``s``.**  Block ``i`` samples against a view of ``(n_k,
 n_dk, z)`` missing the deltas of the ``s`` most recent blocks -- those
@@ -19,17 +20,22 @@ group boundary.
 
 **Eager groups.**  The JAX package scans over groups under ``jit``; here a
 Python loop runs them, each group a handful of launches on the card: the
-threefry draws, the ``mh_sample`` kernel in training mode, the route's
-``delta_push`` / ``delta_apply_coo`` kernels, and the merges; the alias
-tables come from the ``alias_build`` kernel, once per snapshot sweep or
-once per pipelined group.  A sweep
-never writes into the state it was given: the executor works on its own
-copies of ``z`` and the count table, and builds new ``n_k``/``n_dk``.
+threefry draws, the ``mh_sample`` kernel in training mode, and the merge;
+the alias tables come from the ``alias_build`` kernel, once per snapshot
+sweep or once per pipelined group.  A sweep never writes into the state it
+was given: the executor works on its own copies of ``z`` and of the count
+tables.
 
-**Routed delta push (paper section 3.3).**  The group-boundary merge goes
-through a ``PushRoute`` -- ``DenseRoute``, ``CooRoute`` or
-``HybridRoute(hot_words=H)``; all are integer additions, so the choice
-never changes results.
+**Group-boundary merge (paper section 3.3).**  On one process
+(``ps.InProcessBackend``: every collective moment is the identity) all of
+a route's messages end in the executor's own tables, so a group merges
+with one ``delta_push`` launch that adds every changed token into ``n_wk``,
+``n_dk`` and ``n_k`` at once: no message buffer, no zero-fill, no adds
+after.  For any other backend the merge goes through a ``PushRoute`` --
+``DenseRoute``, ``CooRoute`` or ``HybridRoute(hot_words=H)`` -- and the
+backend's ``reduce``/``gather_concat``.  Every route is integer addition,
+so neither the route nor the branch changes results; the route still
+shapes every message that ``MatrixHandle.push`` sends.
 
 Entry points:
   * ``pipelined_sweep`` -- the blocked model-parallel executor (worker
@@ -139,6 +145,58 @@ def hybrid_count_deltas(w_b, d_b, z_old, z_new, valid_b, num_docs: int,
     return d_nwk, d_nk, d_ndk
 
 
+def merges_in_one_launch(handle: "ps.MatrixHandle") -> bool:
+    """Whether a group merges with one ``delta_push`` launch: the handle's
+    backend is the in-process one, whose moments are all the identity, so
+    the route's messages would all end in the executor's own tables.  Any
+    other backend gets the routed merge."""
+    return isinstance(handle.client.backend, ps.InProcessBackend)
+
+
+def routed_merge_snapshot(route: ps.PushRoute, backend, nwk_dense, nk, ndk,
+                          w_b, d_b, z0, z_new, changed, num_topics: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A snapshot group's merge through ``route`` and ``backend``'s
+    moments: the dense part (the hybrid's ``[H, K]`` hot prefix) added onto
+    the first ``H`` rows of ``nwk_dense`` and the coordinate part applied by
+    ``delta_apply_coo``, both in place; ``n_k``/``n_dk`` take
+    ``token_deltas``.  Returns the new ``(nk, ndk)``."""
+    plan = route.plan(ps.Reassign(rows=w_b, words=w_b, z_old=z0,
+                                  z_new=z_new, changed=changed),
+                      nwk_dense.shape[0], num_topics, prefix_rows=True)
+    d_nk, d_ndk = token_deltas(d_b, z0, z_new, changed, ndk.shape[0],
+                               num_topics)
+    if plan.dense is not None:
+        d = backend.reduce(plan.dense)
+        nwk_dense[:d.shape[0]] += d
+    if plan.coo is not None:
+        c_rows, c_cols, c_vals = (backend.gather_concat(x) for x in plan.coo)
+        ops.delta_apply_coo(c_rows, c_cols, c_vals, nwk_dense.shape[0],
+                            num_topics, out=nwk_dense)
+    # n_dk stays local (paper section 3)
+    return nk + backend.reduce(d_nk), ndk + d_ndk
+
+
+def routed_merge_block(route: ps.PushRoute, rows, nk, ndk, local, words,
+                       d_b, z0, z_new, changed, num_topics: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A pipelined group's merge through ``route``: the group-local delta
+    of the pulled ``rows`` (block-local ids ``local``) materialised and
+    added onto them, ``n_k``/``n_dk`` by duplicate-tolerant adds.  Returns
+    the new ``(rows, nk, ndk)``."""
+    d_rows = route.block_delta(
+        ps.Reassign(rows=local, words=words, z_old=z0, z_new=z_new,
+                    changed=changed), rows.shape[0], num_topics)
+    amt = changed.to(torch.int32)
+    zo, zn, dl = z0.long(), z_new.long(), d_b.long()
+    nk = nk + (_zeros((num_topics,), amt)
+               .index_put_((zo,), -amt, accumulate=True)
+               .index_put_((zn,), amt, accumulate=True))
+    ndk = (ndk.index_put((dl, zo), -amt, accumulate=True)
+           .index_put_((dl, zn), amt, accumulate=True))
+    return d_rows.add_(rows), nk, ndk
+
+
 def _weights(rows: torch.Tensor, nk: torch.Tensor,
              cfg: "lda.LDAConfig") -> torch.Tensor:
     """Word-proposal weights (n_wk + β)/(n_k + Vβ), in the JAX package's
@@ -171,9 +229,13 @@ def pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
       3. all of the group's tokens resampled by ``mh_sample`` (training
          mode) against the group-start counts, the pulled rows as its
          table and block-local row indices;
-      4. the route materialises the group-local delta (``delta_push`` and
-         ``delta_apply_coo``), ``store_block_`` writes the rows back, and
-         ``n_k``/``n_dk``/``z`` merge through duplicate-tolerant adds.
+      4. the group-boundary merge: on one process (``merges_in_one_launch``)
+         one ``delta_push`` adds the group's changes into the pulled rows
+         (block-local row ids), ``n_dk`` and ``n_k`` -- the executor's own
+         copies -- in place; otherwise the route materialises the
+         group-local delta and ``n_k``/``n_dk`` take duplicate-tolerant
+         adds (``routed_merge_block``).  ``store_block_`` writes the rows back; ``z`` merges by an
+         add.
 
     ``staleness=0`` equals ``lightlda.sweep_blocked_ref`` bitwise.
     """
@@ -193,7 +255,10 @@ def pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
     gcap = group * cap
 
     nwk = state.nwk.with_value(state.nwk.value.clone())   # owned copy
+    one_launch = merges_in_one_launch(nwk)
     nk, ndk, z_flat = state.nk.value, state.ndk, state.z.clone()
+    if one_launch:
+        nk, ndk = nk.clone(), ndk.clone()       # owned, merged in place
     keys = jrng.split(key, n_groups)
     pulled = nwk.pull_block(0, grp_rows)
     for grp in range(n_groups):
@@ -220,20 +285,16 @@ def pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
                               table.alias, cfg, frozen=False)
         z_new = torch.where(vb, z_new, z0)
 
-        # 4. group-boundary merge through the route; the rows go back in
+        # 4. group-boundary merge; the rows go back in
         changed = (z_new != z0) & vb
-        d_rows = route.block_delta(
-            ps.Reassign(rows=local, words=wb, z_old=z0, z_new=z_new,
-                        changed=changed), grp_rows, cfg.K)
-        nwk.store_block_(grp, d_rows.add_(rows), grp_rows)
-
-        amt = changed.to(torch.int32)
-        zo, zn, dl = z0.long(), z_new.long(), db.long()
-        nk = nk + (_zeros((cfg.K,), amt)
-                   .index_put_((zo,), -amt, accumulate=True)
-                   .index_put_((zn,), amt, accumulate=True))
-        ndk = (ndk.index_put((dl, zo), -amt, accumulate=True)
-               .index_put_((dl, zn), amt, accumulate=True))
+        if one_launch:
+            ops.delta_push(local, z0, z_new, changed, grp_rows, cfg.K,
+                           out=rows, docs=db, ndk_out=ndk, nk_out=nk)
+        else:
+            rows, nk, ndk = routed_merge_block(route, rows, nk, ndk, local,
+                                               wb, db, z0, z_new, changed,
+                                               cfg.K)
+        nwk.store_block_(grp, rows, grp_rows)
         z_flat.index_put_((idx,), torch.where(vb, z_new - z0, 0),
                           accumulate=True)
     return lda.SamplerState(state.w, state.d, z_flat, state.valid,
@@ -257,12 +318,15 @@ def snapshot_sweep(state: "lda.SamplerState", key: torch.Tensor,
     the plain construction the JAX package uses);
     groups of ``staleness + 1`` consecutive token blocks are resampled by
     ``mh_sample`` against the group-start ``n_k``/``n_dk``, and the group's
-    deltas (shaped by ``route``) merge once per group: the dense part --
-    the hybrid's ``[H, K]`` hot prefix -- is added onto the first ``H``
-    rows, the coordinate part applied by ``delta_apply_coo`` straight into
-    the executor's own copy of the table.
+    deltas merge once per group into the executor's own copies of the
+    tables.  On one process (``merges_in_one_launch``) that is one
+    ``delta_push`` launch into ``n_wk``, ``n_dk`` and ``n_k`` together, and
+    ``route`` shapes nothing here.  Otherwise the deltas are shaped by
+    ``route`` and pass the backend's moments: the dense part -- the
+    hybrid's ``[H, K]`` hot prefix -- is added onto the first ``H`` rows,
+    the coordinate part applied by ``delta_apply_coo``, and ``n_k``/``n_dk``
+    take ``token_deltas`` (``routed_merge_snapshot``).
     """
-    num_docs = state.ndk.shape[0]
     n = state.w.shape[0]
     nblocks = n // cfg.block_tokens
     s = effective_staleness(nblocks, staleness)
@@ -274,16 +338,19 @@ def snapshot_sweep(state: "lda.SamplerState", key: torch.Tensor,
 
     handle = state.nwk
     backend = handle.client.backend
+    one_launch = merges_in_one_launch(handle)
 
     # --- snapshot "pull" (paper section 2.3 / 3.4): an owned copy ---
     nwk_dense = handle.pull_all().result()              # [V, K] int32
-    nk = state.nk.value
+    nk, ndk = state.nk.value, state.ndk
+    if one_launch:
+        nk, ndk = nk.clone(), ndk.clone()       # owned, merged in place
 
     # --- alias tables and the chain's float table from the snapshot ---
     table = ops.alias_build(_weights(nwk_dense, nk, cfg))
     nwk_table = nwk_dense.to(torch.float32)
 
-    ndk, z_flat = state.ndk, state.z.clone()
+    z_flat = state.z.clone()
     keys = jrng.split(key, n_groups)
     for grp in range(n_groups):
         lo, hi = grp * gtok, (grp + 1) * gtok
@@ -298,22 +365,15 @@ def snapshot_sweep(state: "lda.SamplerState", key: torch.Tensor,
                               cfg, frozen=False)
         z_new = torch.where(valid_b, z_new, z0)
 
-        # --- routed delta aggregation + group-boundary merge (3.3) ---
+        # --- group-boundary merge (3.3) ---
         changed = (z0 != z_new) & valid_b
-        plan = route.plan(
-            ps.Reassign(rows=w_b, words=w_b, z_old=z0, z_new=z_new,
-                        changed=changed), cfg.V, cfg.K, prefix_rows=True)
-        d_nk, d_ndk = token_deltas(d_b, z0, z_new, changed, num_docs, cfg.K)
-        if plan.dense is not None:
-            d = backend.reduce(plan.dense)
-            nwk_dense[:d.shape[0]] += d
-        if plan.coo is not None:
-            c_rows, c_cols, c_vals = (backend.gather_concat(x)
-                                      for x in plan.coo)
-            ops.delta_apply_coo(c_rows, c_cols, c_vals, cfg.V, cfg.K,
-                                out=nwk_dense)
-        nk = nk + backend.reduce(d_nk)
-        ndk = ndk + d_ndk      # n_dk stays local (paper section 3)
+        if one_launch:
+            ops.delta_push(w_b, z0, z_new, changed, cfg.V, cfg.K,
+                           out=nwk_dense, docs=d_b, ndk_out=ndk, nk_out=nk)
+        else:
+            nk, ndk = routed_merge_snapshot(route, backend, nwk_dense, nk,
+                                            ndk, w_b, d_b, z0, z_new,
+                                            changed, cfg.K)
         z_flat[lo:hi] = z_new
 
     # --- write back to the server layout ---

@@ -160,10 +160,98 @@ def test_delta_apply_coo_kernel_matches_plain_bitwise(card, rows, k):
                                                     out=base.clone()))
 
 
+def _merge_batch(card, rows, docs, k, t, seed, frac):
+    """A group's reassignments for the merge: Zipf-skewed rows, doc ids in
+    runs (document order), 1 % of each past its table."""
+    r, zo, zn, changed = _delta_batch(card, rows, k, t, seed, frac)
+    g = torch.Generator(device=card).manual_seed(seed + 1)
+    d = torch.sort(torch.randint(0, docs, (t,), generator=g,
+                                 device=card)).values
+    past = torch.rand((t,), generator=g, device=card) < 0.01
+    return r, zo, zn, changed, torch.where(past, docs + 2, d).int()
+
+
+def _merge_tables(card, rows, docs, k, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return [torch.randint(0, 9, shape, generator=g, device=card,
+                          dtype=torch.int32)
+            for shape in ((rows, k), (docs, k), (k,))]
+
+
+def _merge_both(card, rows, docs, k, batch, seed):
+    """The merge by the kernel and by its plain version, each into its own
+    copy of the same tables."""
+    from repro_torch.kernels import delta_push
+    r, zo, zn, changed, d = batch
+    got = _merge_tables(card, rows, docs, k, seed)
+    want = [x.clone() for x in got]
+    delta_push.delta_push_cuda(r, zo, zn, changed, got[0], docs=d,
+                               ndk_out=got[1], nk_out=got[2])
+    ref.delta_push_ref(r, zo, zn, changed, rows, k, out=want[0], docs=d,
+                       ndk_out=want[1], nk_out=want[2])
+    return got, want
+
+
+@pytest.mark.parametrize("rows,docs,k", [
+    (300, 50, 7), (2048, 400, 130), (100_000, 8000, 1000),
+    (12_500, 8000, 1000)])
+@pytest.mark.parametrize("frac", [0.0, 0.5, 1.0])
+def test_delta_push_merge_matches_plain_bitwise(card, rows, docs, k, frac):
+    """The merge form (n_wk, n_dk and n_k in one launch) at chip_smoke's
+    shapes: 4,099 tokens (a scalar tail after the 16-byte quads), and the
+    same batch one token in (no 16-byte alignment, every token scalar)."""
+    batch = _merge_batch(card, rows, docs, k, 4100, rows + k, frac)
+    for part in ([x[:4099] for x in batch], [x[1:] for x in batch]):
+        before = ops.launch_counts()["delta_push"]
+        got, want = _merge_both(card, rows, docs, k, part, seed=k)
+        assert ops.launch_counts()["delta_push"] == before + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("past", [0, 4])
+def test_delta_push_merge_at_the_nk_histogram_limit(card, past):
+    """K at the largest n_k histogram that fits a block's shared memory
+    (K int32, rounded up to 4): bitwise.  Just past it the launch fails
+    and the wrapper raises, launching nothing."""
+    optin = torch.cuda.get_device_properties(card).shared_memory_per_block_optin
+    k = optin // 16 * 4 + past
+    batch = _merge_batch(card, 5, 3, k, 2048, seed=past, frac=0.7)
+    if past:
+        before = ops.launch_counts()["delta_push"]
+        with pytest.raises(RuntimeError, match="delta_push kernel launch"):
+            _merge_both(card, 5, 3, k, batch, seed=past)
+        assert ops.launch_counts()["delta_push"] == before
+        return
+    got, want = _merge_both(card, 5, 3, k, batch, seed=past)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_routed_push_launches_both_kernels(card):
+    """A hybrid push through ``MatrixHandle.push`` launches the dense form
+    of delta_push and delta_apply_coo once each, and its table equals the
+    one-launch merge's."""
+    from repro_torch import ps
+    rows, k, hot = 3000, 64, 200
+    r, zo, zn, changed = _delta_batch(card, rows, k, 8192, 5, 0.6)
+    r = torch.clamp(r, 0, rows - 1)
+    base = torch.randint(0, 9, (rows, k), device=card, dtype=torch.int32)
+    handle = ps.PSClient.create(num_shards=2).matrix_from_dense(
+        base, route=ps.HybridRoute(hot_words=hot))
+    ops.reset_launch_counts()
+    pushed = handle.push(ps.Reassign(r, r, zo, zn, changed)).to_dense()
+    counts = ops.launch_counts()
+    assert counts["delta_push"] == 1 and counts["delta_apply_coo"] == 1
+    merged = ops.delta_push(r, zo, zn, changed, rows, k, out=base.clone())
+    assert torch.equal(pushed, merged)
+
+
 @pytest.mark.parametrize("extra", [{}, {"model_blocks": 4, "staleness": 1}])
 def test_training_on_card_matches_cpu(card, extra):
     """A small job through APSLDA on the card and on the CPU: z and every
-    count table equal bitwise, and the card ran the training kernels."""
+    count table equal bitwise, and the card ran the training kernels: one
+    delta_push per group (the whole merge), no delta_apply_coo."""
     from repro_torch.api import APSLDA, HybridRoute, LDAJob
     from repro_torch.data.corpus import synthetic_corpus
 
@@ -171,9 +259,14 @@ def test_training_on_card_matches_cpu(card, extra):
     job = LDAJob(corpus=corp, num_topics=24, block_tokens=1024, sweeps=2,
                  eval_every=0, route=HybridRoute(hot_words=60), **extra)
     ops.reset_launch_counts()
-    gpu = APSLDA(job, log_fn=lambda m: None).fit()
+    est = APSLDA(job, log_fn=lambda m: None)
+    gpu = est.fit()
     counts = ops.launch_counts()
-    assert counts["mh_sample"] > 0 and counts["delta_push"] > 0
+    info = est.result_.info
+    groups = info["n_blocks"] // info["group"] * job.sweeps
+    assert counts["mh_sample"] == groups
+    assert counts["delta_push"] == groups
+    assert counts["delta_apply_coo"] == 0
     assert counts["alias_build"] > 0      # the executors' tables
     est = APSLDA(job, log_fn=lambda m: None, device="cpu")
     cpu = est.fit()

@@ -159,3 +159,100 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tdelta.delta_push_cuda(z, z, z, z.bool(), out)
     with pytest.raises(ValueError, match="CUDA"):
         tdelta.delta_apply_coo_cuda(z, z, z, out)
+
+
+def _docs(n, num_docs, seed, past=0):
+    """Doc ids in document order (runs of equal ids, as a group's tokens
+    come), ``past`` of them at or beyond ``num_docs``."""
+    rng = np.random.default_rng(seed)
+    d = np.sort(rng.integers(0, num_docs, n)).astype(np.int32)
+    if past:
+        d[rng.choice(n, past, replace=False)] = num_docs + rng.integers(
+            0, 5, past)
+    return d
+
+
+def _jax_merge(w, d, z0, z1, changed, v, k, num_docs, hot):
+    """The JAX package's composition of one group's merge: the hybrid's hot
+    half by its ``delta_push`` kernel (interpret mode), the cold half by
+    ``cold_coo`` + its ``delta_apply_coo`` kernel, n_k and n_dk by
+    ``token_deltas``.  Returns the (d_nwk [V, K], d_ndk, d_nk) deltas."""
+    from repro.train import async_exec as jexec
+    jw, jz0, jz1, jch = map(jnp.asarray, (w, z0, z1, changed))
+    hot_m, cold_m = jdelta.split_hot_cold(jw, jch, hot)
+    d_nwk = np.zeros((v, k), np.int32)
+    if hot:
+        d_nwk[:hot] += np.asarray(kops.delta_push(jw, jz0, jz1, hot_m, hot,
+                                                  k, interpret=True))
+    d_nwk += np.asarray(kops.delta_apply_coo(
+        *jdelta.cold_coo(jw, jz0, jz1, cold_m), v, k, interpret=True))
+    d_nk, d_ndk = jexec.token_deltas(jnp.asarray(d), jz0, jz1, jch,
+                                     num_docs, k)
+    return d_nwk, np.asarray(d_ndk), np.asarray(d_nk)
+
+
+MERGE_CASES = [
+    # (V, K, tokens, docs, changed fraction, rows past V, docs past D, H)
+    (37, 5, 300, 9, 0.6, 0, 0, 11),
+    (130, 16, 1500, 40, 0.5, 30, 25, 40),
+    (400, 7, 2048, 64, 1.0, 50, 0, 100),
+    (400, 7, 2048, 64, 0.0, 50, 40, 100),
+    (300, 13, 1027, 20, 1.0, 0, 30, 0),
+]
+
+
+@pytest.mark.parametrize("v,k,n,num_docs,frac,past,past_docs,hot",
+                         MERGE_CASES)
+def test_merge_matches_jax_composition(v, k, n, num_docs, frac, past,
+                                       past_docs, hot):
+    """The merge form of ``delta_push`` (n_wk, n_dk and n_k at once, into
+    given tables) equals the JAX package's routed composition bitwise:
+    none-changed and all-changed batches, rows past V and docs past D
+    included (each destination drops its own)."""
+    w, z0, z1, changed = _tokens(v, k, n, seed=n + past, changed_frac=frac,
+                                 past=past)
+    d = _docs(n, num_docs, seed=n, past=past_docs)
+    rng = np.random.default_rng(v)
+    nwk = rng.integers(0, 50, (v, k)).astype(np.int32)
+    ndk = rng.integers(0, 9, (num_docs, k)).astype(np.int32)
+    nk = nwk.sum(0).astype(np.int32)
+    out, ndk_out, nk_out = _t(nwk.copy(), ndk.copy(), nk.copy())
+    got = tops.delta_push(*_t(w, z0, z1, changed), v, k, out=out,
+                          docs=torch.from_numpy(d), ndk_out=ndk_out,
+                          nk_out=nk_out)
+    assert got is out
+    d_nwk, d_ndk, d_nk = _jax_merge(w, d, z0, z1, changed, v, k, num_docs,
+                                    hot)
+    np.testing.assert_array_equal(out.numpy(), nwk + d_nwk)
+    np.testing.assert_array_equal(ndk_out.numpy(), ndk + d_ndk)
+    np.testing.assert_array_equal(nk_out.numpy(), nk + d_nk)
+    if frac == 0.0:
+        np.testing.assert_array_equal(out.numpy(), nwk)
+        np.testing.assert_array_equal(nk_out.numpy(), nk)
+
+
+def test_merge_destinations_are_independent():
+    """Each destination is optional, and one destination's ranges never
+    drop another's entries: a token whose row is past R still counts in
+    n_dk and n_k."""
+    v, k, n, num_docs = 50, 6, 600, 12
+    w, z0, z1, changed = _tokens(v, k, n, seed=2, changed_frac=0.7, past=90)
+    d = _docs(n, num_docs, seed=3, past=20)
+    args = _t(w, z0, z1, changed)
+    ndk = torch.zeros((num_docs, k), dtype=torch.int32)
+    nk = torch.zeros(k, dtype=torch.int32)
+    alone = tops.delta_push(*args, v, k)
+    merged = tops.delta_push(*args, v, k, docs=torch.from_numpy(d),
+                             ndk_out=ndk, nk_out=nk)
+    assert torch.equal(alone, merged)
+    keep = changed & (d < num_docs)
+    want = np.zeros((num_docs, k), np.int64)
+    np.add.at(want, (d[keep], z0[keep]), -1)
+    np.add.at(want, (d[keep], z1[keep]), 1)
+    np.testing.assert_array_equal(ndk.numpy(), want)
+    want_nk = (np.bincount(z1[changed], minlength=k)
+               - np.bincount(z0[changed], minlength=k))
+    np.testing.assert_array_equal(nk.numpy(), want_nk)
+    nk_only = torch.zeros(k, dtype=torch.int32)
+    tops.delta_push(*args, v, k, nk_out=nk_only)
+    assert torch.equal(nk_only, nk)

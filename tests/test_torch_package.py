@@ -82,6 +82,13 @@ def test_ops_dispatch_on_device():
         ops.delta_push(meta[0].int(), meta[0].int(), meta[0].int(),
                        meta[0].bool(), 4, 3,
                        out=torch.empty((4, 3), device="meta"))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.delta_push(meta[0].int(), meta[0].int(), meta[0].int(),
+                       meta[0].bool(), 4, 3,
+                       out=torch.empty((4, 3), device="meta"),
+                       docs=meta[0].int(),
+                       ndk_out=torch.empty((2, 3), device="meta"),
+                       nk_out=torch.empty(3, device="meta"))
     names = {"mh_sample", "alias_build", "delta_push", "delta_apply_coo"}
     assert set(ops.launch_counts()) == names
     ops.KERNELS["mh_sample"].launches = 7

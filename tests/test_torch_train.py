@@ -4,6 +4,8 @@ key (bitwise z and count tables), the synchronous blocked oracle, count
 conservation at every staleness, and a sweep never writing into the state
 it was given."""
 import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -21,6 +23,9 @@ from repro_torch import rng as trng
 from repro_torch.convert import sampler_state_from_arrays
 from repro_torch.core import lightlda as tlda
 from repro_torch.train import async_exec as texec
+
+sys.path.append(str(Path(__file__).resolve().parents[1]))
+from chip_smoke import IdentityBackend  # noqa: E402
 
 
 def _carry(state, cfg):
@@ -246,3 +251,70 @@ def test_token_deltas_and_hybrid_count_deltas_match_jax(carried):
                                       hot, cfg)
         for a, b in zip(j, t):
             np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+def _routed(state):
+    """The same state, its n_wk handle on ``chip_smoke.IdentityBackend``:
+    moments that are the identity, in a type that is not
+    ``InProcessBackend``, so the executors take the routed merge."""
+    client = state.nwk.client.with_backend(IdentityBackend())
+    return state._replace(nwk=dataclasses.replace(state.nwk, client=client))
+
+
+def test_merge_branch_follows_the_backend(carried):
+    corp, cfg, jst, tst = carried
+    assert texec.merges_in_one_launch(tst.nwk)
+    assert not texec.merges_in_one_launch(_routed(tst).nwk)
+
+
+@pytest.mark.parametrize("staleness,hot_words", [(0, None), (1, 37),
+                                                 (3, 0)])
+def test_snapshot_sweep_branches_match_jax(carried, staleness, hot_words):
+    """The one-launch merge and the routed merge give the same sweep,
+    bitwise, and both equal the JAX sweep."""
+    corp, cfg, jst, tst = carried
+    jout = jexec.snapshot_sweep(jst, jax.random.PRNGKey(17), cfg,
+                                staleness=staleness, hot_words=hot_words)
+    for st in (tst, _routed(tst)):
+        tout = texec.snapshot_sweep(st, trng.PRNGKey(17), cfg,
+                                    staleness=staleness, hot_words=hot_words)
+        _assert_same(jout, tout)
+
+
+@pytest.mark.parametrize("staleness,hot_words,n_blocks", [
+    (0, None, 6), (1, 37, 6), (2, 0, 6)])
+def test_pipelined_sweep_branches_match_jax(carried, staleness, hot_words,
+                                            n_blocks):
+    corp, cfg, jst, tst = carried
+    idx, bval, rpb = _block_index(tst, n_blocks)
+    jout = jexec.pipelined_sweep(jst, jax.random.PRNGKey(19), cfg,
+                                 jnp.asarray(idx.numpy()),
+                                 jnp.asarray(bval.numpy()), rpb,
+                                 staleness=staleness, hot_words=hot_words)
+    for st in (tst, _routed(tst)):
+        tout = texec.pipelined_sweep(st, trng.PRNGKey(19), cfg, idx, bval,
+                                     rpb, staleness=staleness,
+                                     hot_words=hot_words)
+        _assert_same(jout, tout)
+
+
+@pytest.mark.parametrize("blocked", [False, True])
+@pytest.mark.parametrize("routed", [False, True])
+def test_neither_merge_writes_into_the_input(carried, blocked, routed):
+    """Both merge branches of both executors leave the state they were
+    given as it was: n_wk's value, n_k, n_dk and z."""
+    corp, cfg, jst, tst = carried
+    st = _routed(tst) if routed else tst
+    before = _snapshot_of(st)
+    if blocked:
+        idx, bval, rpb = _block_index(st, 6)
+        out = texec.pipelined_sweep(st, trng.PRNGKey(6), cfg, idx, bval,
+                                    rpb, staleness=1,
+                                    route=tps.HybridRoute(hot_words=20))
+    else:
+        out = texec.snapshot_sweep(st, trng.PRNGKey(6), cfg,
+                                   route=tps.HybridRoute(hot_words=20))
+    assert not torch.equal(out.nk.value, st.nk.value)
+    assert not torch.equal(out.ndk, st.ndk)
+    for name, t in _snapshot_of(st).items():
+        assert torch.equal(t, before[name]), name
