@@ -45,7 +45,27 @@ Phases (any failure raises and the script exits non-zero):
                  HybridRoute(2000), launching delta_push's dense form and
                  delta_apply_coo once each; its table equals the one-launch
                  merge's bitwise;
-  7. report   -- per-kernel times at the main paths' shapes (alias_build
+  7. stream   -- the out-of-core trainer at the same widths on the
+                 training corpus written in 8 shards of 262,144 tokens
+                 (HybridRoute(2000)): 2 epochs of the snapshot executor
+                 (exact conservation against the z files' histogram after
+                 each epoch, the corpus perplexity falling), the same job
+                 stopped after 11 shard visits with a checkpoint and
+                 resumed to the end of epoch 2 on a second copy of the
+                 stream (counts and every z file equal bitwise), 1 epoch
+                 of the blocked executor (16 model blocks, staleness 1);
+                 launch counters on each run, and per shard visit the
+                 median ms of the host-side parts (obs spans); then a
+                 small streamed job on the card and on the CPU, both
+                 modes, counts and z files equal bitwise;
+  8. service  -- TopicService at the same widths: train_async (2 sweeps,
+                 a publish after each) while 8 client threads x 16
+                 requests submit through start_serving; every request
+                 served or shed, a swap under load, θ sums to 1;
+  9. launch   -- repro_torch.launch.topic_serve --selftest and a small
+                 repro_torch.launch.lda stream run with checkpoints, then
+                 its --resume, in this process on the card;
+ 10. report   -- per-kernel times at the main paths' shapes (alias_build
                  held bitwise at serving's φ and at each executor's
                  weights; the merge at each executor's group, also by
                  destination), the whole merge of one group as the
@@ -57,8 +77,11 @@ Phases (any failure raises and the script exits non-zero):
                  bound, then the device line last.
 
 Imports nothing of JAX or of the JAX package.  Writes profiles to
-chiprun_out/serving_profile.txt and chiprun_out/training_profile.txt, and
-the training run's trace and metrics to chiprun_out/train_obs/.
+chiprun_out/serving_profile.txt and chiprun_out/training_profile.txt, the
+training run's trace and metrics to chiprun_out/train_obs/, the streamed
+runs' to chiprun_out/stream_obs/ and the service's to
+chiprun_out/service_obs/.  Stream directories and checkpoints go to a
+temporary directory, removed at exit.
 """
 from __future__ import annotations
 
@@ -71,6 +94,7 @@ import sys
 import threading
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -86,9 +110,16 @@ N_DOCS, N_QUERIES, N_CLIENTS, PER_CLIENT = 512, 8, 8, 16
 TRAIN_DOCS, TRAIN_DOC_LEN, TRAIN_TOPICS, HOT_WORDS = 8000, 250, 100, 2000
 DELTA_SHAPES = ((300, 7), (2048, 130), (2000, 1000), (100_000, 1000))
 DELTA_TOKENS = 32 * 1024
-MERGE_SHAPES = ((300, 50, 7), (2048, 400, 130), (100_000, 8000, 1000),
-                (12_500, 8000, 1000))
-MERGE_TOKENS = (8192, 1_809_664)
+# delta_push's merge form: (rows, docs, K) and token counts per group; the
+# in-memory executors' groups at 8,000 docs, a stream visit's at the
+# stream's doc cap of 32,768 (a snapshot group of 8,192 tokens and a
+# blocked group of 237,568 slots)
+MERGE_CASES = (((300, 50, 7), (8192, 1_809_664)),
+               ((2048, 400, 130), (8192, 1_809_664)),
+               ((100_000, 8000, 1000), (8192, 1_809_664)),
+               ((12_500, 8000, 1000), (8192, 1_809_664)),
+               ((100_000, 32_768, 1000), (8192,)),
+               ((12_500, 32_768, 1000), (237_568,)))
 PIPE_BLOCKS, PIPE_STALENESS = 16, 1
 REF_CHUNK = 1 << 18        # tokens per call of mh_sample's plain version
 
@@ -409,14 +440,14 @@ def merge_cuda(torch, batch, tables):
 
 def check_merge(torch) -> None:
     """delta_push's merge form against its plain version, bitwise in all
-    three tables: at MERGE_SHAPES, a snapshot group's and a pipelined
-    group's token counts, none, half and all changed."""
-    for i, (rows, docs, k) in enumerate(MERGE_SHAPES):
+    three tables: at MERGE_CASES' shapes and token counts, none, half and
+    all changed."""
+    for i, ((rows, docs, k), tokens) in enumerate(MERGE_CASES):
         g = torch.Generator(device="cuda").manual_seed(53 + i)
         base = [torch.randint(0, 9, shape, generator=g, dtype=torch.int32,
                               device="cuda")
                 for shape in ((rows, k), (docs, k), (k,))]
-        for t in MERGE_TOKENS:
+        for t in tokens:
             for frac in (0.0, 0.5, 1.0):
                 batch = merge_inputs(torch, rows, docs, k, t, 41 + i, frac)
                 want = [x.clone() for x in base]
@@ -760,6 +791,627 @@ def card_vs_cpu(torch, seed: int) -> None:
                                  f"the CPU: {equal}")
 
 
+# -- phases 7-9: the streamed trainer, the serving facade, the launchers ----
+
+STREAM_SHARD_TOKENS = 262_144       # 32 groups of 8,192 tokens a shard
+STREAM_STOP = 11                    # the stopped run's shard visits
+
+
+def read_obs(out_dir: Path):
+    """(trace events, metrics by name) of an obs session saved in
+    ``out_dir``."""
+    from repro_torch.obs import load_jsonl
+
+    events = json.loads((out_dir / "trace.json").read_text())["traceEvents"]
+    return events, {r["name"]: r for r in load_jsonl(
+        str(out_dir / "metrics.jsonl"))}
+
+
+def span_ms(events, name: str) -> list:
+    return [e["dur"] / 1e3 for e in events
+            if e.get("ph") == "X" and e.get("name") == name]
+
+
+def median(xs) -> float:
+    return float(np.median(xs)) if xs else float("nan")
+
+
+class EpochCheck:
+    """A callback that, at the end of every epoch, times the epoch, checks
+    exact conservation (``nwk`` sums to the tokens, and the histogram of
+    the shards' z files equals ``nwk`` and ``nk``) and takes the training
+    perplexity of the whole corpus (every shard's n_dk from its z file).
+    The checks' own time is left out of the next epoch's."""
+
+    def __init__(self, torch, reader, cfg):
+        self.torch, self.reader, self.cfg = torch, reader, cfg
+        self.k = cfg.K
+        self.epoch_s: list = []
+        self.perplexity: list = []
+        self.t0 = None
+
+    def corpus_perplexity(self, view) -> float:
+        from repro_torch.core import perplexity as ppl
+
+        torch, cfg = self.torch, self.cfg
+        dense = view.nwk.to_dense()
+        phi = ppl.phi_from_counts(dense.to(torch.float32),
+                                  view.nk.value.to(torch.float32), cfg.beta)
+        ll, n_all = 0.0, 0
+        for sid in range(self.reader.num_shards):
+            sh = self.reader.shard(sid)
+            n = sh.n_tokens
+            w, d, z = (torch.from_numpy(np.array(x[:n])).to(dense.device)
+                       .long() for x in (sh.w, sh.d, sh.z))
+            ndk = torch.zeros(sh.doc_len.shape[0] * self.k,
+                              dtype=torch.float32, device=dense.device)
+            ndk.index_add_(0, d * self.k + z, torch.ones_like(ndk[:n]))
+            theta = ppl.theta_from_counts(ndk.view(-1, self.k), cfg.alpha)
+            ll += float(ppl.log_likelihood(
+                w, d, torch.ones_like(w, dtype=torch.bool), theta, phi))
+            n_all += n
+        return math.exp(-ll / n_all)
+
+    def on_fit_start(self, info):
+        self.t0 = time.perf_counter()
+
+    def on_sweep_end(self, view):
+        from repro_torch.data.stream import rebuild_counts_from_stream
+
+        if view.step % self.reader.num_shards:
+            return
+        view.sync()
+        self.epoch_s.append(time.perf_counter() - self.t0)
+        tokens = self.reader.meta.num_tokens
+        nwk = view.nwk.to_dense().cpu().numpy()
+        nk = view.nk.value.cpu().numpy()
+        hist_nwk, hist_nk = rebuild_counts_from_stream(self.reader, self.k)
+        checks = {"nwk_sum": int(nwk.sum(dtype=np.int64)) == tokens,
+                  "nk_sum": int(nk.sum(dtype=np.int64)) == tokens,
+                  "nwk_eq_z_histogram": bool((hist_nwk == nwk).all()),
+                  "nk_eq_z_histogram": bool((hist_nk == nk).all())}
+        if not all(checks.values()):
+            raise AssertionError(f"stream epoch {len(self.epoch_s)}: counts "
+                                 f"not conserved: {checks}")
+        self.perplexity.append(self.corpus_perplexity(view))
+        self.t0 = time.perf_counter()
+
+    def on_fit_end(self, view):
+        pass
+
+
+def stream_job(path: str, k: int, v: int, seed: int, epochs: int,
+               obs_dir: Optional[Path] = None, block_tokens: int = 8192,
+               **kw):
+    from repro_torch.api import HybridRoute, LDAJob, ObsConfig
+
+    obs = (ObsConfig(enabled=True, out_dir=str(obs_dir)) if obs_dir
+           else ObsConfig())
+    return LDAJob(stream_dir=path, num_topics=k, vocab_size=v,
+                  route=HybridRoute(hot_words=HOT_WORDS), epochs=epochs,
+                  seed=seed, obs=obs, block_tokens=block_tokens, **kw)
+
+
+def stream_launches(reader, visits: int, info: dict, block_tokens: int
+                    ) -> dict:
+    """The stream path's launches for ``visits`` shard visits: one
+    mh_sample and one delta_push a group; alias_build once a visit in
+    snapshot mode, once a group in blocked mode; no delta_apply_coo."""
+    if info["mode"] == "blocked":
+        groups = visits * (info["n_blocks"] // info["group"])
+        return expected_launches(groups, alias_builds=groups)
+    groups = visits * (reader.meta.tokens_per_shard // block_tokens
+                       // (info["staleness"] + 1))
+    return expected_launches(groups, alias_builds=visits)
+
+
+def check_launches(counts: dict, want: dict, what: str, device: str) -> None:
+    if device == "cuda" and counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want}")
+
+
+def visit_split(events) -> dict:
+    """Median ms per shard visit of each host-side part."""
+    return {"shard_wait": median(span_ms(events, "stream.shard_wait")),
+            "index": median(span_ms(events, "stream.index")),
+            "h2d": median(span_ms(events, "stream.h2d")),
+            "ndk_rebuild": median(span_ms(events, "stream.ndk")),
+            "sweep": median(span_ms(events, "exec.sweep")),
+            "write_z": median(span_ms(events, "stream.write_z"))}
+
+
+def prefetch(metrics: dict) -> dict:
+    return {name: metrics.get(f"stream.prefetch_{name}", {}).get("value", 0)
+            for name in ("hit", "miss", "skip")}
+
+
+def z_update_replica_ms(torch, reader, job, layout) -> dict:
+    """Device ms of a replica of the blocked step's z update (ROADMAP P7),
+    timed after training, not read from the training run: the same
+    ``z_flat.index_put_`` with accumulate on the same index tensors (shard
+    0's groups, every padded slot carrying token 0's index), adding the
+    slots' ``bval`` where the step adds ``z_new - z0`` (the values do not
+    change the work), one call a group after one warm-up call."""
+    from repro_torch.train import async_exec
+
+    cfg = job.lda_config(reader.meta.vocab_size)
+    _, build_index, _ = async_exec.make_stream_executor(
+        cfg, job.exec_config(), layout)
+    sh = reader.shard(0)
+    idx, bval = build_index(sh.w, np.arange(sh.w.shape[0]) < sh.n_tokens)
+    idx, bval = idx.cuda().long(), bval.cuda().to(torch.int32)
+    z = torch.from_numpy(np.array(sh.z)).cuda()
+    z.index_put_((idx[0],), bval[0], accumulate=True)              # warm up
+    ms = []
+    for g in range(idx.shape[0]):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        z.index_put_((idx[g],), bval[g], accumulate=True)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return {"per_group_ms": ms, "per_visit_ms": sum(ms),
+            "slots_per_group": int(idx.shape[1]),
+            "valid_per_group": bval.sum(1).tolist()}
+
+
+def stream_visit_state(torch, reader, cfg, seed: int):
+    """The state of a stream run's first shard visit on the card, built as
+    ``_StreamPlane`` builds it: ``init_stream``'s counts and z files, the
+    visit's shard moved over, its n_dk [doc_cap, K] histogrammed from z."""
+    from repro_torch.api.session import init_stream
+    from repro_torch.core import lightlda as lda
+    from repro_torch.data import stream
+
+    nwk, nk = init_stream(reader, cfg, seed, device="cuda")
+    loader = stream.StreamingLoader(reader, seed=seed, prefetch=False)
+    (_, sid), = loader.schedule(stream.Cursor(0, 0), 1)[:1]
+    sh = reader.shard(sid)
+    n, meta = sh.n_tokens, reader.meta
+    w, d, z, doc_start, doc_len = (torch.from_numpy(np.array(x)).cuda()
+                                   for x in (sh.w, sh.d, sh.z, sh.doc_start,
+                                             sh.doc_len))
+    ndk = torch.zeros(meta.doc_cap * cfg.K, dtype=torch.int32,
+                      device="cuda").index_add_(
+        0, d[:n].long() * cfg.K + z[:n].long(),
+        torch.ones(n, dtype=torch.int32, device="cuda"))
+    valid = torch.arange(meta.tokens_per_shard, device="cuda") < n
+    st = lda.SamplerState(w, d, z, valid, doc_start, doc_len, nwk, nk,
+                          ndk.view(meta.doc_cap, cfg.K))
+    return st, sh
+
+
+def check_stream_groups(torch, reader, jobs: dict, seed: int,
+                        card: str) -> None:
+    """mh_sample (training mode) and delta_push's merge form against their
+    plain versions, bitwise, on the inputs of a stream visit's first group
+    in each mode (``jobs``: mode -> LDAJob): the [V, K] snapshot or the
+    blocked group's pulled rows, n_dk at the stream's doc cap, the blocked
+    group's slots from the stream's own token index.  The merge takes the
+    group's real reassignments."""
+    from repro_torch.kernels import mh_sample
+    from repro_torch.train import async_exec
+
+    cfg = jobs["snapshot"].lda_config(reader.meta.vocab_size)
+    st, sh = stream_visit_state(torch, reader, cfg, seed)
+    train = {"state": st, "cfg": cfg}
+    for mode, job in jobs.items():
+        if mode == "snapshot":
+            args, valid = snapshot_group_inputs(torch, train)
+        else:
+            _, build_index, _ = async_exec.make_stream_executor(
+                cfg, job.exec_config(), st.nwk.layout)
+            n = sh.n_tokens
+            index = build_index(sh.w, np.arange(sh.w.shape[0]) < n)
+            args, valid, _ = pipelined_group_inputs(
+                torch, train, tuple(x.numpy() for x in index))
+        got = mh_sample.mh_sample_cuda(*args, cfg, frozen=False)
+        want = mh_sample_ref_chunked(torch, args, cfg, frozen=False)
+        z0 = args[1]
+        z_new = torch.where(valid, got, z0)
+        batch = (args[2], z0, z_new, (z_new != z0) & valid, args[3])
+        tables = group_tables(torch, train, "snapshot" if mode == "snapshot"
+                              else "pipelined")
+        want_t = [x.clone() for x in tables]
+        merge_ref(torch, batch, want_t)
+        merge_cuda(torch, batch, tables)
+        torch.cuda.synchronize()
+        match = {"mh_sample": bool(torch.equal(got, want)),
+                 "delta_push_merge": all(torch.equal(a, b)
+                                         for a, b in zip(tables, want_t))}
+        log(json.dumps({"check": "stream_group", "mode": mode,
+                        "table_rows": args[4].shape[0],
+                        "ndk_rows": args[5].shape[0], "K": cfg.K,
+                        "slots": int(z0.shape[0]),
+                        "valid": int(valid.sum()),
+                        "changed": int(batch[3].sum()), "match": match,
+                        "card": card}))
+        if not all(match.values()):
+            raise AssertionError(f"stream {mode} group: a kernel differs "
+                                 f"from its plain version: {match}")
+        del args, got, want, tables, want_t, batch
+
+
+def stream_train(torch, seed: int, card: str, corp, device: str = "cuda",
+                 v: int = V_FULL, k: int = K_FULL,
+                 tokens_per_shard: int = STREAM_SHARD_TOKENS,
+                 stop: int = STREAM_STOP, block_tokens: int = 8192) -> dict:
+    """The out-of-core trainer at (v, k) on ``corp`` written in shards of
+    ``tokens_per_shard``: (a) 2 epochs of the snapshot executor, exact
+    conservation after each, perplexity falling; (b) the same job on a
+    second copy of the stream, stopped after ``stop`` shard visits with a
+    checkpoint and resumed to the end of epoch 2: counts and every z file
+    equal (a)'s bitwise; (c) 1 epoch of the blocked executor (16 model
+    blocks, staleness 1), conserving."""
+    import tempfile
+
+    from repro_torch.api import APSLDA, CheckpointPolicy
+    from repro_torch.data import stream
+    from repro_torch.kernels import ops
+    from repro_torch.train import checkpoint as ckpt
+
+    out = {}
+    obs_root = ROOT / "chiprun_out" / "stream_obs"
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        dirs = [str(Path(tmp) / name) for name in ("a", "b")]
+        metas = [stream.write_sharded(p, corp, tokens_per_shard)
+                 for p in dirs]
+        meta = metas[0]
+        log(f"[stream] {meta.num_tokens} tokens in {meta.num_shards} shards "
+            f"of {tokens_per_shard} (doc cap {meta.doc_cap}), two copies "
+            f"written in {time.perf_counter() - t0:.2f} s")
+        readers = [stream.ShardedCorpusReader(p) for p in dirs]
+        n_shards = meta.num_shards
+        if device == "cuda":
+            check_stream_groups(
+                torch, readers[0],
+                {"snapshot": stream_job(dirs[0], k, v, seed, 2,
+                                        block_tokens=block_tokens),
+                 "blocked": stream_job(dirs[0], k, v, seed, 1,
+                                       block_tokens=block_tokens,
+                                       model_blocks=PIPE_BLOCKS,
+                                       staleness=PIPE_STALENESS)},
+                seed, card)
+
+        # (a) two epochs, snapshot executor
+        job = stream_job(dirs[0], k, v, seed, 2, obs_root / "snapshot",
+                         block_tokens, eval_every=n_shards)
+        check = EpochCheck(torch, readers[0], job.lda_config(v))
+        ops.reset_launch_counts()
+        # ------------------------------------------------------- main path
+        est = APSLDA(job, log_fn=log, device=device)
+        model = est.fit([check])
+        sync(torch, device)
+        counts = ops.launch_counts()
+        # ----------------------------------------------- end of main path
+        info = est.result_.info
+        check_launches(counts, stream_launches(readers[0], 2 * n_shards,
+                                               info, job.block_tokens),
+                       "stream snapshot mode", device)
+        ppl = check.perplexity
+        if not (len(ppl) == 2 and ppl[1] < ppl[0]):
+            raise AssertionError(f"stream perplexity did not fall: {ppl}")
+        events, metrics = read_obs(obs_root / "snapshot")
+        out["snapshot"] = {
+            "epochs": 2, "tokens_per_s": [meta.num_tokens / s
+                                          for s in check.epoch_s],
+            "epoch_s": check.epoch_s, "corpus_perplexity": ppl,
+            "last_shard_perplexity": [row["perplexity"]
+                                      for row in model.history],
+            "visit_ms": visit_split(events), "prefetch": prefetch(metrics),
+            "launches": counts}
+        log(json.dumps({"stream_train": dict(out["snapshot"],
+                                             mode="snapshot", card=card)}))
+        final = {"nwk": est.result_.nwk.value, "nk": est.result_.nk.value}
+        del est, model
+
+        # (b) stopped after `stop` visits with a checkpoint, then resumed
+        ck = str(Path(tmp) / "ck.npz")
+        first = stream_job(dirs[1], k, v, seed, 2, obs_root / "stopped",
+                           block_tokens, max_shards=stop, eval_every=0,
+                           checkpoint=CheckpointPolicy(path=ck))
+        ops.reset_launch_counts()
+        # ------------------------------------------------------- main path
+        APSLDA(first, log_fn=log, device=device).fit()
+        sync(torch, device)
+        stopped_counts = ops.launch_counts()
+        # ----------------------------------------------- end of main path
+        t0 = time.perf_counter()
+        saved = ckpt.restore_stream(ck)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        if (saved.cursor.epoch, saved.cursor.pos) != divmod(stop, n_shards):
+            raise AssertionError(f"checkpoint cursor {saved.cursor}")
+        events, _ = read_obs(obs_root / "stopped")
+        save_ms = span_ms(events, "stream.save")
+        resumed = stream_job(dirs[1], k, v, seed, 2, obs_root / "resumed",
+                             block_tokens, eval_every=0,
+                             checkpoint=CheckpointPolicy(path=ck,
+                                                         resume=True))
+        ops.reset_launch_counts()
+        # ------------------------------------------------------- main path
+        est = APSLDA(resumed, log_fn=log, device=device)
+        est.fit()
+        sync(torch, device)
+        resumed_counts = ops.launch_counts()
+        # ----------------------------------------------- end of main path
+        check_launches(stopped_counts,
+                       stream_launches(readers[1], stop, info,
+                                       job.block_tokens),
+                       "stopped stream run", device)
+        check_launches(resumed_counts,
+                       stream_launches(readers[1], 2 * n_shards - stop, info,
+                                       job.block_tokens),
+                       "resumed stream run", device)
+        events, _ = read_obs(obs_root / "resumed")
+        equal = {"nwk": bool(torch.equal(est.result_.nwk.value,
+                                         final["nwk"])),
+                 "nk": bool(torch.equal(est.result_.nk.value, final["nk"])),
+                 "z_files": all(np.array_equal(readers[0].read_z(s),
+                                               readers[1].read_z(s))
+                                for s in range(n_shards))}
+        if not all(equal.values()):
+            raise AssertionError(f"stop-and-resume differs from the "
+                                 f"uninterrupted run: {equal}")
+        out["resume"] = {"stop_after": stop, "equal": equal,
+                         "save_stream_ms": save_ms + span_ms(events,
+                                                             "stream.save"),
+                         "restore_stream_ms": restore_ms,
+                         "resumed_setup_ms": span_ms(events,
+                                                     "session.setup"),
+                         "checkpoint_bytes": Path(ck).stat().st_size}
+        log(json.dumps({"stream_resume": dict(out["resume"], card=card)}))
+        del est, final
+
+        # (c) one epoch, blocked executor
+        job = stream_job(dirs[0], k, v, seed, 1, obs_root / "blocked",
+                         block_tokens, eval_every=n_shards,
+                         model_blocks=PIPE_BLOCKS,
+                         staleness=PIPE_STALENESS)
+        check = EpochCheck(torch, readers[0], job.lda_config(v))
+        ops.reset_launch_counts()
+        # ------------------------------------------------------- main path
+        est = APSLDA(job, log_fn=log, device=device)
+        est.fit([check])
+        sync(torch, device)
+        counts = ops.launch_counts()
+        # ----------------------------------------------- end of main path
+        binfo = est.result_.info
+        check_launches(counts, stream_launches(readers[0], n_shards, binfo,
+                                               job.block_tokens),
+                       "stream blocked mode", device)
+        events, metrics = read_obs(obs_root / "blocked")
+        z_update = (z_update_replica_ms(torch, readers[0], job,
+                                        est.result_.nwk.layout)
+                    if device == "cuda" else None)
+        out["blocked"] = {
+            "epochs": 1, "model_blocks": binfo["n_blocks"],
+            "rows_per_step": binfo["rows_per_step"],
+            "staleness": binfo["staleness"],
+            "tokens_per_s": [meta.num_tokens / s for s in check.epoch_s],
+            "epoch_s": check.epoch_s, "corpus_perplexity": check.perplexity,
+            "visit_ms": visit_split(events), "z_update_replica": z_update,
+            "prefetch": prefetch(metrics), "launches": counts}
+        log(json.dumps({"stream_train": dict(out["blocked"], mode="blocked",
+                                             card=card)}))
+        del est
+    return out
+
+
+def stream_card_vs_cpu(torch, seed: int, card: str) -> None:
+    """A small streamed job (V = 3,000, K = 64, 300 docs, 4 shards), 2
+    epochs in each mode on the card and on the CPU, each on its own copy
+    of the stream: counts and every z file equal bitwise."""
+    import tempfile
+
+    from repro_torch.api import APSLDA, HybridRoute, LDAJob
+    from repro_torch.data import stream
+    from repro_torch.data.corpus import synthetic_corpus
+
+    corp = synthetic_corpus(300, 3000, true_topics=16, seed=seed)
+    tokens = -(-corp.num_tokens // 4 // 1024) * 1024
+    for extra in ({}, {"model_blocks": 4, "staleness": 1}):
+        got = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for dev in ("cuda", "cpu"):
+                path = str(Path(tmp) / dev)
+                stream.write_sharded(path, corp, tokens)
+                job = LDAJob(stream_dir=path, num_topics=64,
+                             block_tokens=1024, epochs=2, eval_every=0,
+                             seed=seed, route=HybridRoute(hot_words=200),
+                             **extra)
+                est = APSLDA(job, log_fn=lambda m: None, device=dev)
+                est.fit()
+                reader = est.result_.reader
+                if reader.num_shards != 4:
+                    raise AssertionError(f"{reader.num_shards} shards")
+                got[dev] = (est.result_.nwk.value.cpu(),
+                            est.result_.nk.value.cpu(),
+                            [reader.read_z(s) for s in range(4)])
+        equal = {"nwk": bool(torch.equal(got["cuda"][0], got["cpu"][0])),
+                 "nk": bool(torch.equal(got["cuda"][1], got["cpu"][1])),
+                 "z_files": all(np.array_equal(a, b) for a, b in
+                                zip(got["cuda"][2], got["cpu"][2]))}
+        mode = "blocked" if extra else "snapshot"
+        log(json.dumps({"check": "stream_card_vs_cpu", "mode": mode,
+                        "tokens": corp.num_tokens, "V": 3000, "K": 64,
+                        "shards": 4, "equal": equal}))
+        if not all(equal.values()):
+            raise AssertionError(f"streamed {mode} training on the card "
+                                 f"differs from the CPU: {equal}")
+
+
+def service(torch, seed: int, card: str, corp, docs,
+            device: str = "cuda", v: int = V_FULL, k: int = K_FULL,
+            sweeps: int = 2, clients: int = N_CLIENTS,
+            per_client: int = PER_CLIENT) -> dict:
+    """TopicService at (v, k): the training corpus's initial state
+    published, then ``train_async`` (``sweeps`` sweeps, a publish after
+    each) while ``clients`` closed-loop threads submit ``per_client``
+    requests each through ``start_serving``.  Every request is served or
+    typed-shed, at least one swap lands under load, θ sums to 1."""
+    from repro_torch import obs
+    from repro_torch import rng as jrng
+    from repro_torch.api import HybridRoute
+    from repro_torch.core.lightlda import LDAConfig
+    from repro_torch.infer.engine import DeadlineExceeded, EngineConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serve import TopicService
+    from repro_torch.train.async_exec import ExecConfig
+
+    obs_dir = ROOT / "chiprun_out" / "service_obs"
+    cfg = LDAConfig(num_topics=k, vocab_size=v)
+    with obs.session(obs.ObsConfig(enabled=True, out_dir=str(obs_dir))):
+        svc = TopicService(cfg, EngineConfig(),
+                           exec_cfg=ExecConfig(
+                               route=HybridRoute(hot_words=HOT_WORDS)),
+                           device=device)
+        svc.init_from_corpus(corp, seed=seed)
+        svc.publisher.publish_state(svc.state)
+        svc.start_serving()
+        v0 = svc.version
+        lock = threading.Lock()
+        served, shed, errors, latency = [], [], [], []
+
+        def client(ci: int) -> None:
+            # closed loop: each request waits for its answer before the next
+            for i in range(per_client):
+                j = ci * per_client + i
+                ts = time.perf_counter()
+                try:
+                    r = svc.submit(docs[j % len(docs)],
+                                   seed=5000 + j).result(timeout=600)
+                    with lock:
+                        served.append(r)
+                        latency.append((time.perf_counter() - ts) * 1e3)
+                except DeadlineExceeded as exc:
+                    with lock:
+                        shed.append(exc)
+                except Exception as exc:   # noqa: BLE001 -- the verdict
+                    with lock:
+                        errors.append(exc)
+
+        ops.reset_launch_counts()
+        # --------------------------------------------------------- main path
+        t0 = time.perf_counter()
+        trainer = svc.train_async(sweeps, jrng.PRNGKey(seed + 3),
+                                  publish_every=1)
+        threads = [threading.Thread(target=client, args=(ci,))
+                   for ci in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        trainer.join(timeout=900)
+        train_s = time.perf_counter() - t0
+        svc.stop_serving()
+        sync(torch, device)
+        counts = ops.launch_counts()
+        # ------------------------------------------------- end of main path
+        reg = obs.metrics_registry()
+        lag = reg.get("serve.version_lag")
+        lag_max = max((val for _, val in lag.series), default=0.0) \
+            if lag is not None else None
+    events, _ = read_obs(obs_dir)
+    publish_ms = [sum(x) for x in zip(*(span_ms(events, f"snapshot.{p}")
+                                         for p in ("pull", "build", "sync",
+                                                   "swap")))]
+    total = clients * per_client
+    swaps = svc.version - v0
+    versions = sorted({r.version for r in served})
+    sums = [float(r.theta.sum()) for r in served]
+    # a swap under load: a publish landed while requests were being served
+    # (a batch answered from a new version, or one answered from an older
+    # version than the newest published)
+    ok = {"no_errors": not errors,
+          "all_served_or_shed": len(served) + len(shed) == total,
+          "swap_under_load": swaps >= 1 and (len(versions) > 1
+                                             or (lag_max or 0) >= 1),
+          "theta_sums_to_1": all(abs(s - 1.0) < 1e-3 for s in sums),
+          "trainer_finished": not trainer.running}
+    row = {"requests": total, "served": len(served), "shed": len(shed),
+           "errors": [repr(e) for e in errors[:3]],
+           "req_per_s": len(served) / wall, "wall_s": wall,
+           "train_s": train_s,
+           "p50_ms": float(np.percentile(latency, 50)) if latency else None,
+           "p90_ms": float(np.percentile(latency, 90)) if latency else None,
+           "swaps": swaps, "served_versions": versions,
+           "version_lag_max": lag_max, "publish_ms": publish_ms,
+           "launches": counts, "checks": ok,
+           "card": card}
+    log(json.dumps({"service": row}))
+    if not all(ok.values()):
+        raise AssertionError(f"service under live refresh failed: {ok}")
+    if device == "cuda" and not (counts["mh_sample"] and counts["delta_push"]
+                                 and counts["alias_build"]):
+        raise AssertionError(f"service: kernels not launched: {counts}")
+    return row
+
+
+def launchers(torch, card: str, device: Optional[str] = None) -> dict:
+    """Both command-line entry points, in this process, on the default
+    device (the card) unless ``device`` is given: the serving launcher's
+    selftest, then a small streamed training run with checkpoints and its
+    resume, which must print the resume line and write history.json."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import lda, topic_serve
+
+    dev = [] if device is None else ["--device", device]
+    out = {}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    # ------------------------------------------------------------ main path
+    rc = topic_serve.main(["--selftest", *dev])
+    # ---------------------------------------------------- end of main path
+    out["topic_serve"] = {"rc": rc, "s": time.perf_counter() - t0,
+                          "launches": ops.launch_counts()}
+    if rc != 0:
+        raise AssertionError(f"topic_serve --selftest returned {rc}")
+    with tempfile.TemporaryDirectory() as tmp:
+        base = ["--docs", "400", "--vocab", "2000", "-k", "50",
+                "--block-tokens", "4096", "--stream-shard-tokens", "8192",
+                "--stream-dir", str(Path(tmp) / "stream"), "--eval-every",
+                "2", "--out", str(Path(tmp) / "out"), *dev]
+        runs = []
+        ops.reset_launch_counts()
+        for argv in (["--epochs", "2", "--checkpoint-every", "2"],
+                     ["--epochs", "3", "--resume"]):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            # ---------------------------------------------------- main path
+            with contextlib.redirect_stdout(buf):
+                rc = lda.main(base + argv)
+            # -------------------------------------------- end of main path
+            text = buf.getvalue()
+            sys.stdout.write(text)
+            hist = json.loads((Path(tmp) / "out" / "history.json")
+                              .read_text())
+            runs.append({"argv": argv, "rc": rc, "s": time.perf_counter() - t0,
+                         "history_rows": len(hist),
+                         "resumed": "[stream] resumed at epoch 2 pos 0"
+                         in text})
+            (Path(tmp) / "out" / "history.json").unlink()
+        out["lda"] = {"runs": runs, "launches": ops.launch_counts()}
+    log(json.dumps({"launchers": dict(out, card=card)}))
+    if not (all(r["rc"] == 0 and r["history_rows"] for r in runs)
+            and runs[1]["resumed"]):
+        raise AssertionError(f"launch.lda stream run or resume failed: "
+                             f"{runs}")
+    counts = out["lda"]["launches"]
+    if (device or "cuda") == "cuda" and not (
+            counts["mh_sample"] and counts["delta_push"]
+            and counts["alias_build"]):
+        raise AssertionError(f"launch.lda: kernels not launched: {counts}")
+    return out
+
+
 # -- phase 5: kernel times at the main path's shapes -------------------------
 
 def main_path_mh_inputs(torch, model, docs, seeds):
@@ -861,12 +1513,13 @@ def pipelined_group_rows(train: dict):
     return grp_rows, st.nwk.pull_block(0, grp_rows).result()
 
 
-def pipelined_group_inputs(torch, train: dict):
+def pipelined_group_inputs(torch, train: dict, index=None):
     """mh_sample's inputs in the pipelined executor's first group (16 model
     blocks, staleness 1) of a sweep of the trained state: the group's
     pulled rows and their alias tables, block-local row indices, and the
-    group's padded token slots.  Returns them, the slots' ``valid`` and
-    their logical word ids."""
+    group's padded token slots (from ``index``, the blocked token index
+    (idx, bval) as numpy arrays, if given; else the in-memory executor's).
+    Returns them, the slots' ``valid`` and their logical word ids."""
     from repro_torch import rng as jrng
     from repro_torch.core import alias as alias_mod
     from repro_torch.core import lightlda as lda
@@ -874,9 +1527,8 @@ def pipelined_group_inputs(torch, train: dict):
     st, cfg = train["state"], train["cfg"]
     layout = st.nwk.layout
     grp_rows, rows = pipelined_group_rows(train)
-    idx, bval = lda.block_token_index(st.w.cpu().numpy(),
-                                      st.valid.cpu().numpy(), grp_rows,
-                                      layout)
+    idx, bval = index or lda.block_token_index(
+        st.w.cpu().numpy(), st.valid.cpu().numpy(), grp_rows, layout)
     i = torch.from_numpy(idx[0]).to("cuda").long()
     nk = st.nk.value
     table = alias_mod.build_alias_rows(
@@ -1691,6 +2343,12 @@ def main(argv=None) -> int:
     serve = phase("serve", serve_slice, torch, args.seed, card)
     train = phase("train", train_slice, torch, args.seed, card)
     phase("card_vs_cpu", card_vs_cpu, torch, args.seed)
+    phase("stream_train", stream_train, torch, args.seed, card,
+          train["corpus"])
+    phase("stream_card_vs_cpu", stream_card_vs_cpu, torch, args.seed, card)
+    phase("service", service, torch, args.seed, card, train["corpus"],
+          serve["docs"])
+    phase("launchers", launchers, torch, card)
     timer = Timer(torch)
     rows, groups = phase("kernel_report", kernel_report, torch, timer, serve,
                          train, card)

@@ -8,11 +8,13 @@
     model = api.APSLDA(job).fit()                      # on the card
     theta = model.transform(unseen_docs)               # fold-in
     scores = model.score(queries, docs)                # topic-smoothed ranking
+    pub   = model.publisher()                          # -> TopicService
 
 ``TopicModel(nwk, nk, cfg)`` also wraps counts trained elsewhere.
 """
-from repro_torch.api.callbacks import (Callback, EvalCallback, LogCallback,
-                                       SweepView)
+from repro_torch.api.callbacks import (Callback, CheckpointCallback,
+                                       EvalCallback, LogCallback,
+                                       PublishCallback, SweepView)
 from repro_torch.api.estimator import APSLDA
 from repro_torch.api.job import (IN_PROCESS, NET, SPMD, CheckpointPolicy,
                                  JobValidationError, LDAJob)
@@ -24,6 +26,7 @@ from repro_torch.ps import CooRoute, DenseRoute, HybridRoute, PushRoute
 __all__ = [
     "APSLDA", "LDAJob", "TopicModel", "Session", "SessionResult",
     "CheckpointPolicy", "JobValidationError", "IN_PROCESS", "NET", "SPMD",
-    "Callback", "EvalCallback", "LogCallback", "SweepView", "ObsConfig",
+    "Callback", "CheckpointCallback", "EvalCallback", "LogCallback",
+    "PublishCallback", "SweepView", "ObsConfig",
     "CooRoute", "DenseRoute", "HybridRoute", "PushRoute", "resolve_device",
 ]

@@ -9,15 +9,19 @@ bitwise identical to a run without.
 
 Built-ins:
 
-  * ``EvalCallback``  training (and optionally held-out fold-in)
-                      perplexity and coherence on a cadence; keeps the
-                      ``history`` rows;
-  * ``LogCallback``   structured JSONL event log (one object per line:
-                      fit_start / sweep / fit_end).
+  * ``EvalCallback``        training (and optionally held-out fold-in)
+                            perplexity and coherence on a cadence; keeps
+                            the ``history`` rows;
+  * ``CheckpointCallback``  persists the run every N visits and at the end;
+  * ``LogCallback``         structured JSONL event log (one object per
+                            line: fit_start / sweep / fit_end);
+  * ``PublishCallback``     the continuous-learning handoff: publishes a
+                            serving snapshot through a
+                            ``SnapshotPublisher`` every N visits while the
+                            engine keeps serving.
 
-The JAX package's ``CheckpointCallback``, ``PublishCallback`` and
-``TraceCallback`` need checkpointing and the live-refresh trainer, which
-belong to a later slice of the port.
+The JAX package's ``TraceCallback`` belongs to ROADMAP A, 'Timing and
+trace replay'.
 """
 from __future__ import annotations
 
@@ -78,6 +82,13 @@ class SweepView:
 
     def log_line(self, perplexity: float) -> str:
         return self._plane.log_line(self, perplexity)
+
+    # -- persistence (observation of state, never mutation of it) --------
+    def save(self, path: str) -> None:
+        """Checkpoint the run as of this visit (``save_lda`` for the memory
+        plane, ``save_stream`` + the stream's z files for the stream
+        plane)."""
+        self._plane.checkpoint(self, path)
 
     def __repr__(self):
         where = (f"epoch {self.epoch} pos {self.pos}"
@@ -187,6 +198,32 @@ class EvalCallback(Callback):
         return view._plane.cfg
 
 
+class CheckpointCallback(Callback):
+    """Persist the run every ``every`` visits and once at the end.
+
+    With ``every=0`` only the end-of-fit checkpoint is written.
+    Checkpointing reads the state and writes to disk -- it never touches
+    the run.
+    """
+
+    def __init__(self, path: str, every: int = 0):
+        if not path:
+            raise ValueError("CheckpointCallback needs a path")
+        self.path = path
+        self.every = int(every)
+        self._last_step = 0
+
+    def on_sweep_end(self, view: SweepView) -> None:
+        # crossing-based cadence, same rationale as EvalCallback._due
+        last, self._last_step = self._last_step, view.step
+        if self.every and view.step // self.every > last // self.every:
+            view.save(self.path)
+
+    def on_fit_end(self, view: Optional[SweepView]) -> None:
+        if view is not None:
+            view.save(self.path)
+
+
 class LogCallback(Callback):
     """Structured JSONL event history (one JSON object per line).
 
@@ -234,3 +271,48 @@ class LogCallback(Callback):
 
     def on_fit_end(self, view: Optional[SweepView]) -> None:
         self._emit({"event": "fit_end", "steps": self._steps})
+
+
+class PublishCallback(Callback):
+    """Publish a serving snapshot every ``every`` executor visits.
+
+    The continuous-learning handoff: a training fit keeps sweeping while
+    this callback periodically freezes the current counts into the given
+    ``SnapshotPublisher``; a live ``ConcurrentEngine`` reading that
+    publisher picks the new version up at its next batch -- zero-downtime
+    refresh, with staleness bounded by the publish cadence.
+
+    Publication is a pure *read* of the training handles (``publish_view``
+    over ``nwk.read_view()`` + ``nk``): the publisher builds its snapshot
+    from a pulled copy and synchronises before the swap, and a sweep never
+    writes into the tables it was given, so the trained model is bitwise
+    identical with or without it attached.  ``every`` counts visits
+    (sweeps in memory mode, shard visits in stream mode) on the same
+    crossing-based cadence as ``EvalCallback``; ``include_last``
+    additionally publishes the final visit.  Published version numbers
+    accumulate in ``.versions``.
+    """
+
+    def __init__(self, publisher, every: int = 1, *,
+                 include_last: bool = False):
+        if publisher is None:
+            raise ValueError("PublishCallback needs a SnapshotPublisher")
+        self.publisher = publisher
+        self.every = int(every)
+        self.include_last = include_last
+        self.versions: list = []
+        self._last_step = 0
+
+    def _publish(self, view: SweepView) -> None:
+        view.sync()
+        snap = self.publisher.publish_view(view.nwk.read_view(), view.nk)
+        self.versions.append(snap.version)
+
+    def on_sweep_end(self, view: SweepView) -> None:
+        last, self._last_step = self._last_step, view.step
+        if self.every and view.step // self.every > last // self.every:
+            self._publish(view)
+
+    def on_fit_end(self, view: Optional[SweepView]) -> None:
+        if self.include_last and view is not None:
+            self._publish(view)

@@ -91,6 +91,7 @@ class CudaKernel:
         self.source = source or name
         self.argtypes = argtypes
         self.launches = 0
+        self._count_lock = threading.Lock()   # trainer and batcher threads
         self._fn = None
         self._err = None
 
@@ -114,7 +115,8 @@ class CudaKernel:
         if code != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA error "
                                f"{code} ({self._err(code).decode()})")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
 
 def stream_args(tensor) -> tuple:

@@ -41,7 +41,8 @@ Entry points:
   * ``pipelined_sweep`` -- the blocked model-parallel executor (worker
     memory O(group x K), the Web-scale path),
   * ``snapshot_sweep``  -- the full-snapshot executor,
-  * ``make_executor``   -- the factory ``api.Session`` drives.
+  * ``make_executor``   -- the factory ``api.Session`` drives;
+  * ``make_stream_executor`` -- the per-shard step of the streamed plane.
 """
 from __future__ import annotations
 
@@ -440,6 +441,61 @@ def blocked_geometry(layout, model_blocks: int, staleness: int
         rpb += 1
     n_blocks = layout.pad_rows // rpb
     return rpb, n_blocks, effective_staleness(n_blocks, staleness)
+
+
+def make_stream_executor(cfg: "lda.LDAConfig", exec_cfg: ExecConfig,
+                         layout, cap_round: int = 2048):
+    """Build the per-shard step for the streaming trainer.
+
+    Unlike ``make_executor`` (which builds one corpus's token index up
+    front), the stream trainer sees a *sequence* of shards, all padded to
+    the same token/doc geometry (``data/stream.py``).  Returns ``(step,
+    build_index, info)``:
+
+      * blocked mode (``model_blocks > 0``): ``step(state, key, idx,
+        bval)``, one ``pipelined_sweep`` at staleness 0 over model blocks
+        of ``rows_per_step = rows_per_block * (s + 1)`` rows (the group of
+        ``s + 1`` blocks is the unit), and ``build_index(w, valid,
+        cap=None) -> (idx, bval)``, the host grouping each shard's tokens
+        by model block as CPU tensors (the caller moves them to the
+        state's device), the capacity rounded up to ``cap_round`` (pass
+        ``cap`` to pin one capacity for every shard; overflow raises);
+      * snapshot mode: ``step(state, key)`` and ``build_index`` None.
+
+    Both steps are plain functions wrapped by ``_obs_step``.
+    """
+    route = exec_cfg.resolve_route(cfg.V)
+    if exec_cfg.model_blocks > 0:
+        rpb, n_blocks, s = blocked_geometry(layout, exec_cfg.model_blocks,
+                                            exec_cfg.staleness)
+        rpb_step = rpb * (s + 1)
+
+        def step_fn(st, k, idx, bval):
+            return pipelined_sweep(st, k, cfg, idx, bval, rpb_step,
+                                   staleness=0, route=route)
+
+        def build_index(w, valid, cap=None):
+            idx, bval = lda.block_token_index(
+                np.asarray(w), np.asarray(valid), rpb_step, layout,
+                cap_round=cap_round, cap=cap)
+            return torch.from_numpy(idx), torch.from_numpy(bval)
+
+        info = {"mode": "blocked", "n_blocks": n_blocks,
+                "rows_per_block": rpb, "rows_per_step": rpb_step,
+                "staleness": s, "group": s + 1,
+                "staleness_requested": exec_cfg.staleness,
+                "hot_words": exec_cfg.hot_words, "route": repr(route)}
+        return _obs_step(step_fn, exec_cfg, info), build_index, info
+
+    def step_fn(st, k):
+        return snapshot_sweep(st, k, cfg, staleness=exec_cfg.staleness,
+                              route=route)
+
+    info = {"mode": "snapshot", "n_blocks": None, "rows_per_block": None,
+            "staleness": exec_cfg.staleness,
+            "staleness_requested": exec_cfg.staleness,
+            "hot_words": exec_cfg.hot_words, "route": repr(route)}
+    return _obs_step(step_fn, exec_cfg, info), None, info
 
 
 def make_executor(state: "lda.SamplerState", cfg: "lda.LDAConfig",

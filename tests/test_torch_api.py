@@ -106,8 +106,6 @@ def test_job_validation_matches_jax(corpora, bad):
     (dict(storage="tiered", model_blocks=4), "Tiered storage"),
     (dict(route="auto"), "Autotuner"),
     (dict(staleness="auto"), "Autotuner"),
-    (dict(checkpoint=tapi.CheckpointPolicy(path="/nonexistent/ck.npz")),
-     "Streaming and checkpointing"),
 ])
 def test_session_refuses_unported_planes(corpora, plane, item):
     job = tapi.LDAJob(corpus=corpora[1], **plane)
@@ -118,10 +116,31 @@ def test_session_refuses_unported_planes(corpora, plane, item):
 
 
 def test_session_refuses_a_streamed_source(tmp_path):
+    """Streamed sources run on the stream plane; a directory that holds no
+    stream manifest is refused before any device work."""
     job = tapi.LDAJob(stream_dir=str(tmp_path))
-    with pytest.raises(tapi.JobValidationError,
-                       match="Streaming and checkpointing"):
-        tapi.Session(job, device="cpu")
+    with pytest.raises(FileNotFoundError, match="no stream manifest"):
+        tapi.Session(job, device="cpu").run()
+
+
+def test_checkpointed_fit_writes_the_jax_file(corpora, tmp_path):
+    """A memory job's checkpoint policy writes ``save_lda``'s file at the
+    end of the fit: byte-equal to the JAX package's, and the counts it
+    restores are the fit's."""
+    from repro_torch.train import checkpoint as tckpt
+    paths = [str(tmp_path / f"{p}.npz") for p in ("jax", "torch")]
+    jjob, tjob = _jobs(corpora, sweeps=2, eval_every=0)
+    japi.APSLDA(dataclasses.replace(
+        jjob, checkpoint=japi.CheckpointPolicy(path=paths[0], every=1)),
+        **QUIET).fit()
+    tm = tapi.APSLDA(dataclasses.replace(
+        tjob, checkpoint=tapi.CheckpointPolicy(path=paths[1], every=1)),
+        device="cpu", **QUIET).fit()
+    with open(paths[0], "rb") as a, open(paths[1], "rb") as b:
+        assert a.read() == b.read()
+    st = tckpt.restore_lda(paths[1], tm.cfg, corpora[1].num_docs,
+                           device="cpu")
+    np.testing.assert_array_equal(st.nwk.to_dense().numpy(), tm.nwk)
 
 
 def test_estimator_defaults_to_the_card(corpora):

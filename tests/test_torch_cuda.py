@@ -272,3 +272,104 @@ def test_training_on_card_matches_cpu(card, extra):
     cpu = est.fit()
     np.testing.assert_array_equal(gpu.nwk, cpu.nwk)
     np.testing.assert_array_equal(gpu.nk, cpu.nk)
+
+
+@pytest.mark.parametrize("extra", [{}, {"model_blocks": 4, "staleness": 1}])
+def test_streamed_training_on_card_matches_cpu(card, tmp_path, extra):
+    """A small streamed job (2 epochs over 4 shards) through APSLDA on the
+    card and on the CPU, each on its own copy of the stream: the counts
+    and every shard's z file equal bitwise; the card launched one
+    mh_sample and one delta_push per group and no delta_apply_coo."""
+    from repro_torch.api import APSLDA, HybridRoute, LDAJob
+    from repro_torch.data import stream
+    from repro_torch.data.corpus import synthetic_corpus
+
+    corp = synthetic_corpus(120, 900, true_topics=8, seed=2)
+    tokens = 2048                       # 7,197 tokens: 4 shards
+    models, readers = {}, {}
+    for dev in ("cuda", "cpu"):
+        path = str(tmp_path / dev)
+        stream.write_sharded(path, corp, tokens_per_shard=tokens)
+        job = LDAJob(stream_dir=path, num_topics=24, block_tokens=1024,
+                     epochs=2, eval_every=0, seed=4,
+                     route=HybridRoute(hot_words=60), **extra)
+        ops.reset_launch_counts()
+        est = APSLDA(job, log_fn=lambda m: None, device=dev)
+        models[dev] = est.fit()
+        readers[dev] = est.result_.reader
+        assert readers[dev].num_shards == 4
+        if dev == "cuda":
+            counts = ops.launch_counts()
+            info = est.result_.info
+            visits = 2 * readers[dev].num_shards
+            groups = visits * (info["n_blocks"] // info["group"]
+                               if extra else tokens // 1024)
+            assert counts["mh_sample"] == groups
+            assert counts["delta_push"] == groups
+            assert counts["delta_apply_coo"] == 0
+            assert counts["alias_build"] == (groups if extra else visits)
+    np.testing.assert_array_equal(models["cuda"].nwk, models["cpu"].nwk)
+    np.testing.assert_array_equal(models["cuda"].nk, models["cpu"].nk)
+    assert models["cpu"].nwk.sum() == corp.num_tokens
+    for sid in range(readers["cpu"].num_shards):
+        np.testing.assert_array_equal(readers["cuda"].read_z(sid),
+                                      readers["cpu"].read_z(sid))
+
+
+def test_topic_service_trains_and_serves_on_card(card):
+    """TopicService on the card: train with publishes, then serve
+    concurrent requests while training refreshes the snapshot; the card's
+    θ equal the CPU service's bitwise for the same snapshot counts."""
+    import threading
+
+    from repro_torch import rng as jrng
+    from repro_torch.data.corpus import synthetic_corpus
+    from repro_torch.infer.engine import EngineConfig
+    from repro_torch.infer.foldin import FoldInConfig
+    from repro_torch.serve import TopicService
+    from repro_torch.train.async_exec import ExecConfig
+
+    corp = synthetic_corpus(120, 900, true_topics=8, seed=2)
+    cfg = tlda.LDAConfig(num_topics=24, vocab_size=900, block_tokens=1024)
+    ecfg = EngineConfig(max_batch=8, foldin=FoldInConfig(num_sweeps=12,
+                                                         burnin=4))
+    svcs = {}
+    for dev in ("cuda", "cpu"):
+        svc = TopicService(cfg, ecfg, exec_cfg=ExecConfig(hot_words=60),
+                           device=dev)
+        svc.init_from_corpus(corp, seed=1)
+        snap = svc.train(2, jrng.PRNGKey(7), publish_every=1)
+        assert snap.version == svc.version == 3
+        assert snap.device.type == dev
+        svcs[dev] = svc
+    docs = [corp.w[s:s + n] for s, n in zip(corp.doc_start[:6],
+                                             corp.doc_len[:6])]
+    got = svcs["cuda"].fold_in(docs, seeds=list(range(6)))
+    want = svcs["cpu"].fold_in(docs, seeds=list(range(6)))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.theta, w.theta)
+
+    svc = svcs["cuda"]
+    svc.start_serving(max_delay_ms=2.0)
+    v0 = svc.version
+    ops.reset_launch_counts()
+    trainer = svc.train_async(2, jrng.PRNGKey(8), publish_every=1)
+    results = []
+
+    def client(ci):
+        for i in range(4):
+            results.append(svc.submit(docs[(ci + i) % 6],
+                                      seed=10 * ci + i).result(timeout=120))
+
+    threads = [threading.Thread(target=client, args=(ci,)) for ci in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    trainer.join(timeout=300)
+    svc.stop_serving()
+    assert len(results) == 12
+    assert all(abs(r.theta.sum() - 1.0) < 1e-3 for r in results)
+    assert svc.version - v0 == 3
+    counts = ops.launch_counts()
+    assert counts["mh_sample"] > 0 and counts["delta_push"] > 0

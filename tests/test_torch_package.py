@@ -48,13 +48,52 @@ def test_source_has_no_jax_or_repro_import():
                          r"from repro(\.| import))", re.M)
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 30
-    # the training slice's modules are among them
+    # the training slice's modules are among them, and the stream,
+    # checkpoint, serving facade and launchers
     for mod in ("core/pserver.py", "ps/client.py", "ps/routes.py",
                 "train/async_exec.py", "api/session.py", "api/job.py",
-                "kernels/delta_push.py", "core/coherence.py"):
+                "kernels/delta_push.py", "core/coherence.py",
+                "data/stream.py", "train/checkpoint.py", "serve/__init__.py",
+                "serve/topic_service.py", "launch/__init__.py",
+                "launch/lda.py", "launch/topic_serve.py"):
         assert PKG / mod in files, mod
     for f in files:
         assert not pattern.search(f.read_text()), f
+
+
+def test_stream_module_imports_no_torch():
+    """``data.stream`` is a feeder-host pipeline: numpy only."""
+    code = (f"import sys; sys.path.insert(0, {str(ROOT / 'src')!r})\n"
+            "import repro_torch.data.stream\n"
+            "print(sorted(m for m in sys.modules if m == 'torch' or "
+            "m.startswith('torch.')))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=env, cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+# the trainer entry points below ``api``: a launcher that calls one of them
+# bypasses the session (its planes, callbacks and checkpoint policy)
+TRAINER_CALL = re.compile(
+    r"\b(?:fit_lda(?:_stream)?|stream_fit|memory_fit|pipelined_sweep|"
+    r"snapshot_sweep|make_(?:stream_)?executor|init_stream)\s*\(")
+
+
+def test_launchers_orchestrate_only_through_api():
+    offenders = []
+    files = sorted((PKG / "launch").rglob("*.py"))
+    assert len(files) == 3
+    for path in files:
+        for lineno, line in enumerate(path.read_text().splitlines(), 1):
+            if TRAINER_CALL.search(line):
+                offenders.append(f"{path.relative_to(ROOT)}:{lineno}: "
+                                 f"{line.strip()}")
+    assert not offenders, (
+        "repro_torch/launch must orchestrate training through "
+        "repro_torch.api (LDAJob + APSLDA/Session) or the serve facade:\n"
+        + "\n".join(offenders))
 
 
 def test_topic_model_defaults_to_the_card():
