@@ -10,10 +10,9 @@ The job has every field of the JAX package's except the two that select
 its Pallas path (``use_kernels``, ``kernel_interpret``): here a CUDA tensor
 always runs the kernel, so a job reads the same in both packages.  The
 device is not a field; it is a keyword of ``APSLDA`` and ``Session``.
-Planes the port does not run yet (a streamed source, the SPMD and network
-backends, tiered storage, the autotuner, checkpointing) validate here as
-they do in the JAX package, and ``Session`` refuses them, naming the
-ROADMAP item that ports them.
+The planes the port does not run yet, the SPMD and network backends,
+validate here as they do in the JAX package, and ``Session`` refuses them,
+naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 

@@ -6,12 +6,13 @@
         callbacks.on_sweep_end(view)      # observation, never perturbation
     callbacks.on_fit_end(final_view)
 
-A *plane* binds a data source to an execution backend.  The port runs two,
-both on the in-process backend with dense storage: the in-memory corpus
-(``_MemoryPlane``) and the on-disk shard stream (``_StreamPlane``, the
-out-of-core trainer).  The JAX package's tiered, SPMD and network planes
-belong to later slices, and ``Session`` refuses a job that needs one with
-the ROADMAP item that ports it.
+A *plane* binds a data source to an execution backend.  The port runs
+three, all on the in-process backend: the in-memory corpus
+(``_MemoryPlane``, dense storage; ``route``/``staleness`` may be
+``"auto"``), the same over tiered storage (``_TieredPlane``), and the
+on-disk shard stream (``_StreamPlane``, the out-of-core trainer).  The JAX
+package's SPMD and network planes belong to later slices, and ``Session``
+refuses a job that needs one with the ROADMAP item that ports it.
 
 Random streams, as the JAX package draws them, so a job's counts equal its
 bitwise:
@@ -63,19 +64,13 @@ class SessionResult(NamedTuple):
 
 def unported_planes(job: LDAJob) -> List[str]:
     """Why the port cannot run ``job`` yet, one line per plane it needs
-    (empty: the memory x in-process x dense plane runs it)."""
+    (empty: an in-process plane runs it)."""
     out = []
     if job.backend == SPMD:
         out.append("backend='spmd' is not ported yet: ROADMAP A, 'SPMD'")
     if job.backend == NET:
         out.append("backend='net' is not ported yet: ROADMAP A, "
                    "'Network parameter server'")
-    if job.storage == "tiered":
-        out.append("storage='tiered' is not ported yet: ROADMAP A, "
-                   "'Tiered storage'")
-    if job.route == "auto" or job.staleness == "auto":
-        out.append("route='auto'/staleness='auto' is not ported yet: "
-                   "ROADMAP A, 'Autotuner'")
     return out
 
 
@@ -190,6 +185,11 @@ class _MemoryPlane:
         self.step_fn, info = async_exec.make_executor(state, cfg,
                                                       self.exec_cfg)
         self.info = dict(info)
+        tuned = info.get("autotune")
+        if tuned is not None:
+            self.log_fn(f"[lda] autotune: chose {tuned['chosen']} "
+                        f"(route='auto'/staleness='auto' measured against "
+                        f"the materialised state)")
         if info["mode"] == "blocked":
             rpb = info["rows_per_block"]
             self.log_fn(
@@ -276,6 +276,128 @@ def memory_fit(state, key, cfg, exec_cfg, sweeps, *, eval_every=10,
     ev = EvalCallback(every=eval_every, include_last=True, log_fn=log_fn)
     _run_loop(plane, [ev, *callbacks])
     return plane.state, ev.history, plane.info
+
+
+# ---------------------------------------------------------------------------
+# The tiered plane: in-memory corpus over tiered parameter storage.
+# ---------------------------------------------------------------------------
+
+class _TieredPlane(_MemoryPlane):
+    """The memory plane with the count table in tiered storage: the
+    ``hot_rows`` hottest rows on the device, the full ``[V, K]`` table in
+    a host memmap cold store (``repro_torch.ps.tiered``).
+
+    Differences from ``_MemoryPlane``, all confined to setup/teardown: the
+    initial ``n_wk`` is histogrammed on the *host* straight into the cold
+    store (the full table never lands on the device -- the point of the
+    plane), ``n_k`` and ``n_dk`` from the valid tokens alone, the executor
+    is ``make_tiered_executor``'s host-driven blocked loop, and ``finish``
+    flushes the cold store and reports the tier's hit rate.  The visit
+    protocol, eval and RNG discipline are inherited: the initial topics are
+    ``randint`` from ``PRNGKey(seed)`` itself, then the sweep key chain
+    ``key, sub = split(key)``, as the JAX package draws them.
+    """
+
+    kind = "tiered"
+
+    def __init__(self, corp, cfg, exec_cfg, sweeps, job, log_fn=print,
+                 device: Device = None):
+        super().__init__(cfg, exec_cfg, None, None, sweeps, log_fn)
+        self.corp = corp
+        self.job = job
+        self.device = resolve_device(device)
+        self.tier_dir: Optional[str] = None
+
+    def setup(self):
+        if self._ready:
+            return
+        self._ready = True
+        import tempfile
+
+        from repro_torch.ps import autotune as _autotune
+        from repro_torch.ps import tiered as tiered_mod
+
+        cfg, corp, job, dev = self.cfg, self.corp, self.job, self.device
+        key = jrng.PRNGKey(job.seed, dev)
+
+        # token arrays + z init, padded exactly like lda.init_state
+        n = int(corp.w.shape[0])
+        pad = (-n) % cfg.block_tokens
+        w_np = np.asarray(corp.w, np.int32)
+        z = jrng.randint(key, (n,), 0, cfg.K)
+        z_np = z.cpu().numpy()
+
+        def padded(x: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.concatenate(
+                [np.asarray(x, np.int32), np.zeros(pad, np.int32)])).to(dev)
+
+        w, d = padded(w_np), padded(corp.d)
+        z = padded(z_np)
+        valid = torch.arange(n + pad, device=dev) < n
+        ones = torch.ones(n, dtype=torch.int32, device=dev)
+        doc_len = torch.zeros(corp.num_docs, dtype=torch.int32,
+                              device=dev).index_add_(0, d[:n].long(), ones)
+        doc_start = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                               torch.cumsum(doc_len, 0)[:-1].to(torch.int32)])
+
+        # counts: n_wk histogrammed on the host straight into the cold
+        # store; n_k and n_dk from the valid tokens on the device
+        nwk_np = np.zeros((cfg.V, cfg.K), np.int32)
+        np.add.at(nwk_np, (w_np, z_np), 1)
+        nk = torch.zeros(cfg.K, dtype=torch.int32, device=dev).index_add_(
+            0, z[:n].long(), ones)
+        ndk = torch.zeros(corp.num_docs * cfg.K, dtype=torch.int32,
+                          device=dev).index_add_(
+            0, d[:n].long() * cfg.K + z[:n].long(), ones
+        ).view(corp.num_docs, cfg.K)
+
+        hot_rows = job.hot_rows
+        if hot_rows is None:
+            freq = _autotune.word_frequencies(w_np, None, cfg.V)
+            hot_rows = _autotune.size_hot_rows(freq, cfg.K)
+        self.tier_dir = job.tier_dir or tempfile.mkdtemp(
+            prefix="repro-tier-")
+        client = ps.PSClient(backend=tiered_mod.TieredBackend())
+        nwk = tiered_mod.tiered_matrix_from_dense(
+            nwk_np, hot_rows, self.tier_dir,
+            route=self.exec_cfg.resolve_route(cfg.V), client=client,
+            device=dev)
+        del nwk_np
+        self.state = lda.SamplerState(w, d, z, valid, doc_start, doc_len,
+                                      nwk, client.wrap_vector(nk), ndk)
+        _, self.key = jrng.split(key)
+
+        self.step_fn, info = async_exec.make_tiered_executor(
+            self.state, cfg, self.exec_cfg,
+            refresh_every=job.tier_refresh,
+            auto_resize=(job.hot_rows is None))
+        self.info = dict(info, storage="tiered", tier_dir=self.tier_dir)
+        tier = nwk.tier
+        self.log_fn(
+            f"[lda] tiered storage: hot {tier.hot_rows} / {cfg.V} rows "
+            f"({tier.device_bytes() / 2**20:.2f} MiB device) over cold "
+            f"memmap {tier.cold.nbytes / 2**20:.1f} MiB at "
+            f"{self.tier_dir}; {info['n_blocks']} blocks x "
+            f"{info['rows_per_block']} rows, route {info['route']}")
+        self.num_tokens = n
+        self.t0 = time.time()
+
+    def checkpoint(self, view, path: str):
+        raise ValueError("checkpointing tiered storage is not supported "
+                         "yet; the cold store under tier_dir persists the "
+                         "count table itself (and TopicModel.save the "
+                         "frozen model)")
+
+    def finish(self, stopped: bool):
+        st = self.state
+        st.nwk.flush()
+        s = st.nwk.tier_stats()
+        self.log_fn(
+            f"[lda] tier: hit rate {s.hit_rate():.3f} "
+            f"({s.hits}/{s.hits + s.misses} changed assignments "
+            f"device-local), {s.promotions} promotions, {s.evictions} "
+            f"evictions, H2D {s.h2d_bytes / 2**20:.1f} MiB, D2H "
+            f"{s.d2h_bytes / 2**20:.1f} MiB")
 
 
 # ---------------------------------------------------------------------------
@@ -393,10 +515,11 @@ class _StreamPlane:
             raise FileNotFoundError(
                 f"shard {sid} has no z file; stream was never initialised")
         n = shard.n_tokens
-        index = ()
+        index, counts = (), ()
         if self.build_index is not None:
             with _obs.span("stream.index", cat="stream", shard=sid):
                 index = self.build_index(shard.w, self.valid_np < n)
+                counts = (index[1].sum(1).tolist(),)
         with _obs.span("stream.h2d", cat="stream", shard=sid) as sp:
             w, d, z, doc_start, doc_len = (
                 torch.from_numpy(x).to(dev)
@@ -418,7 +541,7 @@ class _StreamPlane:
         state = lda.SamplerState(w, d, z, valid, doc_start, doc_len,
                                  self.nwk, self.nk, ndk)
         key = stream_sweep_key(self.seed, cur.epoch, cur.pos, dev)
-        state = self.step_fn(state, key, *index)
+        state = self.step_fn(state, key, *index, *counts)
         with _obs.span("stream.write_z", cat="stream", shard=sid):
             self.reader.write_z(sid, state.z.cpu().numpy())
         self.state = state
@@ -520,8 +643,9 @@ def stream_fit(reader, cfg, exec_cfg, epochs, *, seed=0,
 # ---------------------------------------------------------------------------
 
 class Session:
-    """Resolve a validated ``LDAJob`` into the memory or the stream plane
-    and run it on ``device`` (the card unless the caller passes another).
+    """Resolve a validated ``LDAJob`` into the memory, tiered or stream
+    plane and run it on ``device`` (the card unless the caller passes
+    another).
 
     ``run(callbacks)`` executes the schedule and returns a
     ``SessionResult``, with the job's eval cadence wired in as the first
@@ -566,6 +690,12 @@ class Session:
                  f"vocabulary ({corp.vocab_size}); drop vocab_size= to "
                  f"infer it from the corpus"])
         cfg = job.lda_config(vocab)
+        self.cfg = cfg
+        if job.storage == "tiered":
+            self._plane = _TieredPlane(corp, cfg, job.exec_config(),
+                                       job.sweeps, job, log_fn=self.log_fn,
+                                       device=dev)
+            return self._plane
         key = jrng.PRNGKey(job.seed, dev)
         state = lda.init_state(key, torch.from_numpy(corp.w).to(dev),
                                torch.from_numpy(corp.d).to(dev),
@@ -573,7 +703,6 @@ class Session:
         key, sub = jrng.split(key)
         self._plane = _MemoryPlane(cfg, job.exec_config(), state, sub,
                                    job.sweeps, log_fn=self.log_fn)
-        self.cfg = cfg
         return self._plane
 
     def run(self, callbacks: Sequence[Callback] = ()) -> SessionResult:
@@ -582,7 +711,8 @@ class Session:
         ev = None
         if self.job.eval_every:
             ev = EvalCallback(every=self.job.eval_every,
-                              include_last=plane.kind == "memory",
+                              include_last=plane.kind in ("memory",
+                                                          "tiered"),
                               log_fn=self.log_fn)
             cbs.append(ev)
         cbs.extend(callbacks)
@@ -596,10 +726,11 @@ class Session:
         return res._replace(history=ev.history if ev is not None else [])
 
     def make_step(self):
-        """Timing access for in-memory jobs: returns ``(state, step_fn,
-        info)`` with ``step_fn(state, key) -> state`` the executor."""
+        """Timing access for in-memory jobs (dense or tiered): returns
+        ``(state, step_fn, info)`` with ``step_fn(state, key) -> state`` the
+        executor."""
         plane = self._ensure_plane()
-        if plane.kind != "memory":
+        if plane.kind not in ("memory", "tiered"):
             raise ValueError(
                 "make_step() exposes the in-memory executor only; drive "
                 "other planes through run()")

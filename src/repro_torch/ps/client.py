@@ -17,8 +17,9 @@ client surface:
 
 Writes are functional -- a push returns a new handle over a new tensor --
 except the ``store_block_`` of an executor that owns a private copy of the
-table.  Only the in-process backend is ported; the others are named so that
-a job asking for one gets an error that says where it is planned.
+table.  The in-process and tiered backends are ported; the others are
+named so that a job asking for one gets an error that says where it is
+planned.
 """
 from __future__ import annotations
 
@@ -33,17 +34,19 @@ from repro_torch.device import Device, resolve_device
 from repro_torch.ps.backend import Backend, InProcessBackend
 from repro_torch.ps.routes import DenseRoute, PushRoute, Reassign, RouteDelta
 
-#: The backend names of the JAX package; only ``in_process`` is ported.
+#: The backend names of the JAX package; ``in_process`` and ``tiered`` are
+#: ported.
 BACKEND_NAMES = ("in_process", "spmd", "tiered", "net")
-_LATER = {"spmd": "ROADMAP A, 'SPMD'", "tiered": "ROADMAP A, 'Tiered "
-          "storage'", "net": "ROADMAP A, 'Network parameter server'"}
+_PORTED = ("in_process", "tiered")
+_LATER = {"spmd": "ROADMAP A, 'SPMD'",
+          "net": "ROADMAP A, 'Network parameter server'"}
 
 
 class BackendConfigError(ValueError):
     """An unknown, unported or mis-configured ``backend=`` selection.
     ``.valid`` lists the names this package accepts."""
 
-    def __init__(self, msg: str, valid: Tuple[str, ...] = ("in_process",)):
+    def __init__(self, msg: str, valid: Tuple[str, ...] = _PORTED):
         super().__init__(f"{msg}; valid backends: {', '.join(valid)}")
         self.valid = tuple(valid)
 
@@ -51,13 +54,21 @@ class BackendConfigError(ValueError):
 class PullHandle:
     """Future for an issued pull (Glint's asynchronous read, section 2.3).
     In one process the pulled rows are a copy already enqueued on the
-    tensor's stream; ``result()`` returns it."""
+    tensor's stream; ``result()`` returns it.  A pull issued on another
+    stream (the tiered store's) carries the ``event`` that ends it, and
+    ``result()`` makes the caller's stream wait on it."""
 
-    def __init__(self, value: torch.Tensor):
+    def __init__(self, value: torch.Tensor,
+                 event: Optional["torch.cuda.Event"] = None):
         self._value = value
+        self._event = event
 
     def result(self) -> torch.Tensor:
         """Await and return the pulled rows."""
+        if self._event is not None:
+            torch.cuda.current_stream(self._value.device).wait_event(
+                self._event)
+            self._event = None
         return self._value
 
     wait = result                     # Glint naming; identical semantics
@@ -319,18 +330,22 @@ class PSClient:
     @classmethod
     def create(cls, num_shards: int = 1, *,
                backend: Union[str, Backend, None] = None) -> "PSClient":
-        """Build a client.  ``backend`` is a name (``"in_process"``) or a
-        ``Backend`` instance; None means in-process.  The JAX package's
-        other backends raise ``BackendConfigError`` naming the ROADMAP
-        item that ports them."""
+        """Build a client.  ``backend`` is a name (``"in_process"``,
+        ``"tiered"``) or a ``Backend`` instance; None means in-process.
+        The JAX package's other backends raise ``BackendConfigError``
+        naming the ROADMAP item that ports them."""
         if isinstance(backend, str):
             if backend in _LATER:
                 raise BackendConfigError(
                     f"backend {backend!r} is not ported yet: "
                     f"{_LATER[backend]}")
-            if backend != "in_process":
+            if backend == "tiered":
+                from repro_torch.ps.tiered import TieredBackend
+                backend = TieredBackend()
+            elif backend == "in_process":
+                backend = InProcessBackend()
+            else:
                 raise BackendConfigError(f"unknown backend {backend!r}")
-            backend = InProcessBackend()
         elif backend is None:
             backend = InProcessBackend()
         elif not isinstance(backend, Backend):
@@ -372,6 +387,22 @@ class PSClient:
                 raise ValueError("num_rows is required for a raw tensor")
             storage = DistributedMatrix(value, num_rows, self.num_shards)
         return MatrixHandle(storage, self, route)
+
+    def tiered_matrix_from_dense(self, dense, hot_rows: int, path: str, *,
+                                 route: PushRoute = DenseRoute(),
+                                 device: Device = None):
+        """Wrap a dense logical matrix in tiered storage: the full table
+        lands in a host memmap cold store at ``path`` and the top
+        ``hot_rows`` rows are promoted into a hot tier on ``device`` (the
+        card unless the caller passes another; ``repro_torch.ps.tiered``).
+        Single-shard only -- the tiered store is the in-process scale-up
+        axis."""
+        from repro_torch.ps.tiered import tiered_matrix_from_dense
+        if self.num_shards != 1:
+            raise ValueError(f"tiered storage is single-shard (this client "
+                             f"has {self.num_shards} shards)")
+        return tiered_matrix_from_dense(dense, hot_rows, path, route=route,
+                                        client=self, device=device)
 
     # --- vector factories -------------------------------------------------
     def vector(self, n: int, dtype=torch.int32, *,

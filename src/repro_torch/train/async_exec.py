@@ -42,13 +42,14 @@ Entry points:
     memory O(group x K), the Web-scale path),
   * ``snapshot_sweep``  -- the full-snapshot executor,
   * ``make_executor``   -- the factory ``api.Session`` drives;
-  * ``make_stream_executor`` -- the per-shard step of the streamed plane.
+  * ``make_stream_executor`` -- the per-shard step of the streamed plane;
+  * ``make_tiered_executor`` -- the blocked schedule over tiered storage.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -70,8 +71,9 @@ class ExecConfig:
     samples; 0 is the synchronous schedule.  ``route``: the push policy
     (``ps.DenseRoute`` / ``ps.CooRoute`` / ``ps.HybridRoute``);
     ``hot_words`` is the scalar knob mapped through ``ps.route_for`` when
-    ``route`` is None.  The JAX package's ``"auto"`` for either belongs to
-    the autotuner, which is not ported yet.  ``model_blocks``: > 0 selects
+    ``route`` is None.  The string ``"auto"`` for either asks
+    ``ps.autotune`` to measure candidates when the executor is built
+    (``make_executor`` only).  ``model_blocks``: > 0 selects
     the blocked executor with the model pulled in that many blocks, 0 the
     full-snapshot executor.  ``obs``: telemetry tri-state (None inherits
     the installed session); observation only.
@@ -89,10 +91,12 @@ class ExecConfig:
     def resolve_route(self, vocab_size: int) -> ps.PushRoute:
         if self.wants_autotune():
             raise ValueError(
-                "route='auto'/staleness='auto' needs the autotuner "
-                "(ps.autotune), which is not ported yet: ROADMAP A, "
-                "'Autotuner'; "
-                "pass a ps.PushRoute and an int")
+                "route='auto'/staleness='auto' must be resolved by "
+                "make_executor (which runs ps.autotune against the actual "
+                "state) before the schedule is built; this code path "
+                "(streaming / SPMD launchers) needs concrete values -- "
+                "pass a ps.PushRoute / int, or run ps.autotune.autotune() "
+                "yourself and use its TunedPlan.")
         if self.route is not None:
             return self.route
         return ps.route_for(self.hot_words, vocab_size)
@@ -198,6 +202,20 @@ def routed_merge_block(route: ps.PushRoute, rows, nk, ndk, local, words,
     return d_rows.add_(rows), nk, ndk
 
 
+def write_valid_z(z_flat: torch.Tensor, idx: torch.Tensor,
+                  z_new: torch.Tensor, cap: int, counts: Sequence[int]
+                  ) -> None:
+    """Write ``z_new`` into ``z_flat`` at the valid slots of ``idx`` alone:
+    the first ``counts[j]`` slots of each run of ``cap`` slots.  Each valid
+    slot names a token of its own, so a plain copy is exact; the padded
+    slots, which all name token 0, are never touched (an accumulating put
+    over them adds into that one address one slot after another)."""
+    for j, n in enumerate(counts):
+        if n:
+            lo = j * cap
+            z_flat.index_copy_(0, idx[lo:lo + n], z_new[lo:lo + n])
+
+
 def _weights(rows: torch.Tensor, nk: torch.Tensor,
              cfg: "lda.LDAConfig") -> torch.Tensor:
     """Word-proposal weights (n_wk + β)/(n_k + Vβ), in the JAX package's
@@ -215,7 +233,8 @@ def pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
                     block_valid: torch.Tensor, rows_per_block: int,
                     staleness: int = 0,
                     hot_words: Optional[int] = None,
-                    route: Optional[ps.PushRoute] = None
+                    route: Optional[ps.PushRoute] = None,
+                    block_counts: Optional[Sequence[int]] = None
                     ) -> "lda.SamplerState":
     """One staleness-bounded, double-buffered, routed blocked sweep.
 
@@ -235,10 +254,18 @@ def pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
          (block-local row ids), ``n_dk`` and ``n_k`` -- the executor's own
          copies -- in place; otherwise the route materialises the
          group-local delta and ``n_k``/``n_dk`` take duplicate-tolerant
-         adds (``routed_merge_block``).  ``store_block_`` writes the rows back; ``z`` merges by an
-         add.
+         adds (``routed_merge_block``).  ``store_block_`` writes the rows
+         back, and ``z`` takes the new topics at the valid slots alone.
 
-    ``staleness=0`` equals ``lightlda.sweep_blocked_ref`` bitwise.
+    Each block's valid slots are a prefix of its row of ``block_idx``, as
+    ``lightlda.block_token_index`` builds it, and each names a token of
+    its own.  ``block_counts`` gives the valid slots per block from the
+    host that built the index; None reads them from ``block_valid`` (one
+    device-to-host copy a sweep).  With an obs session installed, a sweep
+    on the card records the z updates' device ms (CUDA events around
+    them, read after the sweep's last one) in the ``exec.z_update_ms``
+    histogram.  ``staleness=0`` equals ``lightlda.sweep_blocked_ref``
+    bitwise.
     """
     rpb = rows_per_block
     layout = state.nwk.layout
@@ -254,6 +281,8 @@ def pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
     gidx = block_idx.reshape(n_groups, group * cap)
     gval = block_valid.reshape(n_groups, group * cap)
     gcap = group * cap
+    if block_counts is None:
+        block_counts = block_valid.sum(1).tolist()
 
     nwk = state.nwk.with_value(state.nwk.value.clone())   # owned copy
     one_launch = merges_in_one_launch(nwk)
@@ -261,6 +290,10 @@ def pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
     if one_launch:
         nk, ndk = nk.clone(), ndk.clone()       # owned, merged in place
     keys = jrng.split(key, n_groups)
+    # with an obs session on the card, CUDA events around each z update;
+    # their device ms is recorded once the sweep is done
+    reg = _obs.metrics_registry() if z_flat.is_cuda else None
+    marks = []
     pulled = nwk.pull_block(0, grp_rows)
     for grp in range(n_groups):
         # 1. double buffer: await this group's rows, issue the next pull
@@ -296,8 +329,18 @@ def pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
                                                wb, db, z0, z_new, changed,
                                                cfg.K)
         nwk.store_block_(grp, rows, grp_rows)
-        z_flat.index_put_((idx,), torch.where(vb, z_new - z0, 0),
-                          accumulate=True)
+        if reg is not None:
+            marks.append((torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True)))
+            marks[-1][0].record()
+        write_valid_z(z_flat, idx, z_new, cap,
+                      block_counts[grp * group:(grp + 1) * group])
+        if reg is not None:
+            marks[-1][1].record()
+    if marks:
+        marks[-1][1].synchronize()
+        reg.histogram("exec.z_update_ms").record(
+            sum(a.elapsed_time(b) for a, b in marks))
     return lda.SamplerState(state.w, state.d, z_flat, state.valid,
                             state.doc_start, state.doc_len, nwk,
                             state.nk.with_value(nk), ndk)
@@ -453,7 +496,9 @@ def make_stream_executor(cfg: "lda.LDAConfig", exec_cfg: ExecConfig,
     build_index, info)``:
 
       * blocked mode (``model_blocks > 0``): ``step(state, key, idx,
-        bval)``, one ``pipelined_sweep`` at staleness 0 over model blocks
+        bval, counts=None)``, one ``pipelined_sweep`` at staleness 0 over
+        model blocks (``counts``: the valid slots per block, from the host
+        copy of ``bval``)
         of ``rows_per_step = rows_per_block * (s + 1)`` rows (the group of
         ``s + 1`` blocks is the unit), and ``build_index(w, valid,
         cap=None) -> (idx, bval)``, the host grouping each shard's tokens
@@ -470,9 +515,10 @@ def make_stream_executor(cfg: "lda.LDAConfig", exec_cfg: ExecConfig,
                                             exec_cfg.staleness)
         rpb_step = rpb * (s + 1)
 
-        def step_fn(st, k, idx, bval):
+        def step_fn(st, k, idx, bval, counts=None):
             return pipelined_sweep(st, k, cfg, idx, bval, rpb_step,
-                                   staleness=0, route=route)
+                                   staleness=0, route=route,
+                                   block_counts=counts)
 
         def build_index(w, valid, cap=None):
             idx, bval = lda.block_token_index(
@@ -507,7 +553,17 @@ def make_executor(state: "lda.SamplerState", cfg: "lda.LDAConfig",
     after divisor rounding, push route).  The blocked executor's token
     index is built here, on the host, at merge-unit granularity (``s + 1``
     fused blocks), as the JAX package builds it.
+
+    ``route="auto"`` / ``staleness="auto"`` on the config run the
+    ``ps.autotune`` pass against the *actual* state (word frequencies,
+    batch geometry, measured apply costs and sweeps, on the state's
+    device) here, before the schedule is built; the winning plan and its
+    report land in ``info["autotune"]``.
     """
+    report = None
+    if exec_cfg.wants_autotune():
+        from repro_torch.ps import autotune as _autotune
+        exec_cfg, report = _autotune.resolve_exec(state, cfg, exec_cfg)
     route = exec_cfg.resolve_route(cfg.V)
     if exec_cfg.model_blocks > 0:
         layout = state.nwk.layout
@@ -517,13 +573,15 @@ def make_executor(state: "lda.SamplerState", cfg: "lda.LDAConfig",
         idx, bval = lda.block_token_index(state.w.cpu().numpy(),
                                           state.valid.cpu().numpy(),
                                           rpb_step, layout)
+        counts = bval.sum(1).tolist()
         dev = state.w.device
         idx = torch.from_numpy(idx).to(dev)
         bval = torch.from_numpy(bval).to(dev)
 
         def step_fn(st, k):
             return pipelined_sweep(st, k, cfg, idx, bval, rpb_step,
-                                   staleness=0, route=route)
+                                   staleness=0, route=route,
+                                   block_counts=counts)
 
         info = {"mode": "blocked", "n_blocks": n_blocks,
                 "rows_per_block": rpb, "staleness": s,
@@ -543,4 +601,193 @@ def make_executor(state: "lda.SamplerState", cfg: "lda.LDAConfig",
                 "token_cap": cfg.block_tokens,
                 "staleness_requested": exec_cfg.staleness,
                 "hot_words": exec_cfg.hot_words, "route": repr(route)}
+    if report is not None:
+        info["autotune"] = report
     return _obs_step(step_fn, exec_cfg, info), info
+
+
+# ---------------------------------------------------------------------------
+# Tiered executor: blocked schedule over ps.tiered storage.
+# ---------------------------------------------------------------------------
+
+class _TierBlock(NamedTuple):
+    """One model block's token index: ``idx`` [cap] int32 token ids (the
+    first ``n`` valid, the rest token 0), ``bval`` [cap] bool, and
+    ``touched`` (host) the block-local rows that hold a token."""
+
+    idx: torch.Tensor
+    bval: torch.Tensor
+    n: int
+    touched: np.ndarray
+
+
+def make_tiered_executor(state: "lda.SamplerState", cfg: "lda.LDAConfig",
+                         exec_cfg: ExecConfig, *, refresh_every: int = 1,
+                         hot_budget_bytes: Optional[int] = None,
+                         auto_resize: bool = False):
+    """Build the one-sweep step for a state whose ``nwk`` is a
+    ``ps.TieredMatrixHandle`` (device hot-row cache over a host memmap).
+
+    The blocked schedule of ``pipelined_sweep`` at staleness 0 -- pull a
+    model block, resample its tokens against block-start counts, write the
+    owned rows back -- driven from a host loop over blocks, since the
+    tier's residency maps and cold memmap are host state.  Block ``b+1``'s
+    tier pull (cold-tier misses included) is issued *before* block ``b``
+    samples; on the card it runs on the tier's side stream, so the miss
+    path overlaps the block's kernels.  Exact, not approximate: blocks own
+    disjoint rows, so the in-flight pull cannot be invalidated by the
+    write-back racing it.
+
+    Per block, the JAX package's step: ``alias_build`` on the block's
+    weights, the threefry draws, ``mh_sample`` (training mode), and the
+    merge -- one ``delta_push`` launch adding the block's changes into its
+    pulled rows, ``n_dk`` and ``n_k`` -- then ``z`` at the valid slots
+    alone and the rows' changed-counts by ``index_add_``.  One
+    device-to-host copy a block brings back those counts and the block's
+    non-resident rows that hold a token; the host writes the changed ones
+    into the memmap, the resident rows go to the hot tier on the device.
+
+    Token index: per-block id lists padded to power-of-two capacities
+    (floor 128), as the JAX package pads them -- the draws depend on the
+    capacity.  After each sweep the observed per-row push traffic drives
+    the tier's ``refresh()`` every ``refresh_every`` sweeps (0: never),
+    and -- when ``auto_resize`` -- ``ps.autotune.retune_hot_rows`` grows
+    the hot tier while the measured hit rate is below target (bounded by
+    ``hot_budget_bytes``).  Returns ``(step_fn, info)`` like
+    ``make_executor``.
+    """
+    nwk = state.nwk
+    if not isinstance(nwk, ps.TieredMatrixHandle):
+        raise TypeError("make_tiered_executor needs a ps.TieredMatrixHandle "
+                        "state (build one via "
+                        "PSClient.tiered_matrix_from_dense)")
+    if exec_cfg.wants_autotune():
+        raise ValueError(
+            "route='auto'/staleness='auto' are not supported with tiered "
+            "storage: the autotuner measures against dense in-memory "
+            "handles; pass concrete values (api.job validates this).")
+    if exec_cfg.model_blocks <= 0:
+        raise ValueError(
+            "tiered storage requires the blocked executor (the whole "
+            "point is never materialising [V, K] on device): set "
+            "ExecConfig.model_blocks > 0.")
+    route = exec_cfg.resolve_route(cfg.V)
+    rpb, n_blocks, _ = blocked_geometry(nwk.layout, exec_cfg.model_blocks, 0)
+    k = cfg.K
+    dev = state.w.device
+
+    # --- host-side token index: per-block ids, power-of-two caps ---
+    w_np = state.w.cpu().numpy()
+    tok = np.nonzero(state.valid.cpu().numpy())[0]
+    blk = w_np[tok] // rpb            # one shard: physical == logical
+    order = np.argsort(blk, kind="stable")
+    tok, blk = tok[order], blk[order]
+    starts = np.searchsorted(blk, np.arange(n_blocks + 1))
+    index = []
+    for b in range(n_blocks):
+        ids = tok[starts[b]: starts[b + 1]]
+        if ids.size == 0:
+            index.append(None)
+            continue
+        cap = max(128, 1 << (int(ids.size) - 1).bit_length())
+        idx = np.zeros(cap, np.int32)
+        idx[: ids.size] = ids
+        bval = np.zeros(cap, bool)
+        bval[: ids.size] = True
+        index.append(_TierBlock(torch.from_numpy(idx).to(dev),
+                                torch.from_numpy(bval).to(dev),
+                                int(ids.size),
+                                np.unique(w_np[ids]).astype(np.int64)
+                                - b * rpb))
+    pinned = []                       # the per-block copy's host buffer
+
+    def fetch(rtraf: torch.Tensor, rows: torch.Tensor, local: np.ndarray):
+        """``rtraf`` and the ``rows`` at block-local ``local``, on the host,
+        in one device-to-host copy."""
+        packed = rtraf
+        if local.size:
+            packed = torch.cat([rtraf, rows.index_select(
+                0, torch.from_numpy(local).to(dev)).view(-1)])
+        if packed.is_cuda:
+            if not pinned:
+                pinned.append(torch.empty(rpb * (k + 1), dtype=torch.int32,
+                                          pin_memory=True))
+            out = pinned[0][: packed.numel()]
+            out.copy_(packed, non_blocking=True)
+            torch.cuda.current_stream(dev).synchronize()
+            packed = out
+        flat = packed.numpy()
+        return flat[:rpb].copy(), flat[rpb:].reshape(-1, k)
+
+    sweep_count = [0]
+
+    def step(st: "lda.SamplerState", key: torch.Tensor) -> "lda.SamplerState":
+        tier_h = st.nwk
+        tier = tier_h.tier
+        nk, ndk, z = st.nk.value.clone(), st.ndk.clone(), st.z.clone()
+        keys = jrng.split(key, n_blocks)
+        pulled = tier_h.pull_block(0, rpb)
+        for b in range(n_blocks):
+            rows = pulled.result()
+            if b + 1 < n_blocks:
+                pulled = tier_h.pull_block(b + 1, rpb)   # issue -> overlap
+            blk_b = index[b]
+            if blk_b is None:
+                continue
+            start = b * rpb
+            table = ops.alias_build(_weights(rows, nk, cfg))
+            i = blk_b.idx.long()
+            wb, db, z0 = st.w[i], st.d[i], z[i]
+            local = torch.clamp(wb - start, 0, rpb - 1).to(torch.int32)
+            doc_draw = lda.make_doc_draw(db, z, st.doc_start, st.doc_len,
+                                         cfg)
+            rng = lda.draw_mh_randoms(keys[b], doc_draw, i.shape[0], cfg)
+            z_new = ops.mh_sample(rng, z0, local, db, rows.to(torch.float32),
+                                  ndk, nk.to(torch.float32), table.prob,
+                                  table.alias, cfg, frozen=False)
+            z_new = torch.where(blk_b.bval, z_new, z0)
+            changed = (z_new != z0) & blk_b.bval
+            ops.delta_push(local, z0, z_new, changed, rpb, k, out=rows,
+                           docs=db, ndk_out=ndk, nk_out=nk)
+            write_valid_z(z, i, z_new, i.shape[0], [blk_b.n])
+            n = blk_b.n
+            rtraf = torch.zeros(rpb, dtype=torch.int32, device=dev
+                                ).index_add_(0, local[:n].long(),
+                                             changed[:n].to(torch.int32))
+            ids = np.arange(start, start + rpb)
+            tier.store_hot(ids, rows)
+            cold_local = blk_b.touched[tier.slot_of[start + blk_b.touched]
+                                       < 0]
+            rtraf_np, cold_vals = fetch(rtraf, rows, cold_local)
+            write = rtraf_np[cold_local] > 0
+            if write.any():
+                tier.write_cold(start + cold_local[write], cold_vals[write])
+            tier_h.note_traffic(b, rpb, rtraf_np)
+        sweep_count[0] += 1
+        if refresh_every > 0 and sweep_count[0] % refresh_every == 0:
+            tier_h.refresh()
+            if auto_resize:
+                from repro_torch.ps import autotune as _autotune
+                new_h = _autotune.retune_hot_rows(
+                    tier.hot_rows, tier_h.tier_stats().hit_rate(),
+                    vocab_size=cfg.V, budget_bytes=hot_budget_bytes,
+                    num_topics=cfg.K)
+                if new_h != tier.hot_rows:
+                    tier_h.resize_hot(new_h)
+        reg = _obs.metrics_for(exec_cfg.obs)
+        if reg is not None:
+            # device-resident table footprint: hot tier + the two block
+            # buffers in flight (pulled + being-sampled)
+            reg.gauge("exec.tiered.device_table_bytes").set(
+                float(tier.device_bytes() + 2 * rpb * cfg.K * 4))
+        return lda.SamplerState(st.w, st.d, z, st.valid, st.doc_start,
+                                st.doc_len, tier_h, st.nk.with_value(nk),
+                                ndk)
+
+    caps = sorted({int(blk_b.idx.shape[0]) for blk_b in index
+                   if blk_b is not None})
+    info = {"mode": "tiered", "n_blocks": n_blocks, "rows_per_block": rpb,
+            "staleness": 0, "group": 1, "token_caps": caps,
+            "hot_rows": nwk.tier.hot_rows,
+            "refresh_every": refresh_every, "route": repr(route)}
+    return _obs_step(step, exec_cfg, info), info

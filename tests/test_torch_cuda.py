@@ -373,3 +373,124 @@ def test_topic_service_trains_and_serves_on_card(card):
     assert svc.version - v0 == 3
     counts = ops.launch_counts()
     assert counts["mh_sample"] > 0 and counts["delta_push"] > 0
+
+
+def _tiered_pair(card, tmp_path, v=300, k=16, hot=40, seed=0):
+    """A tiered handle on the card and one on the CPU, same counts."""
+    from repro_torch import ps
+    dense = np.random.default_rng(seed).integers(0, 20, (v, k)).astype(
+        np.int32)
+    return {dev: ps.tiered_matrix_from_dense(dense, hot,
+                                             str(tmp_path / dev), device=dev)
+            for dev in ("cuda", "cpu")}, dense
+
+
+def test_tiered_pull_on_card_matches_cpu(card, tmp_path):
+    """Block pulls on the card (hot gathers on the side stream, misses
+    through the pinned buffers, several pulls in flight) compose the same
+    rows as the CPU's, and the caller's stream sees them after result()."""
+    hs, dense = _tiered_pair(card, tmp_path)
+    pulls = [hs["cuda"].pull_block(b, 50) for b in range(6)]
+    pulls.append(hs["cuda"].pull(np.array([0, 299, 41, 39, 7])))
+    got = [p.result().cpu() for p in pulls]
+    for b in range(6):
+        assert torch.equal(got[b], torch.from_numpy(dense[b * 50:
+                                                          (b + 1) * 50]))
+    assert torch.equal(got[6], torch.from_numpy(dense[[0, 299, 41, 39, 7]]))
+    for b in range(6):
+        hs["cpu"].pull_block(b, 50)
+    hs["cpu"].pull(np.array([0, 299, 41, 39, 7]))
+    assert (hs["cuda"].tier_stats().to_json()
+            == hs["cpu"].tier_stats().to_json())
+
+
+def test_tiered_push_on_card_matches_cpu(card, tmp_path):
+    """Pushes split on residency: the hot half by one delta_push launch
+    (reassignments) or one delta_apply_coo launch (COO) in slot space,
+    the cold half into the memmap; after refreshes and a resize the
+    composed table and the cold store equal the CPU's bitwise."""
+    from repro_torch import ps
+    hs, _ = _tiered_pair(card, tmp_path)
+    rng = np.random.default_rng(3)
+    for step in range(4):
+        w = rng.integers(0, 300, 4096).astype(np.int32)
+        zo, zn = (rng.integers(0, 16, 4096).astype(np.int32)
+                  for _ in range(2))
+        ch = rng.random(4096) < 0.7
+        rows = rng.integers(-3, 303, 512).astype(np.int32)
+        cols = rng.integers(0, 16, 512).astype(np.int32)
+        vals = rng.integers(-2, 3, 512).astype(np.int32)
+        for dev, h in hs.items():
+            t = [torch.from_numpy(x).to(dev) for x in (w, zo, zn, ch)]
+            ops.reset_launch_counts()
+            h.push(ps.Reassign(t[0], t[0], t[1], t[2], t[3]))
+            h.push_coo(*(torch.from_numpy(x).to(dev)
+                         for x in (rows, cols, vals)))
+            if dev == "cuda":
+                counts = ops.launch_counts()
+                assert counts["delta_push"] == 1
+                assert counts["delta_apply_coo"] == 1
+            h.refresh()
+            if step == 2:
+                h.resize_hot(90)
+        assert torch.equal(hs["cuda"].to_dense().cpu(),
+                           hs["cpu"].to_dense())
+    for h in hs.values():
+        h.flush()
+    np.testing.assert_array_equal(hs["cuda"].tier.cold.to_array(),
+                                  hs["cpu"].tier.cold.to_array())
+
+
+def test_tiered_training_on_card_matches_cpu(card, tmp_path):
+    """A small storage="tiered" job on the card and on the CPU: z, the
+    composed n_wk, n_k and the cold-store files equal bitwise; the card
+    launched one mh_sample, one alias_build and one delta_push per
+    non-empty block a sweep, and no delta_apply_coo."""
+    from repro_torch.api import APSLDA, LDAJob
+    from repro_torch.data.corpus import synthetic_corpus
+
+    corp = synthetic_corpus(120, 900, true_topics=8, seed=2)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        job = LDAJob(corpus=corp, num_topics=24, block_tokens=1024,
+                     sweeps=2, eval_every=0, storage="tiered", hot_rows=100,
+                     model_blocks=6, tier_dir=str(tmp_path / dev))
+        ops.reset_launch_counts()
+        est = APSLDA(job, log_fn=lambda m: None, device=dev)
+        model = est.fit()
+        out[dev] = (model, est.result_.state, ops.launch_counts())
+    counts, info = out["cuda"][2], out["cuda"][0].info
+    blocks = np.unique(corp.w // info["rows_per_block"]).size
+    for name in ("mh_sample", "alias_build", "delta_push"):
+        assert counts[name] == blocks * 2, name
+    assert counts["delta_apply_coo"] == 0
+    np.testing.assert_array_equal(out["cuda"][0].nwk, out["cpu"][0].nwk)
+    np.testing.assert_array_equal(out["cuda"][0].nk, out["cpu"][0].nk)
+    assert torch.equal(out["cuda"][1].z.cpu(), out["cpu"][1].z)
+    for name in ("coldstore.json", "table.int32"):
+        assert ((tmp_path / "cuda" / name).read_bytes()
+                == (tmp_path / "cpu" / name).read_bytes())
+
+
+def test_pipelined_sweep_times_the_z_update_under_obs(card):
+    """With an obs session installed, a pipelined sweep on the card records
+    its z updates' device ms (one histogram entry a sweep); the sweep's
+    values are the same with the session off."""
+    from repro_torch import obs
+    from repro_torch import rng as trng
+    from repro_torch.api import LDAJob, Session
+    from repro_torch.data.corpus import synthetic_corpus
+
+    job = LDAJob(corpus=synthetic_corpus(120, 900, true_topics=8, seed=2),
+                 num_topics=24, block_tokens=1024, sweeps=1, eval_every=0,
+                 model_blocks=4)
+    st, step, _ = Session(job, log_fn=lambda m: None).make_step()
+    plain = step.raw(st, trng.PRNGKey(5, "cuda"))
+    s = obs.ObsSession(obs.ObsConfig(enabled=True)).install()
+    try:
+        traced = step.raw(st, trng.PRNGKey(5, "cuda"))
+        h = obs.metrics_registry().get("exec.z_update_ms")
+    finally:
+        s.close(save=False)
+    assert h is not None and h.count == 1 and h.total > 0
+    assert torch.equal(plain.z, traced.z)

@@ -49,13 +49,15 @@ def test_source_has_no_jax_or_repro_import():
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 30
     # the training slice's modules are among them, and the stream,
-    # checkpoint, serving facade and launchers
+    # checkpoint, serving facade, launchers, tiered storage, autotuner and
+    # timer
     for mod in ("core/pserver.py", "ps/client.py", "ps/routes.py",
                 "train/async_exec.py", "api/session.py", "api/job.py",
                 "kernels/delta_push.py", "core/coherence.py",
                 "data/stream.py", "train/checkpoint.py", "serve/__init__.py",
                 "serve/topic_service.py", "launch/__init__.py",
-                "launch/lda.py", "launch/topic_serve.py"):
+                "launch/lda.py", "launch/topic_serve.py", "ps/coldstore.py",
+                "ps/tiered.py", "ps/autotune.py", "obs/timing.py"):
         assert PKG / mod in files, mod
     for f in files:
         assert not pattern.search(f.read_text()), f

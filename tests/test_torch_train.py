@@ -229,8 +229,14 @@ def test_make_executor_matches_jax(carried):
 
 
 def test_exec_config_refuses_auto():
-    with pytest.raises(ValueError, match="ROADMAP"):
-        texec.ExecConfig(route="auto").resolve_route(10)
+    """A concrete schedule cannot be built from "auto": only make_executor
+    resolves it, and the message is the JAX package's, word for word."""
+    for auto in (dict(route="auto"), dict(staleness="auto")):
+        with pytest.raises(ValueError, match="make_executor") as je:
+            jexec.ExecConfig(**auto).resolve_route(10)
+        with pytest.raises(ValueError, match="make_executor") as te:
+            texec.ExecConfig(**auto).resolve_route(10)
+        assert str(te.value) == str(je.value)
 
 
 def test_token_deltas_and_hybrid_count_deltas_match_jax(carried):
