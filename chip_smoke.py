@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
+"""Drive the PyTorch port's serving, training and network-PS paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -20,11 +21,18 @@ Phases (any failure raises and the script exits non-zero):
                  bitwise at (R, D, K) in {(300, 50, 7), (2048, 400, 130),
                  (100000, 8000, 1000), (12500, 8000, 1000)} and 8,192 and
                  1,809,664 tokens, none, half and all changed, rows and
-                 docs past their tables;
+                 docs past their tables; mh_draws (the MH chain's
+                 randoms in one launch) bitwise in all four arrays: the
+                 training entry point at K in {7, 130, 1000} and a snapshot
+                 group's, a pipelined group's, a tiered block's and a stream
+                 visit's slots, with empty and one-token documents and
+                 padded slots; the fold-in entry point at serving's
+                 [32 x 1024] batch, sweeps 0 and 29;
   4. serving  -- the serving slice at full width, V = 100,000 and
                  K = 1,000: TopicModel -> snapshot -> transform of 512
                  documents -> score -> a ConcurrentEngine under 8 client
-                 threads; launch counters, θ sums, batch independence, and
+                 threads; launch counters (mh_sample and mh_draws_foldin
+                 30 times a batch), θ sums, batch independence, and
                  a TopicModel built on the CPU from the same counts: its
                  alias tables and its θ of 8 documents equal the card's
                  bitwise;
@@ -33,10 +41,11 @@ Phases (any failure raises and the script exits non-zero):
                  on a 2M-token synthetic corpus, 3 sweeps of the snapshot
                  executor, then one sweep of the pipelined executor (16
                  model blocks, staleness 1; the z update's device ms from
-                 its obs metrics); launch counters (one
-                 delta_push per group in both executors -- the whole merge
-                 -- and no delta_apply_coo; alias_build once per snapshot
-                 sweep and once per pipelined group),
+                 its obs metrics); launch counters (one mh_draws_train,
+                 mh_sample and delta_push per group in both executors --
+                 the draws and the whole merge -- and no delta_apply_coo;
+                 alias_build once per snapshot sweep and once per
+                 pipelined group),
                  exact count conservation, falling perplexity, and the
                  trained model serving 64 held-out documents; then a small
                  job on the card and on the CPU, both executors, with z and
@@ -71,8 +80,9 @@ Phases (any failure raises and the script exits non-zero):
                  hot_rows=8192, tier_refresh=1, sweeps=3)), then the same
                  job auto-sized and auto-resized (hot_rows=None); exact
                  conservation of the composed table, falling perplexity,
-                 launches (one mh_sample, alias_build and delta_push per
-                 non-empty block a sweep, no delta_apply_coo), the tier's
+                 launches (one mh_draws_train, mh_sample, alias_build and
+                 delta_push per non-empty block a sweep, no
+                 delta_apply_coo), the tier's
                  traffic and the device-table gauge (at most 1/8 of the
                  400 MB table), one more sweep under the profiler (its
                  split by part); then a small tiered job on the card and on
@@ -82,18 +92,34 @@ Phases (any failure raises and the script exits non-zero):
                  the composed table equal to the dense handle's push);
  11. autotune -- APSLDA(LDAJob(route="auto", staleness="auto",
                  model_blocks=16, sweeps=2)): the measured route and
-                 staleness tables and the choice; n_wk and n_k equal a fit
-                 with the chosen route and staleness bitwise;
- 12. report   -- per-kernel times at the main paths' shapes (alias_build
+                 staleness tables and the choice, one mh_draws_train per
+                 mh_sample; n_wk and n_k equal a fit with the chosen route
+                 and staleness bitwise;
+ 12. net      -- the network parameter server on the training corpus in
+                 stream_train's shards, stream_train's snapshot job: one
+                 worker process for 2 epochs (n_wk, n_k and every z file
+                 equal the stream plane's bitwise), two workers (exact
+                 conservation against the z files' histogram, falling
+                 perplexity, each worker's own launch counters: one
+                 mh_draws_train, mh_sample and delta_push a group and one
+                 alias_build a visit); tokens/s, the per-visit split and
+                 the server's commit ms; repro_torch.launch.net_smoke
+                 --device cuda --workers 2 (faults, a SIGKILL) exits 0; a
+                 1-worker job at V = 3,000, K = 64 on the card and on the
+                 CPU, counts and z files equal bitwise;
+ 13. report   -- per-kernel times at the main paths' shapes (alias_build
                  held bitwise at serving's φ and at each executor's
                  weights; the merge at each executor's group, also by
-                 destination), the whole merge of one group as the
+                 destination; mh_draws at a snapshot group, a pipelined
+                 group, a tiered block and a fold-in batch), the whole
+                 merge of one group as the
                  executors composed it before (route plan, token_deltas,
                  adds) against the one-launch merge, in turns, then one
                  pipelined sweep taken each way; a
-                 profile of one fold-in batch and of one training sweep, one
-                 JSON line with each kernel's launches, error, times and
-                 bound, then the device line last.
+                 profile of one fold-in batch and of one training sweep,
+                 the tensor operations of the key derivations that stay
+                 eager, one JSON line with each kernel's launches, error,
+                 times and bound, then the device line last.
 
 Imports nothing of JAX or of the JAX package.  Writes profiles to
 chiprun_out/serving_profile.txt and chiprun_out/training_profile.txt, the
@@ -143,6 +169,16 @@ MERGE_CASES = (((300, 50, 7), (8192, 1_809_664)),
                ((12_500, 32_768, 1000), (237_568,)))
 PIPE_BLOCKS, PIPE_STALENESS = 16, 1
 REF_CHUNK = 1 << 18        # tokens per call of mh_sample's plain version
+# mh_draws: the card's int32 rate (132 SMs x 64 int32 lanes per clock at the
+# 1,980 MHz boost clock; data sheet and Hopper white paper), and the int32
+# operations of one threefry2x32 hash: 20 rounds of add, rotate and xor (the
+# key injections fold into three-input adds, IADD3)
+INT32_OPS = 132 * 64 * 1.98e9
+HASH_OPS = 20 * 3
+# training draws: (slots, documents) of a snapshot group, a pipelined group,
+# a tiered block, and a stream visit's snapshot and blocked groups
+DRAW_CASES = ((8192, 8000), (1_809_664, 8000), (2_097_152, 8000),
+              (8192, 32_768), (237_568, 32_768))
 
 
 def log(msg: str) -> None:
@@ -424,6 +460,76 @@ def check_delta_kernels(torch) -> None:
     check_merge(torch)
 
 
+def draw_inputs(torch, k: int, slots: int, docs: int, seed: int):
+    """A training group's draw inputs on the card: ``docs`` documents, one
+    in seven empty and one in seven of one token, the rest around the
+    mean length that fills ``slots``; tokens padded past the end (padded
+    slots name document 0, which is empty); the group's slots straddle the
+    last tokens and the padding."""
+    rng = np.random.default_rng(seed)
+    mean = max(2, 2 * slots // docs)
+    lens = rng.integers(0, 2 * mean, docs).astype(np.int32)
+    lens[::7], lens[1::7] = 0, 1
+    n = int(lens.sum())
+    lo = max(n - slots // 2, 0)
+    total = lo + slots
+    d = np.zeros(max(total, n), np.int32)
+    d[:n] = np.repeat(np.arange(docs, dtype=np.int32), lens)
+    start = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int32)
+    z = rng.integers(0, k, d.size).astype(np.int32)
+    key = torch.tensor([int(rng.integers(0, 2 ** 32)),
+                        int(rng.integers(0, 2 ** 32))], dtype=torch.int64)
+    dev = lambda x: torch.from_numpy(x).to("cuda")  # noqa: E731
+    return (key.to("cuda"), dev(d[lo:lo + slots]), dev(z), dev(start),
+            dev(lens), slots)
+
+
+def draws_match(torch, got, want) -> bool:
+    return all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+
+
+def check_draws(torch) -> None:
+    """mh_draws against its plain version on the card: the training entry
+    point at K in {7, 130, 1000} and each of DRAW_CASES' group shapes; the
+    fold-in entry point at serving's [32 x 1024] batch for sweeps 0 and
+    29.  Bitwise in all four arrays."""
+    from repro_torch import rng as jrng
+    from repro_torch.core.lightlda import LDAConfig
+    from repro_torch.kernels import mh_draws, ref
+
+    for k in (7, 130, 1000):
+        cfg = LDAConfig(num_topics=k, vocab_size=100)
+        for i, (slots, docs) in enumerate(DRAW_CASES):
+            args = draw_inputs(torch, k, slots, docs, seed=31 * k + i)
+            got = mh_draws.mh_draws_train_cuda(*args, cfg)
+            want = ref.mh_draws_train_ref(*args, cfg)
+            match = draws_match(torch, got, want)
+            log(json.dumps({"check": "mh_draws_train", "K": k,
+                            "slots": slots, "docs": docs, "match": match}))
+            if not match:
+                raise AssertionError(f"mh_draws_train differs from its plain "
+                                     f"version at K={k}, {slots} slots")
+            del args, got, want
+        rng = np.random.default_rng(k)
+        b, l = 32, 1024
+        nd = rng.integers(0, l + 1, b).astype(np.int32)
+        nd[:3] = (0, 1, l)
+        z = torch.from_numpy(rng.integers(0, k, (b, l)).astype(np.int32)
+                             ).to("cuda")
+        nd = torch.from_numpy(nd).to("cuda")
+        keys = jrng.keys_from_seeds(range(1000, 1000 + b), "cuda")
+        for sweep in (0, 29):
+            got = mh_draws.mh_draws_foldin_cuda(keys, sweep, z, nd, cfg)
+            want = ref.mh_draws_foldin_ref(keys, sweep, z, nd, cfg)
+            match = draws_match(torch, got, want)
+            log(json.dumps({"check": "mh_draws_foldin", "K": k,
+                            "batch": [b, l], "sweep": sweep,
+                            "match": match}))
+            if not match:
+                raise AssertionError(f"mh_draws_foldin differs from its "
+                                     f"plain version at K={k}, sweep {sweep}")
+
+
 def merge_inputs(torch, rows: int, docs: int, k: int, t: int, seed: int,
                  changed_frac: float):
     """A group's reassignments for delta_push's merge form: the batch of
@@ -565,14 +671,19 @@ def serve_slice(torch, seed: int, card: str, device: str = "cuda",
         buckets[b] = buckets.get(b, 0) + 1
     batches = sum(-(-n // ecfg.max_batch) for n in buckets.values())
     b1 = transform_counts["mh_sample"] - publish_counts["mh_sample"]
+    draws = (transform_counts["mh_draws_foldin"]
+             - publish_counts["mh_draws_foldin"])
     out["batches"] = batches
     if device == "cuda":
         if publish_counts["alias_build"] != 2:
             raise AssertionError("each publish must launch alias_build once")
-        if b1 != ecfg.foldin.num_sweeps * batches:
-            raise AssertionError(f"mh_sample launched {b1} times in "
-                                 f"transform, expected sweeps x batches = "
-                                 f"{ecfg.foldin.num_sweeps * batches}")
+        for name, n in (("mh_sample", b1), ("mh_draws_foldin", draws)):
+            if n != ecfg.foldin.num_sweeps * batches:
+                raise AssertionError(f"{name} launched {n} times in "
+                                     f"transform, expected sweeps x batches "
+                                     f"= {ecfg.foldin.num_sweeps * batches}")
+        if transform_counts["mh_draws_train"]:
+            raise AssertionError("serving launched the training draws")
     sums = theta.sum(1)
     if not (np.abs(sums - 1.0) <= 1e-3).all():
         raise AssertionError(f"θ rows do not sum to 1: {sums.min()} "
@@ -670,12 +781,14 @@ def groups_per_sweep(info: dict) -> int:
 
 
 def expected_launches(groups: int, alias_builds: int) -> dict:
-    """Launches of the path's kernels for ``groups`` groups: mh_sample once
-    per group; delta_push once per group, the whole merge on one process,
-    whatever the route; no delta_apply_coo; alias_build ``alias_builds``
+    """Launches of the path's kernels for ``groups`` groups: mh_draws_train
+    (the group's randoms) and mh_sample once per group; delta_push once per
+    group, the whole merge on one process, whatever the route; no
+    delta_apply_coo and no fold-in draws; alias_build ``alias_builds``
     times (once per snapshot sweep, once per pipelined group)."""
     return {"mh_sample": groups, "delta_push": groups, "delta_apply_coo": 0,
-            "alias_build": alias_builds}
+            "alias_build": alias_builds, "mh_draws_train": groups,
+            "mh_draws_foldin": 0}
 
 
 def train_slice(torch, seed: int, card: str, device: str = "cuda",
@@ -1179,6 +1292,12 @@ def stream_train(torch, seed: int, card: str, corp, device: str = "cuda",
         if not all(equal.values()):
             raise AssertionError(f"stop-and-resume differs from the "
                                  f"uninterrupted run: {equal}")
+        # the 2-epoch snapshot run's result, which the net phase's one
+        # worker must reproduce
+        out["snapshot_final"] = {
+            "nwk": final["nwk"].cpu().numpy(),
+            "nk": final["nk"].cpu().numpy(),
+            "z": [readers[1].read_z(s) for s in range(n_shards)]}
         out["resume"] = {"stop_after": stop, "equal": equal,
                          "save_stream_ms": save_ms + span_ms(events,
                                                              "stream.save"),
@@ -1372,7 +1491,9 @@ def service(torch, seed: int, card: str, corp, docs,
     if not all(ok.values()):
         raise AssertionError(f"service under live refresh failed: {ok}")
     if device == "cuda" and not (counts["mh_sample"] and counts["delta_push"]
-                                 and counts["alias_build"]):
+                                 and counts["alias_build"]
+                                 and counts["mh_draws_train"]
+                                 and counts["mh_draws_foldin"]):
         raise AssertionError(f"service: kernels not launched: {counts}")
     return row
 
@@ -1433,7 +1554,8 @@ def launchers(torch, card: str, device: Optional[str] = None) -> dict:
     counts = out["lda"]["launches"]
     if (device or "cuda") == "cuda" and not (
             counts["mh_sample"] and counts["delta_push"]
-            and counts["alias_build"]):
+            and counts["alias_build"]
+            and counts["mh_draws_train"] == counts["mh_sample"]):
         raise AssertionError(f"launch.lda: kernels not launched: {counts}")
     return out
 
@@ -1508,7 +1630,8 @@ def tiered_block_inputs(torch, st, cfg, rows_per_block: int) -> dict:
     args = (rng, st.z[i], local, db, rows.to(torch.float32), st.ndk,
             nk.to(torch.float32), table.prob, table.alias)
     return {"args": args, "valid": valid, "weights": weights,
-            "tables": [rows, st.ndk.clone(), nk.clone()], "tokens": tok.size}
+            "tables": [rows, st.ndk.clone(), nk.clone()], "tokens": tok.size,
+            "draws": (db, st.z, st.doc_start, st.doc_len, cap)}
 
 
 def tiered_sweep_split(torch, st, cfg, info: dict, card: str) -> dict:
@@ -1585,8 +1708,7 @@ def tiered_train(torch, seed: int, card: str, corp, device: str = "cuda",
             # ------------------------------------------ end of main path
             info, st = est.result_.info, est.result_.state
             n = nonempty_blocks(corp.w, info["rows_per_block"]) * job.sweeps
-            check_launches(counts, {"mh_sample": n, "delta_push": n,
-                                    "delta_apply_coo": 0, "alias_build": n},
+            check_launches(counts, expected_launches(n, alias_builds=n),
                            f"tiered ({name})", device)
             conservation(torch, st, f"tiered ({name})")
             ppl = [row["perplexity"] for row in model.history]
@@ -1719,17 +1841,28 @@ def autotune_fit(torch, seed: int, card: str, corp, device: str = "cuda",
     whose n_wk and n_k must equal the auto fit's bitwise."""
     from repro_torch.api import (APSLDA, CooRoute, DenseRoute, HybridRoute,
                                  LDAJob)
+    from repro_torch.kernels import ops
 
     job = LDAJob(corpus=corp, num_topics=k, vocab_size=v, route="auto",
                  staleness="auto", model_blocks=PIPE_BLOCKS, sweeps=2,
                  eval_every=0, seed=seed)
     t0 = time.perf_counter()
+    ops.reset_launch_counts()
     # ------------------------------------------------------------ main path
     est = APSLDA(job, log_fn=log, device=device)
     model = est.fit()
     sync(torch, device)
+    counts = ops.launch_counts()
     # ---------------------------------------------------- end of main path
     fit_s = time.perf_counter() - t0
+    # every group of every sweep (the staleness candidates' included) draws
+    # its randoms in one launch beside its one mh_sample
+    if device == "cuda" and not (
+            counts["mh_sample"] and counts["alias_build"]
+            and counts["mh_draws_train"] == counts["mh_sample"]
+            and not counts["mh_draws_foldin"]):
+        raise AssertionError(f"autotune: launches {counts}: expected one "
+                             f"mh_draws_train per mh_sample")
     report = est.result_.info["autotune"]
     chosen = report["chosen"]
     conservation(torch, est.result_.state, "autotuned fit")
@@ -1747,13 +1880,219 @@ def autotune_fit(torch, seed: int, card: str, corp, device: str = "cuda",
     out = {"V": v, "K": k, "batch": report["route"]["batch"],
            "predicted_order": report["route"]["predicted_order"],
            "routes": routes, "staleness": report["staleness"]["measured"],
-           "chosen": chosen, "fit_s": fit_s,
+           "chosen": chosen, "fit_s": fit_s, "launches": counts,
            "equal_to_concrete_fit": equal, "card": card}
     log(json.dumps({"autotune": out}))
     if not all(equal.values()):
         raise AssertionError(f"the autotuned fit differs from the fit with "
                              f"its chosen plan: {equal}")
     return out
+
+
+# -- phase 12: the network parameter server ----------------------------------
+
+NET_WORKERS = 2
+
+
+def worker_launches(stats: dict, groups_per_visit: int) -> dict:
+    """What one snapshot-mode worker must have launched for its visits: one
+    mh_draws_train, mh_sample and delta_push a group, one alias_build a
+    visit, nothing else."""
+    return expected_launches(stats["visits"] * groups_per_visit,
+                             alias_builds=stats["visits"])
+
+
+def net_summary(info: dict, n_tokens: int) -> dict:
+    """Throughput and the per-visit split of a net run from its workers'
+    stats and the server's status."""
+    stats = info["worker_stats"]
+    start = min(s["wall"][0] for s in stats if s["wall"][0] is not None)
+    end = max(s["wall"][1] for s in stats if s["wall"][1] is not None)
+    status = info["server_status"]
+    return {"workers": len(stats), "tokens": n_tokens,
+            "window_s": end - start, "tokens_per_s": n_tokens / (end - start),
+            "visits": [s["visits"] for s in stats],
+            "visit_ms": [s["visit_ms"] for s in stats],
+            "server_commit_ms_median": status["commit_ms_median"],
+            "superseded": [s["superseded"] for s in stats],
+            "retries": [s["retries"] for s in stats],
+            "reconnects": [s["reconnects"] for s in stats],
+            "dup_acks": status["dup_acks"],
+            "max_memory_allocated": [s["max_memory_allocated"]
+                                     for s in stats],
+            "devices": [s["device"] for s in stats],
+            "launches": [s["launches"] for s in stats]}
+
+
+def net_train(torch, seed: int, card: str, corp, device: str = "cuda",
+              v: int = V_FULL, k: int = K_FULL,
+              tokens_per_shard: int = STREAM_SHARD_TOKENS,
+              block_tokens: int = 8192, reference: Optional[dict] = None,
+              small_v: int = 3000, small_k: int = 64) -> dict:
+    """Training through the network parameter server at (v, k) on ``corp``
+    in shards of ``tokens_per_shard``, the job of stream_train's snapshot
+    run (hot words 2,000, committed as the dense prefix; the same seed):
+
+      (a) one worker, 2 epochs: n_wk, n_k and every z file equal the
+          in-process stream plane's (``reference``: stream_train's result,
+          or a run made here) bitwise;
+      (b) two workers, 2 epochs, dynamic leases: exact conservation (the
+          server's counts are the z files' histogram, the token mass
+          unchanged), the perplexity falling, and each worker's own launch
+          counters: one mh_draws_train, mh_sample and delta_push a group
+          and one alias_build a visit, on the card;
+      (c) ``python -m repro_torch.launch.net_smoke --device <device>
+          --workers 2``: faults on every op, one worker SIGKILLed; exit 0;
+      (d) on the card only: a 1-worker job at (small_v, small_k) on the
+          card and on the CPU, counts and z files bitwise equal.
+
+    Prints tokens/s with 1 and 2 workers (first granted lease to last
+    commit), each worker's median host ms per part of a visit, the
+    server's median ms to apply a commit, superseded commits, retries,
+    reconnects and each worker's peak device memory."""
+    import tempfile
+
+    from repro_torch.api import APSLDA, LDAJob
+    from repro_torch.data import stream
+    from repro_torch.data.corpus import synthetic_corpus
+    from repro_torch.kernels import ops
+
+    out = {}
+    groups_per_visit = tokens_per_shard // block_tokens
+    with tempfile.TemporaryDirectory() as tmp:
+        names = ("one", "two") + (("ref",) if reference is None else ())
+        dirs = {n: str(Path(tmp) / n) for n in names}
+        meta = [stream.write_sharded(p, corp, tokens_per_shard)
+                for p in dirs.values()][0]
+        n_shards = meta.num_shards
+        job = LDAJob(stream_dir=dirs["one"], num_topics=k, vocab_size=v,
+                     backend="net", workers=1, hot_words=HOT_WORDS, epochs=2,
+                     seed=seed, block_tokens=block_tokens, eval_every=0)
+        if reference is None:
+            ref_est = APSLDA(stream_job(dirs["ref"], k, v, seed, 2,
+                                        block_tokens=block_tokens,
+                                        eval_every=0),
+                             log_fn=lambda m: None, device=device)
+            ref_est.fit()
+            reader = ref_est.result_.reader
+            reference = {"nwk": ref_est.result_.nwk.value.cpu().numpy(),
+                         "nk": ref_est.result_.nk.value.cpu().numpy(),
+                         "z": [reader.read_z(s) for s in range(n_shards)]}
+            del ref_est
+
+        # (a) one worker against the in-process stream plane
+        ops.reset_launch_counts()
+        # ------------------------------------------------------- main path
+        est = APSLDA(job, log_fn=log, device=device)
+        est.fit()
+        sync(torch, device)
+        parent = ops.launch_counts()
+        # ----------------------------------------------- end of main path
+        res = est.result_
+        equal = {"nwk": bool(np.array_equal(res.nwk.value.cpu().numpy(),
+                                            reference["nwk"])),
+                 "nk": bool(np.array_equal(res.nk.value.cpu().numpy(),
+                                           reference["nk"])),
+                 "z_files": all(np.array_equal(res.reader.read_z(s), z)
+                                for s, z in enumerate(reference["z"]))}
+        one = net_summary(res.info, 2 * meta.num_tokens)
+        out["one_worker"] = dict(one, equal_to_stream_plane=equal,
+                                 parent_launches=parent)
+        log(json.dumps({"net": dict(out["one_worker"], run="1 worker",
+                                    card=card)}))
+        if not all(equal.values()):
+            raise AssertionError(f"the 1-worker net run differs from the "
+                                 f"stream plane: {equal}")
+        for st in res.info["worker_stats"]:
+            check_launches(st["launches"],
+                           worker_launches(st, groups_per_visit),
+                           "net worker (1 worker)", device)
+        del est, res
+
+        # (b) two workers, dynamic leases
+        job2 = dataclasses.replace(job, stream_dir=dirs["two"],
+                                   workers=NET_WORKERS, eval_every=n_shards)
+        ops.reset_launch_counts()
+        # ------------------------------------------------------- main path
+        est = APSLDA(job2, log_fn=log, device=device)
+        model = est.fit()
+        sync(torch, device)
+        parent = ops.launch_counts()
+        # ----------------------------------------------- end of main path
+        res = est.result_
+        rw, rk = stream.rebuild_counts_from_stream(res.reader, k)
+        nwk, nk = res.nwk.value.cpu().numpy(), res.nk.value.cpu().numpy()
+        ppl = [row["perplexity"] for row in model.history]
+        checks = {"nwk_is_z_histogram": bool(np.array_equal(nwk, rw)),
+                  "nk_is_z_histogram": bool(np.array_equal(nk, rk)),
+                  "token_mass": int(nk.sum()) == meta.num_tokens,
+                  "perplexity_falls": len(ppl) == 2 and ppl[1] < ppl[0],
+                  "all_visits": sum(st["visits"] for st in
+                                    res.info["worker_stats"])
+                  == 2 * n_shards}
+        two = net_summary(res.info, 2 * meta.num_tokens)
+        out["two_workers"] = dict(two, perplexity=ppl, checks=checks,
+                                  parent_launches=parent)
+        log(json.dumps({"net": dict(out["two_workers"], run="2 workers",
+                                    card=card)}))
+        if not all(checks.values()):
+            raise AssertionError(f"the 2-worker net run failed: {checks}")
+        for st in res.info["worker_stats"]:
+            check_launches(st["launches"],
+                           worker_launches(st, groups_per_visit),
+                           "net worker (2 workers)", device)
+            if device == "cuda" and not (st["visits"]
+                                         and st["device"] == card_name(card)):
+                raise AssertionError(f"a net worker did not train on the "
+                                     f"card: {st}")
+        del est, res, model, nwk, rw
+
+    # (c) the fault drill, as a user runs it
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.net_smoke", "--device",
+         device, "--workers", "2"], capture_output=True, text=True,
+        timeout=900, cwd=str(ROOT),
+        env=dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src")))
+    tail = proc.stdout.strip().splitlines()[-1:] or [""]
+    out["net_smoke"] = {"rc": proc.returncode,
+                        "s": time.perf_counter() - t0, "last": tail[0]}
+    log(json.dumps({"net_smoke": dict(out["net_smoke"], card=card)}))
+    if proc.returncode != 0:
+        raise AssertionError(f"net_smoke failed (rc {proc.returncode}):\n"
+                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+
+    # (d) card against CPU at a small width
+    if device == "cuda":
+        small = synthetic_corpus(300, small_v, true_topics=16, seed=seed)
+        sjob = LDAJob(corpus=small, num_topics=small_k, vocab_size=small_v,
+                      backend="net", workers=1, hot_words=200, sweeps=2,
+                      block_tokens=1024, eval_every=0, seed=seed)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            est = APSLDA(sjob, log_fn=lambda m: None, device=dev)
+            est.fit()
+            r = est.result_
+            runs[dev] = (r.nwk.value.cpu().numpy(), r.nk.value.cpu().numpy(),
+                         [r.reader.read_z(s)
+                          for s in range(r.reader.num_shards)])
+        equal = {"nwk": bool(np.array_equal(runs["cuda"][0],
+                                            runs["cpu"][0])),
+                 "nk": bool(np.array_equal(runs["cuda"][1], runs["cpu"][1])),
+                 "z_files": all(np.array_equal(a, b) for a, b in
+                                zip(runs["cuda"][2], runs["cpu"][2]))}
+        log(json.dumps({"check": "net_card_vs_cpu", "V": small_v,
+                        "K": small_k, "tokens": small.num_tokens,
+                        "equal": equal}))
+        if not all(equal.values()):
+            raise AssertionError(f"net training on the card differs from "
+                                 f"the CPU: {equal}")
+    return out
+
+
+def card_name(card: str) -> str:
+    """The card's name from the ``nvidia-smi`` line (name, power limit)."""
+    return card.split(",")[0].strip()
 
 
 def tiered_kernel_rows(torch, timer: Timer, tiered: dict, card: str) -> list:
@@ -2513,13 +2852,119 @@ def kernel_report(torch, timer: Timer, serve: dict, train: dict,
         groups
 
 
+def draws_row(torch, timer: Timer, name: str, kernel, plain, launches: int,
+              nbytes: int, hashes: int, reps: int, plain_reps: int,
+              card: str) -> dict:
+    """One mh_draws row: the kernel held bitwise against its plain version
+    on the same inputs, both timed, the bound from ``hashes`` threefry
+    hashes at the int32 rate or ``nbytes``, whichever is larger."""
+    got, want = kernel(), plain()
+    if not draws_match(torch, got, want):
+        raise AssertionError(f"{name} differs from its plain version at the "
+                             f"main path's shapes")
+    slots = got.u_word.shape[1]
+    del got, want
+    ms = timer.ms(kernel, reps=reps)
+    plain_ms = timer.ms(plain, reps=plain_reps, device_only=False)
+    log(json.dumps({"timing": {name: {
+        "slots": slots, "hashes": hashes, "bytes": nbytes, "bitwise": True,
+        "ms": ms, "plain_ms": plain_ms, "card": card}}}))
+    # no PyTorch call computes jax's threefry (torch.rand is Philox)
+    return kernel_row(name, "src/repro_torch/kernels/csrc/mh_draws.cu",
+                      "none: XLA fuses these draws outside Pallas",
+                      launches, 0.0, ms, plain_ms, nbytes,
+                      hashes * HASH_OPS, ops_rate=INT32_OPS)
+
+
+def train_draws_work(torch, key, d_b, doc_start, doc_len, batch: int, cfg):
+    """(bytes, hashes) one training draw needs on these inputs: the four
+    [S, B] outputs written, d_b read, each distinct document's start and
+    length read, z read where the doc proposal takes the token branch (its
+    use_tok coin, recomputed here), the key; seven hashes an element, four
+    for split(key, 4) and six a step for the step keys."""
+    from repro_torch import rng as jrng
+    from repro_torch.kernels import mh_draws
+
+    steps = cfg.mh_steps
+    kd = jrng.split(key, 4)[2]
+    k3 = jrng.split(jrng.split(kd, steps), 3)[:, 2]
+    nd = doc_len[d_b.long()].to(torch.float32)
+    u3 = jrng.uniform(k3, batch)
+    tok = int((u3 * (nd + mh_draws.k_alpha(cfg)) < nd).sum())
+    docs = int(torch.unique(d_b).numel())
+    nbytes = 16 * steps * batch + 4 * batch + 8 * docs + 4 * tok + 16
+    return nbytes, 7 * steps * batch + 4 + 6 * steps
+
+
+def mh_draws_rows(torch, timer: Timer, serve: dict, train: dict,
+                  tiered: dict, card: str) -> list:
+    """mh_draws at the main paths' shapes, each with its launches there:
+    the training entry point at the snapshot executor's first group, the
+    pipelined executor's first group and the tiered run's first block; the
+    fold-in entry point at serving's full batch, sweep 0."""
+    from repro_torch import rng as jrng
+    from repro_torch.core import lightlda as lda
+    from repro_torch.infer.foldin import pack_docs
+    from repro_torch.kernels import mh_draws, ref
+
+    st, cfg = train["state"], train["cfg"]
+    key = jrng.PRNGKey(7, "cuda")
+    g = cfg.block_tokens
+    grp_rows, _ = pipelined_group_rows(train)
+    idx, _ = lda.block_token_index(st.w.cpu().numpy(), st.valid.cpu().numpy(),
+                                   grp_rows, st.nwk.layout)
+    i = torch.from_numpy(idx[0]).to("cuda").long()
+    tables = (st.z, st.doc_start, st.doc_len)
+    tb = tiered["block"]["draws"]        # d_b, z, doc_start, doc_len, cap
+    cases = (("mh_draws_train_snapshot", (st.d[:g], *tables, g), cfg,
+              train["snapshot_counts"], 100, 5),
+             ("mh_draws_train_pipelined", (st.d[i], *tables, i.shape[0]),
+              cfg, train["pipelined_counts"], 10, 1),
+             ("mh_draws_train_tiered", tb, tiered["cfg"], tiered["counts"],
+              10, 1))
+    rows = []
+    for name, inputs, c, counts, reps, plain_reps in cases:
+        args = (key, inputs[0].contiguous(), *inputs[1:])
+        nbytes, hashes = train_draws_work(torch, key, args[1], args[3],
+                                          args[4], args[5], c)
+        rows.append(draws_row(
+            torch, timer, name,
+            lambda a=args, c=c: mh_draws.mh_draws_train_cuda(*a, c),
+            lambda a=args, c=c: ref.mh_draws_train_ref(*a, c),
+            counts["mh_draws_train"], nbytes, hashes, reps, plain_reps,
+            card))
+
+    model, docs, seeds = serve["model"], serve["docs"], serve["seeds"]
+    eng, fcfg = model.engine(), model.cfg
+    mb, bucket = eng.ecfg.max_batch, eng.ecfg.max_len
+    pick = sorted(range(len(docs)), key=lambda j: -len(docs[j]))[:mb]
+    _, valid = pack_docs([docs[j] for j in pick], bucket)
+    keys = jrng.keys_from_seeds([seeds[j] for j in pick], "cuda")
+    nd = torch.from_numpy(valid.sum(1).astype(np.int32)).to("cuda")
+    z = jrng.randint(jrng.fold_in(keys, 0x1d4), (bucket,), 0, fcfg.K)
+    b, steps = len(pick), fcfg.mh_steps
+    sub = jrng.split(jrng.fold_in(keys, 0), 4)[:, 2]
+    u3 = jrng.uniform(jrng.split(sub, 3)[:, 2], (steps, bucket))
+    ndf = nd.to(torch.float32)[:, None, None]
+    tok = int((u3 * (ndf + mh_draws.k_alpha(fcfg)) < ndf).sum())
+    rows.append(draws_row(
+        torch, timer, "mh_draws_foldin",
+        lambda: mh_draws.mh_draws_foldin_cuda(keys, 0, z, nd, fcfg),
+        lambda: ref.mh_draws_foldin_ref(keys, 0, z, nd, fcfg),
+        serve["counts"]["mh_draws_foldin"],
+        16 * steps * b * bucket + 20 * b + 4 * tok,
+        7 * steps * b * bucket + 10 * b, 100, 5, card))
+    return rows
+
+
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
-               flops, library_ms=None) -> dict:
+               flops, library_ms=None, ops_rate=FP32_FLOPS) -> dict:
     # the delta kernels' integer operations are held to the fp32 rate (the
     # data sheet gives no int32 rate outside the tensor cores); their byte
-    # bound is far above it
+    # bound is far above it.  mh_draws, all int32 arithmetic, passes the
+    # int32 lanes' rate (INT32_OPS)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / ops_rate * 1e3
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": int(launches),
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -2533,23 +2978,56 @@ def device_profile(torch, fn):
     only (kernels, copies, fills); returns ``(wall ms, device busy ms,
     {name: [launches, device ms]})``.  The profiler's raw events are read
     directly: building its per-event Python objects (``key_averages``)
-    takes minutes for a training sweep's 1.6 M launches."""
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        # A margin on each side of ``fn``: the profiler drops device events
-        # it places outside its window, and one run's profile lacked a
-        # sweep's single alias_build launch, a few ms after the start.
-        time.sleep(0.05)
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        time.sleep(0.05)
-    stats = {}
+    takes minutes for a training sweep's 1.6 M launches.
+
+    The profiler drops the first device events of a session: none early
+    in a process, then more the longer the process has run, however long
+    the host waits around the work.  Such a loss cost a sweep its single
+    alias_build launch.  So the session opens with ``lead`` tiny launches
+    that are there to be dropped (how many were is logged), ``fn`` runs
+    between two marker kernels (``torch.cuda._sleep``), only the events
+    launched between the markers count (by correlation id), and a profile
+    that lacks a marker is taken again with four times the lead (256 to
+    16,384 launches)."""
     cuda = torch.autograd.DeviceType.CUDA
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == cuda:
+    lead = 256
+    scratch = torch.zeros(1, device="cuda")
+    for attempt in range(1, 5):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            for _ in range(lead):
+                scratch.add_(1)
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        events = [e for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == cuda]
+        marks = sorted(e.correlation_id() for e in events
+                       if "spin_kernel" in e.name())
+        if len(marks) == 2:
+            kept = sum(1 for e in events if e.correlation_id() < marks[0])
+            if kept < lead:
+                log(json.dumps({"profile_dropped_lead": {
+                    "lead": lead, "dropped": lead - kept}}))
+            break
+        log(json.dumps({"profile_lost_a_marker": {
+            "attempt": attempt, "lead": lead, "markers": len(marks),
+            "device_events": len(events)}}))
+        lead *= 4
+    else:
+        raise AssertionError(f"the profile lost a marker kernel in "
+                             f"{attempt} attempts")
+    stats = {}
+    for e in events:
+        if marks[0] < e.correlation_id() < marks[1]:
             s = stats.setdefault(e.name(), [0, 0.0])
             s[0] += 1
             s[1] += e.duration_ns() / 1e6
@@ -2569,6 +3047,49 @@ def of_kernel(stats: dict, name: str) -> dict:
     hit = [v for k, v in stats.items() if name in k]
     return {"count": sum(n for n, _ in hit),
             "device_ms": sum(ms for _, ms in hit)}
+
+
+def eager_key_ops(torch, card: str) -> dict:
+    """The tensor operations of the key derivations that stay eager (each
+    an operation PyTorch dispatches on the card; views not counted):
+    ``split(key, 244)`` a snapshot sweep, ``stream_sweep_key`` a stream or
+    net visit, the fold-in init draw of a [32 x 1024] batch, and a stream
+    shard's init draw of 262,144 tokens."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch import rng as jrng
+    from repro_torch.api.session import stream_init_key, stream_sweep_key
+
+    views = {"view", "_unsafe_view", "reshape", "expand", "select", "slice",
+             "unsqueeze", "squeeze", "t", "transpose", "as_strided",
+             "alias", "detach", "lift_fresh"}
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ not in views:
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    key = jrng.PRNGKey(3, "cuda")
+    keys = jrng.keys_from_seeds(range(32), "cuda")
+    out = {}
+    for name, fn in (
+            ("split_per_sweep", lambda: jrng.split(key, 244)),
+            ("stream_sweep_key_per_visit",
+             lambda: stream_sweep_key(0, 1, 3, "cuda")),
+            ("foldin_init_draw_per_batch",
+             lambda: jrng.randint(jrng.fold_in(keys, 0x1d4), (1024,), 0,
+                                  K_FULL)),
+            ("stream_init_draw_per_shard",
+             lambda: jrng.randint(stream_init_key(0, 5, "cuda"),
+                                  (STREAM_SHARD_TOKENS,), 0, K_FULL))):
+        with Count() as c:
+            fn()
+        out[name] = c.n
+    log(json.dumps({"eager_key_ops": dict(out, card=card)}))
+    return out
 
 
 def profile_batch(torch, serve: dict, card: str) -> None:
@@ -2595,15 +3116,20 @@ def profile_batch(torch, serve: dict, card: str) -> None:
         f"(profiler on), device busy {busy_ms:.3f} ms\n\n"
         f"{profile_table(stats)}\n")
     mh = of_kernel(stats, "mh_sample")
-    if not busy_ms or not mh["count"]:
+    draws = of_kernel(stats, "mh_draws_foldin")
+    if not busy_ms or not mh["count"] or not draws["count"]:
         raise AssertionError("the profile of a fold-in batch shows no device "
-                             "time or no mh_sample launch")
+                             "time, or no mh_sample or mh_draws_foldin "
+                             "launch")
     log(json.dumps({"profile": {
         "batch": [mb, bucket], "wall_ms_profiled": wall_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_kernels": sum(n for n, _ in stats.values()),
-        "mh_sample_device_ms": mh["device_ms"], "card": card}}))
+        "launches_per_sweep": sum(n for n, _ in stats.values())
+        / eng.ecfg.foldin.num_sweeps,
+        "mh_sample_device_ms": mh["device_ms"],
+        "mh_draws_foldin": draws, "card": card}}))
 
 
 def profile_sweep(torch, train: dict, card: str) -> None:
@@ -2634,11 +3160,11 @@ def profile_sweep(torch, train: dict, card: str) -> None:
     sweep()
     torch.cuda.synchronize()
     sweep_ms = (time.perf_counter() - t0) * 1e3
-    # The profiler loses device events under a sweep's flood of launches
-    # (some runs' profiles lacked the sweep's single alias_build launch):
-    # a profile that lacks a kernel of the sweep is taken again, three
-    # times at most.
-    kernels = ("mh_sample_kernel", "delta_push_kernel", "alias_build_kernel")
+    # A profile that lacks a kernel of the sweep between its markers (the
+    # profiler lost device events under the floods of launches that sweeps
+    # made before the draws' repair) is taken again, three times at most.
+    kernels = ("mh_draws_train_kernel", "mh_sample_kernel",
+               "delta_push_kernel", "alias_build_kernel")
     for attempt in range(1, 4):
         wall_ms, busy_ms, stats = device_profile(torch, sweep)
         missing = [n for n in kernels if not of_kernel(stats, n)["count"]]
@@ -2653,8 +3179,10 @@ def profile_sweep(torch, train: dict, card: str) -> None:
         f"{int(st.valid.sum())} tokens, wall {wall_ms:.3f} ms (profiler "
         f"on), device busy {busy_ms:.3f} ms\n\n{profile_table(stats)}\n")
     if missing:
-        raise AssertionError(f"the profile of a training sweep shows no "
-                             f"{missing} launch in {attempt} attempts")
+        raise AssertionError(
+            f"the profile of a training sweep shows no {missing} launch in "
+            f"{attempt} attempts; it shows "
+            f"{ {n: of_kernel(stats, n)['count'] for n in kernels} }")
     by_kernel = {name: of_kernel(stats, name) for name in kernels}
     if not busy_ms:
         raise AssertionError("the profile of a training sweep shows no "
@@ -2678,7 +3206,9 @@ def profile_sweep(torch, train: dict, card: str) -> None:
     w_b, d_b, valid_b = st.w[:g], st.d[:g], st.valid[:g]
     z0 = st.z[:g].clone()
     key = jrng.PRNGKey(3, "cuda")
-    draw_ms, rng = timed(lambda: lda.draw_mh_randoms(
+    draw_ms, rng = timed(lambda: ops.mh_draws_train(
+        key, d_b, st.z, st.doc_start, st.doc_len, g, cfg), reps=5)
+    draw_plain_ms, _ = timed(lambda: lda.draw_mh_randoms(
         key, lda.make_doc_draw(d_b, st.z, st.doc_start, st.doc_len, cfg), g,
         cfg), reps=5)
     nwk_f = nwk_dense.to(torch.float32)
@@ -2702,10 +3232,13 @@ def profile_sweep(torch, train: dict, card: str) -> None:
         "wall_ms_profiled": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_kernels": sum(n for n, _ in stats.values()),
+        "launches_per_group": sum(n for n, _ in stats.values()) / groups,
         "kernels": by_kernel,
         "groups": groups, "alias_build_ms_per_sweep": alias_ms,
         "alias_build_plain_ms_per_sweep": alias_plain_ms,
-        "per_group_ms": {"threefry_draws": draw_ms, "mh_sample": mh_ms,
+        "per_group_ms": {"threefry_draws": draw_ms,
+                         "threefry_draws_plain": draw_plain_ms,
+                         "mh_sample": mh_ms,
                          "merge": merge_ms, "route_plan": plan_ms,
                          "token_deltas": deltas_ms},
         "card": card}}))
@@ -2730,8 +3263,7 @@ def main(argv=None) -> int:
     log(card)
 
     t0 = time.perf_counter()
-    logs = _build.build(["mh_sample", "alias_build", "delta_push"],
-                        ptxas_info=True)
+    logs = _build.build(_build.SOURCES, ptxas_info=True)
     log(f"[build] {time.perf_counter() - t0:.2f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -2746,11 +3278,12 @@ def main(argv=None) -> int:
 
     phase("check_kernels", check_kernels, torch)
     phase("check_delta_kernels", check_delta_kernels, torch)
+    phase("check_draws", check_draws, torch)
     serve = phase("serve", serve_slice, torch, args.seed, card)
     train = phase("train", train_slice, torch, args.seed, card)
     phase("card_vs_cpu", card_vs_cpu, torch, args.seed)
-    phase("stream_train", stream_train, torch, args.seed, card,
-          train["corpus"])
+    stream = phase("stream_train", stream_train, torch, args.seed, card,
+                   train["corpus"])
     phase("stream_card_vs_cpu", stream_card_vs_cpu, torch, args.seed, card)
     phase("service", service, torch, args.seed, card, train["corpus"],
           serve["docs"])
@@ -2760,14 +3293,20 @@ def main(argv=None) -> int:
     phase("tiered_card_vs_cpu", tiered_card_vs_cpu, torch, args.seed, card,
           train)
     phase("autotune", autotune_fit, torch, args.seed, card, train["corpus"])
+    phase("net", net_train, torch, args.seed, card, train["corpus"],
+          "cuda", V_FULL, K_FULL, STREAM_SHARD_TOKENS, 8192,
+          stream.pop("snapshot_final"))
     timer = Timer(torch)
     rows, groups = phase("kernel_report", kernel_report, torch, timer, serve,
                          train, card)
     rows += phase("tiered_kernels", tiered_kernel_rows, torch, timer, tiered,
                   card)
+    rows += phase("draws_kernels", mh_draws_rows, torch, timer, serve, train,
+                  tiered, card)
     phase("merge_compare", merge_compare, torch, timer, train, groups, card)
     phase("sweep_compare", sweep_compare, torch, train, card)
     phase("profile_batch", profile_batch, torch, serve, card)
+    phase("eager_key_ops", eager_key_ops, torch, card)
     phase("profile_sweep", profile_sweep, torch, train, card)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,9 +10,10 @@ The job has every field of the JAX package's except the two that select
 its Pallas path (``use_kernels``, ``kernel_interpret``): here a CUDA tensor
 always runs the kernel, so a job reads the same in both packages.  The
 device is not a field; it is a keyword of ``APSLDA`` and ``Session``.
-The planes the port does not run yet, the SPMD and network backends,
-validate here as they do in the JAX package, and ``Session`` refuses them,
-naming the ROADMAP item that ports them.
+The network backend (``backend="net"``) runs here as in the JAX package.
+The SPMD backend, which the port does not run yet, validates here as it
+does in the JAX package, and ``Session`` refuses it, naming the ROADMAP
+item that ports it.
 """
 from __future__ import annotations
 

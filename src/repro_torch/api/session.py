@@ -7,12 +7,14 @@
     callbacks.on_fit_end(final_view)
 
 A *plane* binds a data source to an execution backend.  The port runs
-three, all on the in-process backend: the in-memory corpus
-(``_MemoryPlane``, dense storage; ``route``/``staleness`` may be
-``"auto"``), the same over tiered storage (``_TieredPlane``), and the
-on-disk shard stream (``_StreamPlane``, the out-of-core trainer).  The JAX
-package's SPMD and network planes belong to later slices, and ``Session``
-refuses a job that needs one with the ROADMAP item that ports it.
+four: on the in-process backend the in-memory corpus (``_MemoryPlane``,
+dense storage; ``route``/``staleness`` may be ``"auto"``), the same over
+tiered storage (``_TieredPlane``) and the on-disk shard stream
+(``_StreamPlane``, the out-of-core trainer); on the network backend
+(``backend="net"``) a parameter-server process and a pool of worker
+processes over either source (``_NetPlane``).  The JAX package's SPMD
+planes belong to a later slice, and ``Session`` refuses a job that needs
+one with the ROADMAP item that ports it.
 
 Random streams, as the JAX package draws them, so a job's counts equal its
 bitwise:
@@ -20,10 +22,11 @@ bitwise:
   * memory: ``init_state`` draws the initial topics from ``PRNGKey(seed)``
     itself, then ``key, sub = split(key)`` once before the plane, and once
     more before every sweep;
-  * stream: every draw derives from the base seed through ``fold_in``
-    chains keyed by *schedule position* (``stream_init_key``,
+  * stream and net: every draw derives from the base seed through
+    ``fold_in`` chains keyed by *schedule position* (``stream_init_key``,
     ``stream_sweep_key``), never by host iteration state -- which is what
-    makes resume bitwise.
+    makes resume bitwise, and a visit's sweep the same whichever worker
+    runs it.
 """
 from __future__ import annotations
 
@@ -64,13 +67,10 @@ class SessionResult(NamedTuple):
 
 def unported_planes(job: LDAJob) -> List[str]:
     """Why the port cannot run ``job`` yet, one line per plane it needs
-    (empty: an in-process plane runs it)."""
+    (empty: a ported plane runs it)."""
     out = []
     if job.backend == SPMD:
         out.append("backend='spmd' is not ported yet: ROADMAP A, 'SPMD'")
-    if job.backend == NET:
-        out.append("backend='net' is not ported yet: ROADMAP A, "
-                   "'Network parameter server'")
     return out
 
 
@@ -123,6 +123,34 @@ def init_stream(reader, cfg, seed: int = 0, client=None,
                                .to(dev)))
 
 
+def seed_net_server(ctl, reader, cfg, seed: int, epochs: int, *,
+                    mode: str = "dynamic", workers: int = 0,
+                    max_shards: Optional[int] = None,
+                    device: Device = None) -> list:
+    """Pass 0 of a network-PS run against the server that ``ctl`` (a
+    ``ps.net.NetClient``) is connected to: draw every shard's initial
+    assignments on ``device`` (``init_stream``), add the initial counts to
+    the server's tables and install the visit schedule as its lease plan
+    (``mode``; the start gate holds until ``workers`` have registered).
+    Returns the schedule, ``[(epoch, pos, shard)]``."""
+    from repro_torch.ps.net import wire
+
+    nwk0, nk0 = init_stream(reader, cfg, seed,
+                            client=ps.PSClient.create(num_shards=1),
+                            device=device)
+    ctl.push_dense_prefix(wire.MAT_NWK, nwk0.to_dense().cpu().numpy())
+    ctl.push_dense_prefix(wire.MAT_NK, nk0.value.cpu().numpy())
+    del nwk0, nk0
+    loader = stream_mod.StreamingLoader(reader, seed=seed, prefetch=False)
+    sched = [(c.epoch, c.pos, s) for c, s in
+             loader.schedule(stream_mod.Cursor(0, 0), epochs)]
+    if max_shards is not None:
+        sched = sched[:max_shards]
+    ctl.plan(sched, mode=mode, slots=workers if mode != "dynamic" else 0,
+             expected_workers=workers)
+    return sched
+
+
 # ---------------------------------------------------------------------------
 # The generic visit loop.
 # ---------------------------------------------------------------------------
@@ -131,28 +159,35 @@ def _run_loop(plane, callbacks: Sequence[Callback]) -> SessionResult:
     # Spans cover the host side of each visit -- the executor step
     # (``session.step``) and the observers (``session.callbacks``); with no
     # obs session each is the no-op NULL_SPAN.
-    with _obs.span("session.setup", cat="session", kind=plane.kind):
-        plane.setup()
-    info = dict(plane.info)
-    for cb in callbacks:
-        cb.on_fit_start(info)
-    view = None
-    stopped = False
-    for visit in plane.schedule():
-        with _obs.span("session.step", cat="session"):
-            plane.step(visit)
-        view = plane.view(visit)
-        with _obs.span("session.callbacks", cat="session",
-                       n=len(callbacks)):
-            for cb in callbacks:
-                cb.on_sweep_end(view)
-        if plane.should_stop():
-            stopped = True
-            break
-    final = plane.final_view(view)
-    for cb in callbacks:
-        cb.on_fit_end(final)
-    plane.finish(stopped)
+    # A plane that owns processes or sockets (the net plane) has a
+    # ``close``, called however the run ends.
+    try:
+        with _obs.span("session.setup", cat="session", kind=plane.kind):
+            plane.setup()
+        info = dict(plane.info)
+        for cb in callbacks:
+            cb.on_fit_start(info)
+        view = None
+        stopped = False
+        for visit in plane.schedule():
+            with _obs.span("session.step", cat="session"):
+                plane.step(visit)
+            view = plane.view(visit)
+            with _obs.span("session.callbacks", cat="session",
+                           n=len(callbacks)):
+                for cb in callbacks:
+                    cb.on_sweep_end(view)
+            if plane.should_stop():
+                stopped = True
+                break
+        final = plane.final_view(view)
+        for cb in callbacks:
+            cb.on_fit_end(final)
+        plane.finish(stopped)
+    finally:
+        close = getattr(plane, "close", None)
+        if close is not None:
+            close()
     return plane.result()
 
 
@@ -418,7 +453,8 @@ class _StreamPlane:
 
     With an obs session installed, each visit's host-side parts are spans
     closed by a device synchronise: ``stream.index`` (blocked mode: the
-    host token index), ``stream.h2d``, ``stream.ndk``, the executor's
+    host token index, on the loader's prefetch thread unless
+    ``prefetch=False``), ``stream.h2d``, ``stream.ndk``, the executor's
     ``exec.sweep``, and ``stream.write_z`` (device -> host -> disk); the
     loader adds ``stream.shard_wait`` and the prefetch hit/miss counters.
     """
@@ -493,12 +529,17 @@ class _StreamPlane:
         self.info = dict(info, stream_shards=meta.num_shards,
                          tokens_per_shard=meta.tokens_per_shard,
                          num_tokens=meta.num_tokens)
+        self.valid_np = np.arange(meta.tokens_per_shard)
+        # blocked mode: the loader's prefetch thread builds each shard's
+        # token index beside its load (without prefetch, step builds it)
+        prepare = (self._index if self.build_index is not None
+                   and self.prefetch else None)
         self.loader = stream_mod.StreamingLoader(reader, seed=self.seed,
-                                                 prefetch=self.prefetch)
+                                                 prefetch=self.prefetch,
+                                                 prepare=prepare)
         self.total_visits = len(self.loader.schedule(cursor, self.epochs))
         if self.max_shards is not None:
             self.total_visits = min(self.total_visits, self.max_shards)
-        self.valid_np = np.arange(meta.tokens_per_shard)
         self.valid_dev = torch.arange(meta.tokens_per_shard, device=dev)
         self.shards_done = 0
         self.tokens_seen = 0
@@ -508,8 +549,16 @@ class _StreamPlane:
     def schedule(self):
         return self.loader.iterate(self.cursor0, self.epochs)
 
+    def _index(self, shard) -> tuple:
+        """Blocked mode's host token index of one shard: ``(idx, bval,
+        valid slots per block)``."""
+        with _obs.span("stream.index", cat="stream", shard=shard.shard_id):
+            idx, bval = self.build_index(
+                shard.w, self.valid_np < shard.n_tokens)
+            return idx, bval, bval.sum(1).tolist()
+
     def step(self, visit):
-        cur, sid, shard = visit
+        cur, sid, shard = visit[:3]
         cfg, meta, dev = self.cfg, self.reader.meta, self.device
         if shard.z is None:
             raise FileNotFoundError(
@@ -517,9 +566,10 @@ class _StreamPlane:
         n = shard.n_tokens
         index, counts = (), ()
         if self.build_index is not None:
-            with _obs.span("stream.index", cat="stream", shard=sid):
-                index = self.build_index(shard.w, self.valid_np < n)
-                counts = (index[1].sum(1).tolist(),)
+            # built on the loader thread (a Future: its error raises here)
+            idx, bval, cnt = (visit[3].result() if len(visit) > 3
+                              else self._index(shard))
+            index, counts = (idx, bval), (cnt,)
         with _obs.span("stream.h2d", cat="stream", shard=sid) as sp:
             w, d, z, doc_start, doc_len = (
                 torch.from_numpy(x).to(dev)
@@ -551,7 +601,7 @@ class _StreamPlane:
         self.final_cursor = cur.next(meta.num_shards)
 
     def view(self, visit) -> SweepView:
-        cur, sid, shard = visit
+        cur, sid = visit[:2]
         return SweepView(self, step=self.shards_done, epoch=cur.epoch,
                          pos=cur.pos, shard_id=sid,
                          is_last=(self.shards_done >= self.total_visits),
@@ -639,13 +689,251 @@ def stream_fit(reader, cfg, exec_cfg, epochs, *, seed=0,
 
 
 # ---------------------------------------------------------------------------
+# The net plane: stream (or materialised memory) source, network backend --
+# a standalone PS process + an elastic pool of worker subprocesses
+# (repro_torch.ps.net, DESIGN.md section 15).
+# ---------------------------------------------------------------------------
+
+class _NetPlane:
+    """Training through the network parameter server.
+
+    The session process never samples: it seeds the stream
+    (``init_stream``), loads the initial counts into the server (embedded
+    here, or ``job.server``), installs the visit schedule as a lease plan,
+    spawns the worker pool (each worker sweeps on ``device``) and then
+    *supervises* -- each ``step`` waits for one more lease to commit,
+    reaping dead workers (their leases re-queue) along the way.  The
+    conservation law (server counts == histogram of the on-disk z) holds
+    at every commit boundary; a 1-worker run is bitwise identical to
+    ``_StreamPlane`` (same ``stream_sweep_key``, same executor).  ``close``
+    kills the pool and stops an embedded server, whether the run finished
+    or raised.
+    """
+
+    kind = "net"
+
+    def __init__(self, source, cfg, exec_cfg, epochs, job, *, log_fn=print,
+                 device: Device = None):
+        # source: a ShardedCorpusReader (stream job) or a Corpus (memory
+        # job -- materialised into a temporary stream dir in setup)
+        self.source = source
+        self.cfg = cfg
+        self.exec_cfg = exec_cfg
+        self.epochs = int(epochs)
+        self.job = job
+        self.seed = int(job.seed)
+        self.log_fn = log_fn
+        self.device = resolve_device(device)
+        self.info: dict = {}
+        self.t0 = time.time()
+        self.visit_timeout = 600.0
+        self._ready = False
+        self._server = None
+        self._final = None
+        self.pool = None
+        self.ctl = None
+
+    # -- lifecycle ---------------------------------------------------------
+    def setup(self):
+        if self._ready:
+            return
+        self._ready = True
+        import tempfile
+
+        from repro_torch.ps.net import (NetClient, PSServer, WorkerConfig,
+                                        WorkerPool, wire)
+        self._wire = wire
+        job, cfg = self.job, self.cfg
+        if isinstance(self.source, stream_mod.ShardedCorpusReader):
+            self.reader = self.source
+            self.stream_dir = job.stream_dir
+        else:
+            # materialise the in-memory corpus as a stream the worker
+            # processes can read; shard size targets ~2 visits per worker
+            # per epoch, rounded to the executor's block granularity
+            self.stream_dir = tempfile.mkdtemp(prefix="repro-net-")
+            corp = self.source
+            target = max(2 * job.workers, 4)
+            blocks = max(1, -(-corp.w.shape[0] //
+                              (cfg.block_tokens * target)))
+            stream_mod.write_sharded(self.stream_dir, corp,
+                                     tokens_per_shard=blocks
+                                     * cfg.block_tokens)
+            self.reader = stream_mod.ShardedCorpusReader(self.stream_dir)
+        meta = self.reader.meta
+        if (self.exec_cfg.model_blocks == 0
+                and meta.tokens_per_shard % cfg.block_tokens):
+            raise ValueError(
+                f"tokens_per_shard={meta.tokens_per_shard} must be a "
+                f"multiple of block_tokens={cfg.block_tokens} for the "
+                f"snapshot executor")
+
+        self._client = ps.PSClient.create(num_shards=1)
+        if job.server:
+            self.address = job.server
+        else:
+            self._server = PSServer(cfg.V, cfg.K,
+                                    stream_dir=self.stream_dir,
+                                    log_fn=self.log_fn).start()
+            self.address = self._server.address
+        self.ctl = NetClient.connect(self.address, name="session-ctl",
+                                     role="ctl")
+        if (self.ctl.meta["vocab"] != cfg.V
+                or self.ctl.meta["topics"] != cfg.K):
+            raise ValueError(
+                f"server at {self.address} hosts a "
+                f"[{self.ctl.meta['vocab']}, {self.ctl.meta['topics']}] "
+                f"table; this job needs [{cfg.V}, {cfg.K}]")
+        mode = job.net_assign
+        self.sched = seed_net_server(self.ctl, self.reader, cfg, self.seed,
+                                     self.epochs, mode=mode,
+                                     workers=job.workers,
+                                     max_shards=job.max_shards,
+                                     device=self.device)
+        self.total_visits = len(self.sched)
+
+        base = WorkerConfig(
+            server=self.address, stream_dir=self.stream_dir,
+            num_topics=cfg.K, alpha=cfg.alpha, beta=cfg.beta,
+            mh_steps=cfg.mh_steps, block_tokens=cfg.block_tokens,
+            model_blocks=self.exec_cfg.model_blocks,
+            staleness=int(self.exec_cfg.staleness),
+            hot_words=self.exec_cfg.hot_words, seed=self.seed,
+            commit_hot_rows=self.exec_cfg.hot_words or 0,
+            device=str(self.device))
+        self.pool = WorkerPool(self.address, base, log_fn=self.log_fn)
+        self.pool.start(job.workers)
+        self._shard_tokens = [self.reader.shard(s, load_z=False).n_tokens
+                              for s in range(meta.num_shards)]
+        self.info = {"mode": "net", "workers": job.workers,
+                     "net_assign": mode, "server": self.address,
+                     "stream_shards": meta.num_shards,
+                     "tokens_per_shard": meta.tokens_per_shard,
+                     "num_tokens": meta.num_tokens,
+                     "total_visits": self.total_visits,
+                     "worker_logs": self.pool.log_dir}
+        self.shards_done = 0
+        self.tokens_seen = 0
+        self.t0 = time.time()
+
+    def schedule(self):
+        return range(self.total_visits)
+
+    def step(self, i: int):
+        """Wait for the (i+1)-th lease commit, supervising the pool."""
+        deadline = time.time() + self.visit_timeout
+        while True:
+            self.pool.reap()
+            st = self.ctl.status()
+            leases = st.get("leases") or {}
+            if leases.get("done", 0) > i:
+                break
+            if self.pool.alive() == 0:
+                raise RuntimeError(
+                    f"all workers exited with "
+                    f"{self.total_visits - leases.get('done', 0)} visits "
+                    f"unfinished: {leases}; logs in {self.pool.log_dir}")
+            if time.time() > deadline:
+                raise TimeoutError(
+                    f"no lease commit within {self.visit_timeout}s "
+                    f"(done={leases.get('done', 0)}/{self.total_visits})")
+            time.sleep(0.05)
+        self.shards_done = i + 1
+        self.tokens_seen += self._shard_tokens[self.sched[i][2]]
+
+    def view(self, i: int) -> SweepView:
+        e, p, s = self.sched[i]
+        return SweepView(self, step=self.shards_done, epoch=e, pos=p,
+                         shard_id=s,
+                         is_last=(self.shards_done >= self.total_visits),
+                         state=None, nwk=None, nk=None,
+                         tokens_seen=self.tokens_seen,
+                         cursor_next=stream_mod.Cursor(e, p).next(
+                             self.reader.meta.num_shards))
+
+    # -- observation hooks -------------------------------------------------
+    def sync(self, view):
+        pass
+
+    def perplexity(self, view) -> float:
+        """Live stream-wide eval: current server counts + persisted z.
+        Mid-training this reads *moving* state (atomic per shard); the
+        final call sees the quiesced model."""
+        nwk = self.ctl.pull_full(self._wire.MAT_NWK)
+        nk = self.ctl.pull_full(self._wire.MAT_NK)
+        return ppl.stream_training_perplexity(self.reader, nwk, nk,
+                                              self.cfg.alpha, self.cfg.beta,
+                                              device=self.device)
+
+    def history_row(self, view, p: float) -> dict:
+        el = view.elapsed_s
+        return {"epoch": view.epoch, "pos": view.pos,
+                "shard": view.shard_id, "perplexity": p, "elapsed_s": el,
+                "tokens_per_s": self.tokens_seen / el}
+
+    def log_line(self, view, p: float) -> str:
+        el = view.elapsed_s
+        return (f"[net] visit {view.step}/{self.total_visits} "
+                f"(epoch {view.epoch})  perplexity {p:9.2f}  "
+                f"({self.tokens_seen / el:,.0f} tok/s)")
+
+    def checkpoint(self, view, path: str):
+        raise NotImplementedError(
+            "checkpointing the net plane is not supported (LDAJob "
+            "validation rejects it)")
+
+    # -- loop plumbing -----------------------------------------------------
+    def should_stop(self) -> bool:
+        return False
+
+    def final_view(self, last: Optional[SweepView]) -> Optional[SweepView]:
+        if last is not None:
+            return last
+        return SweepView(self, step=0, epoch=0, pos=0, shard_id=None,
+                         is_last=True, state=None, nwk=None, nk=None,
+                         tokens_seen=0,
+                         cursor_next=stream_mod.Cursor(0, 0))
+
+    def finish(self, stopped: bool):
+        status = self.pool.join(timeout=self.visit_timeout)
+        self._final = (self.ctl.pull_full(self._wire.MAT_NWK),
+                       self.ctl.pull_full(self._wire.MAT_NK))
+        self.info["server_status"] = status
+        self.info["worker_stats"] = self.pool.stats()
+        el = time.time() - self.t0
+        if self.shards_done:
+            self.log_fn(f"[net] done: {self.shards_done} shard visits over "
+                        f"{self.job.workers} workers in {el:.1f}s "
+                        f"({self.tokens_seen / el:,.0f} tok/s)")
+
+    def close(self):
+        """Kill the pool, stop an embedded server, drop the control
+        client (idempotent; the loop calls it however the run ended)."""
+        if self.pool is not None:
+            self.pool.close()
+        if self._server is not None:
+            self._server.stop()      # embedded server dies with the run
+            self._server = None
+        if self.ctl is not None:
+            self.ctl.close()
+            self.ctl = None
+
+    def result(self) -> SessionResult:
+        nwk_np, nk_np = self._final
+        dev = self.device
+        nwk = self._client.matrix_from_dense(torch.from_numpy(nwk_np).to(dev))
+        nk = self._client.wrap_vector(torch.from_numpy(nk_np).to(dev))
+        return SessionResult(nwk, nk, [], self.info, None, self.reader)
+
+
+# ---------------------------------------------------------------------------
 # Session: LDAJob -> plane -> result.
 # ---------------------------------------------------------------------------
 
 class Session:
-    """Resolve a validated ``LDAJob`` into the memory, tiered or stream
-    plane and run it on ``device`` (the card unless the caller passes
-    another).
+    """Resolve a validated ``LDAJob`` into the memory, tiered, stream or
+    net plane and run it on ``device`` (the card unless the caller passes
+    another; the net plane's workers sweep there).
 
     ``run(callbacks)`` executes the schedule and returns a
     ``SessionResult``, with the job's eval cadence wired in as the first
@@ -676,6 +964,11 @@ class Session:
                 self.log_fn(f"[api] stream vocab {vocab} overrides "
                             f"vocab_size={job.vocab_size}")
             self.cfg = job.lda_config(vocab)
+            if job.backend == NET:
+                self._plane = _NetPlane(reader, self.cfg, job.exec_config(),
+                                        job.epochs, job, log_fn=self.log_fn,
+                                        device=dev)
+                return self._plane
             self._plane = _StreamPlane(
                 reader, self.cfg, job.exec_config(), job.epochs,
                 seed=job.seed, checkpoint_path=job.checkpoint.path or None,
@@ -691,6 +984,11 @@ class Session:
                  f"infer it from the corpus"])
         cfg = job.lda_config(vocab)
         self.cfg = cfg
+        if job.backend == NET:
+            # a sweep over the materialised corpus == one stream epoch
+            self._plane = _NetPlane(corp, cfg, job.exec_config(), job.sweeps,
+                                    job, log_fn=self.log_fn, device=dev)
+            return self._plane
         if job.storage == "tiered":
             self._plane = _TieredPlane(corp, cfg, job.exec_config(),
                                        job.sweeps, job, log_fn=self.log_fn,

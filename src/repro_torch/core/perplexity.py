@@ -80,3 +80,44 @@ def training_perplexity(w, d, valid, ndk, nwk_dense, nk,
     ll = log_likelihood(w, d, valid, theta, phi)
     n = torch.clamp_min(valid.sum(), 1)
     return torch.exp(-ll / n)
+
+
+def stream_training_perplexity(reader, nwk_dense, nk, alpha: float,
+                               beta: float, device=None) -> float:
+    """In-sample perplexity over a whole sharded stream, on ``device``
+    (the card unless the caller passes another).
+
+    ``phi`` comes from the global count tables (numpy or tensors); each
+    shard contributes its log-likelihood with ``theta`` rebuilt from the
+    shard's persisted assignments -- the same "assignments are data, counts
+    are derived" discipline the streamed trainer uses.  One pass, one shard
+    resident at a time; this is how planes without a resident
+    ``SamplerState`` (the network plane) evaluate.
+    """
+    import numpy as np
+
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    phi = phi_from_counts(torch.as_tensor(nwk_dense).to(dev, torch.float32),
+                          torch.as_tensor(nk).to(dev, torch.float32), beta)
+    k = phi.shape[1]
+    meta = reader.meta
+    pos = np.arange(meta.tokens_per_shard)
+    total_ll, total_n = 0.0, 0
+    for sid in range(meta.num_shards):
+        shard = reader.shard(sid)
+        if shard.z is None:
+            raise FileNotFoundError(f"shard {sid} has no z file")
+        valid_np = pos < shard.n_tokens
+        d = np.asarray(shard.d)
+        ndk = np.zeros((meta.doc_cap, k), np.int32)
+        np.add.at(ndk, (d, np.asarray(shard.z)), valid_np.astype(np.int32))
+        theta = theta_from_counts(torch.from_numpy(ndk).to(dev,
+                                                           torch.float32),
+                                  alpha)
+        ll = log_likelihood(*(torch.as_tensor(np.array(x), device=dev)
+                              for x in (shard.w, d, valid_np)), theta, phi)
+        total_ll += float(ll)
+        total_n += int(shard.n_tokens)
+    return float(np.exp(-total_ll / max(total_n, 1)))

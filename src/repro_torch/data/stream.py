@@ -42,8 +42,9 @@ import dataclasses
 import json
 import os
 import time as _time
-from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, List, Optional, Sequence, Tuple
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import (Any, Callable, Iterator, List, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 
@@ -421,15 +422,23 @@ class StreamingLoader:
     The prefetch is skipped when the next scheduled shard *is* the current
     one (possible at an epoch boundary) -- the consumer may still be
     rewriting its ``z`` file.
+
+    ``prepare``, when given, is a per-shard host step (``prepare(shard)``)
+    run right after the shard loads, on the prefetch thread when there is
+    one: ``iterate`` then yields a fourth item, a ``Future`` holding its
+    result, and an exception it raised surfaces where the consumer takes
+    that result.
     """
 
     def __init__(self, reader: ShardedCorpusReader, seed: int = 0,
                  memory_budget: Optional[int] = None, prefetch: bool = True,
-                 load_z: bool = True):
+                 load_z: bool = True,
+                 prepare: Optional[Callable[[StreamShard], Any]] = None):
         self.reader = reader
         self.seed = int(seed)
         self.prefetch = prefetch
         self.load_z = load_z
+        self.prepare = prepare
         self.memory_budget = memory_budget
         if memory_budget is not None:
             need = 2 * reader.shard_nbytes(with_z=load_z)
@@ -459,24 +468,38 @@ class StreamingLoader:
 
     _schedule = schedule
 
-    def _load(self, sid: int) -> StreamShard:
+    def _load(self, sid: int) -> Tuple[StreamShard, Optional[Future]]:
         # materialised (mmap=False): the double buffer owns real RAM, and
         # the consumer gets plain arrays it can hand straight to a device.
         # The span lands on the loader thread's own trace track, so disk
         # reads visibly overlap the consumer's sweeps in the timeline.
         with _obs.span("stream.load", cat="stream", shard=sid):
-            return self.reader.shard(sid, mmap=False, load_z=self.load_z)
+            shard = self.reader.shard(sid, mmap=False, load_z=self.load_z)
+        if self.prepare is None:
+            return shard, None
+        prepared: Future = Future()
+        try:
+            prepared.set_result(self.prepare(shard))
+        except Exception as e:        # handed to the consumer with the shard
+            prepared.set_exception(e)
+        return shard, prepared
+
+    def _item(self, cur: Cursor, sid: int, loaded) -> tuple:
+        shard, prepared = loaded
+        return ((cur, sid, shard) if prepared is None
+                else (cur, sid, shard, prepared))
 
     def iterate(self, start: Cursor = Cursor(), end_epoch: int = 1
-                ) -> Iterator[Tuple[Cursor, int, StreamShard]]:
+                ) -> Iterator[tuple]:
         """Yield ``(cursor, shard_id, shard)`` from ``start`` until the end
-        of epoch ``end_epoch - 1``."""
+        of epoch ``end_epoch - 1`` (with ``prepare``: ``(cursor, shard_id,
+        shard, prepared)``, ``prepared`` a ``Future``)."""
         seq = self._schedule(start, end_epoch)
         if not seq:
             return
         if not self.prefetch:
             for cur, sid in seq:
-                yield cur, sid, self._load(sid)
+                yield self._item(cur, sid, self._load(sid))
             return
         with ThreadPoolExecutor(max_workers=1) as ex:
             fut = ex.submit(self._load, seq[0][1])
@@ -490,10 +513,10 @@ class StreamingLoader:
                         reg.counter("stream.prefetch_hit" if fut.done()
                                     else "stream.prefetch_miss").inc()
                     if reg is None and tr is None:
-                        shard = fut.result()
+                        loaded = fut.result()
                     else:
                         t0 = _time.perf_counter_ns()
-                        shard = fut.result()
+                        loaded = fut.result()
                         t1 = _time.perf_counter_ns()
                         if tr is not None:
                             tr.complete("stream.shard_wait", t0, t1,
@@ -507,8 +530,8 @@ class StreamingLoader:
                     # synchronous load, always a stall
                     if reg is not None:
                         reg.counter("stream.prefetch_skip").inc()
-                    shard = self._load(sid)
+                    loaded = self._load(sid)
                 fut = None
                 if j + 1 < len(seq) and seq[j + 1][1] != sid:
                     fut = ex.submit(self._load, seq[j + 1][1])
-                yield cur, sid, shard
+                yield self._item(cur, sid, loaded)

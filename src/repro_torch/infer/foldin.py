@@ -26,6 +26,7 @@ import torch
 
 from repro_torch import rng as jrng
 from repro_torch.core import lightlda as lda
+from repro_torch.kernels import ops
 from repro_torch.obs import ObsConfig
 
 
@@ -65,7 +66,8 @@ def pack_docs(docs: Sequence[np.ndarray], length: int
 
 def _doc_randoms(keys: torch.Tensor, z: torch.Tensor, nd: torch.Tensor,
                  cfg: lda.LDAConfig) -> Tuple[torch.Tensor, ...]:
-    """Pre-draw one sweep's MH randomness for every document row.
+    """Pre-draw one sweep's MH randomness for every document row (the
+    plain version of the ``mh_draws_foldin`` kernel, ``kernels.ref``).
 
     ``keys`` [B, 2], ``z`` [B, L], ``nd`` [B] -> four [B, mh_steps, L]
     arrays.  The doc proposal q_d(k) ∝ n_dk+α is drawn O(1) by picking a
@@ -104,7 +106,8 @@ def fold_in_batch(model: lda.FrozenModel, w: torch.Tensor,
     ``w``/``valid`` are the [B, L] packed layout of ``pack_docs`` and
     ``doc_keys`` a [B, 2] batch of keys (one per document), all on the
     model's device.  One sweep resamples every token once against the
-    sweep-start state: on a card, one launch of the ``mh_sample`` kernel.
+    sweep-start state: on a card, one launch of the ``mh_draws_foldin``
+    kernel (the sweep's randoms) and one of the ``mh_sample`` kernel.
     """
     b, l = w.shape
     dev = w.device
@@ -116,11 +119,8 @@ def fold_in_batch(model: lda.FrozenModel, w: torch.Tensor,
     z = jrng.randint(jrng.fold_in(doc_keys, 0x1d4), (l,), 0, cfg.K)
     ndk_acc = torch.zeros((b, cfg.K), dtype=torch.int32, device=dev)
     for s in range(fcfg.num_sweeps):
-        sweep_keys = jrng.fold_in(doc_keys, s)
-        # [B, S, L] -> [S, B*L] flat token order
-        rng = lda.MHRandoms(*(
-            r.transpose(0, 1).reshape(cfg.mh_steps, b * l).contiguous()
-            for r in _doc_randoms(sweep_keys, z, nd, cfg)))
+        # _doc_randoms(fold_in(doc_keys, s), z, nd) as [S, B*L]
+        rng = ops.mh_draws_foldin(doc_keys, s, z, nd, cfg)
         ndk = _ndk_from_z(z, valid, cfg.K)
         z_new = lda.sample_tokens_frozen(model, rng, z.reshape(b * l),
                                          w_flat, d_flat, ndk, cfg)

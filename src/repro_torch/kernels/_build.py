@@ -12,7 +12,8 @@ anew.  ``--fmad=false`` is part of the kernels' contract: they must equal
 their plain versions bitwise, and a fused multiply-add rounds once where the
 plain version rounds twice.
 
-A source may hold several kernels (``delta_push.cu`` holds two); each has
+A source may hold several kernels (``delta_push.cu`` and ``mh_draws.cu``
+hold two each); each has
 its own C entry point ``<kernel>_launch`` and the source one
 ``<source>_error_string``.  Each entry point launches on the stream it is
 given (PyTorch's current stream) and returns ``cudaGetLastError()``;
@@ -31,6 +32,7 @@ from pathlib import Path
 from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]

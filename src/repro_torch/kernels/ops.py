@@ -18,12 +18,15 @@ import torch
 from repro_torch.core.alias import AliasTable
 from repro_torch.kernels import alias_build as _ab
 from repro_torch.kernels import delta_push as _dp
+from repro_torch.kernels import mh_draws as _md
 from repro_torch.kernels import mh_sample as _mh
 from repro_torch.kernels import ref
 
 KERNELS = {"mh_sample": _mh.KERNEL, "alias_build": _ab.KERNEL,
            "delta_push": _dp.PUSH_KERNEL,
-           "delta_apply_coo": _dp.COO_KERNEL}
+           "delta_apply_coo": _dp.COO_KERNEL,
+           "mh_draws_train": _md.TRAIN_KERNEL,
+           "mh_draws_foldin": _md.FOLDIN_KERNEL}
 
 
 def _route(t: torch.Tensor, name: str) -> bool:
@@ -41,6 +44,31 @@ def mh_sample(rng, z0, w, d, nwk, ndk, nk, aprob, aalias, cfg,
     ``kernels/mh_sample.py`` for the argument contract)."""
     fn = _mh.mh_sample_cuda if _route(z0, "mh_sample") else ref.mh_sample_ref
     return fn(rng, z0, w, d, nwk, ndk, nk, aprob, aalias, cfg, frozen=frozen)
+
+
+def mh_draws_train(key, d_b, z_snapshot, doc_start, doc_len, batch: int,
+                   cfg):
+    """The MH chain's randoms for one training group of ``batch`` slots
+    from one key (``[2]``, a row of the sweep's key batch): what
+    ``lightlda.draw_mh_randoms(key, make_doc_draw(d_b, z_snapshot,
+    doc_start, doc_len, cfg), batch, cfg)`` draws, one launch on the
+    card."""
+    if _route(d_b, "mh_draws_train"):
+        return _md.mh_draws_train_cuda(key.contiguous(), _i32(d_b),
+                                       _i32(z_snapshot), _i32(doc_start),
+                                       _i32(doc_len), batch, cfg)
+    return ref.mh_draws_train_ref(key, d_b, z_snapshot, doc_start, doc_len,
+                                  batch, cfg)
+
+
+def mh_draws_foldin(doc_keys, sweep: int, z, nd, cfg):
+    """One fold-in sweep's randoms for a [B, L] batch, as four
+    [mh_steps, B*L] arrays: ``_doc_randoms(fold_in(doc_keys, sweep), z,
+    nd, cfg)`` in the chain's layout, one launch on the card."""
+    if _route(z, "mh_draws_foldin"):
+        return _md.mh_draws_foldin_cuda(doc_keys.contiguous(), sweep,
+                                        _i32(z), _i32(nd), cfg)
+    return ref.mh_draws_foldin_ref(doc_keys, sweep, z, nd, cfg)
 
 
 def alias_build(weights: torch.Tensor) -> AliasTable:

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import rng as jrng
 from repro_torch.core import alias as alias_mod
 from repro_torch.core import lightlda as lda
 
@@ -18,6 +19,28 @@ def mh_sample_ref(rng: "lda.MHRandoms", z0, w, d, nwk, ndk, nk, aprob,
     wl, dl = w.long(), d.long()
     return lda.mh_chain(rng, z0, nwk[wl], ndk[dl], nk, aprob[wl], aalias[wl],
                         cfg, frozen=frozen)
+
+
+def mh_draws_train_ref(key: torch.Tensor, d_b, z_snapshot, doc_start,
+                       doc_len, batch: int,
+                       cfg: "lda.LDAConfig") -> "lda.MHRandoms":
+    """Plain version of ``kernels/mh_draws.py::mh_draws_train_cuda``: the
+    eager composition ``draw_mh_randoms(key, make_doc_draw(...))``."""
+    doc_draw = lda.make_doc_draw(d_b, z_snapshot, doc_start, doc_len, cfg)
+    return lda.draw_mh_randoms(key, doc_draw, batch, cfg)
+
+
+def mh_draws_foldin_ref(doc_keys: torch.Tensor, sweep: int, z, nd,
+                        cfg: "lda.LDAConfig") -> "lda.MHRandoms":
+    """Plain version of ``kernels/mh_draws.py::mh_draws_foldin_cuda``:
+    ``infer.foldin._doc_randoms`` at ``fold_in(doc_keys, sweep)``, its
+    [B, S, L] arrays laid out as [S, B*L]."""
+    from repro_torch.infer.foldin import _doc_randoms
+
+    b, l = z.shape
+    return lda.MHRandoms(*(
+        r.transpose(0, 1).reshape(cfg.mh_steps, b * l).contiguous()
+        for r in _doc_randoms(jrng.fold_in(doc_keys, sweep), z, nd, cfg)))
 
 
 def alias_build_ref(weights: torch.Tensor) -> "alias_mod.AliasTable":

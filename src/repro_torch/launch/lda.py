@@ -20,9 +20,18 @@ bitwise from its checkpoint:
   PYTHONPATH=src python -m repro_torch.launch.lda --stream-dir /data/s \\
       --epochs 3 --resume
 
-``--devices`` (SPMD) and ``--backend net`` / ``--server`` (the network
-parameter server) translate as in the JAX package's launcher, and the
-session refuses them with the ROADMAP item that ports them.
+Multi-process (the network parameter server, DESIGN.md section 15):
+``--backend net`` spawns an elastic localhost worker pool, each worker
+sweeping on ``--device``, against an embedded server, or against an
+already-running ``python -m repro_torch.launch.ps_server`` (or the JAX
+package's) when ``--server host:port`` is given:
+  PYTHONPATH=src python -m repro_torch.launch.ps_server \
+      --stream-dir /data/s --topics 100 --ready-file /tmp/ps.addr
+  PYTHONPATH=src python -m repro_torch.launch.lda --backend net \
+      --workers 2 --server $(cat /tmp/ps.addr) --stream-dir /data/s -k 100
+
+``--devices`` (SPMD) translates as in the JAX package's launcher, and the
+session refuses it with the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -135,10 +144,12 @@ def main(argv=None) -> int:
     ap.add_argument("--backend", default="",
                     choices=["", api.IN_PROCESS, api.SPMD, api.NET],
                     help="parameter-server backend (default: inferred; "
-                         "only in_process is ported)")
+                         "'net' trains through worker subprocesses against "
+                         "a network PS, DESIGN.md sec. 15; spmd is not "
+                         "ported yet)")
     ap.add_argument("--server", default="",
                     help="net backend: address (host:port) of a running "
-                         "parameter server (not ported yet)")
+                         "launch.ps_server process (default: embed one)")
     ap.add_argument("--workers", type=int, default=2,
                     help="net backend: size of the localhost worker pool")
     ap.add_argument("--net-assign", default="dynamic",
@@ -199,7 +210,10 @@ def main(argv=None) -> int:
     if args.trace_dir:
         print(f"[lda] trace written to {job.obs.trace_path} (load in "
               f"Perfetto)")
-    if args.stream_dir:
+    if args.backend == api.NET:
+        print(f"[lda] net training done: {result.info.get('workers')} "
+              f"workers against {result.info.get('server')}")
+    elif args.stream_dir:
         print(f"[lda] stream training done ({result.info['mode']} "
               f"executor); checkpoint at {job.checkpoint.path}")
     elif args.checkpoint:

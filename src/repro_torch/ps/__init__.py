@@ -10,10 +10,11 @@ The one gateway to the distributed count tables:
 
 Routes (``DenseRoute`` / ``CooRoute`` / ``HybridRoute``) make the paper's
 section-3.3 hybrid push a declarative policy; backends
-(``InProcessBackend`` / ``TieredBackend``) swap the collectives -- and, for
-the tiered backend, the storage substrate itself (a device hot-row cache
-over a host memmap cold tier, ``ps.tiered``) -- without touching call
-sites.  ``ps.autotune`` measures routes and staleness bounds.
+(``InProcessBackend`` / ``TieredBackend`` / ``NetBackend``) swap the
+collectives -- and, for the tiered backend, the storage substrate itself (a
+device hot-row cache over a host memmap cold tier, ``ps.tiered``); for the
+network backend a standalone server process (``ps.net``) -- without
+touching call sites.  ``ps.autotune`` measures routes and staleness bounds.
 ``core/pserver.py`` is the storage layer underneath.
 """
 from repro_torch.ps.backend import Backend, InProcessBackend
@@ -29,6 +30,8 @@ from repro_torch.ps.tiered import (TieredBackend, TieredMatrix,
                                    TieredMatrixHandle, TierStats,
                                    tiered_matrix_from_dense)
 from repro_torch.ps import autotune
+from repro_torch.ps import net
+from repro_torch.ps.net import NetBackend, NetClient, NetMatrixHandle
 
 __all__ = [
     "Backend", "InProcessBackend", "TieredBackend",
@@ -38,6 +41,6 @@ __all__ = [
     "tiered_matrix_from_dense",
     "CooRoute", "DenseRoute", "HybridRoute", "PushRoute", "Reassign",
     "RouteDelta", "partition_by_mask", "partition_reassign", "route_for",
-    "autotune",
+    "autotune", "net", "NetBackend", "NetClient", "NetMatrixHandle",
     "BACKEND_NAMES", "BackendConfigError",
 ]

@@ -17,8 +17,8 @@ client surface:
 
 Writes are functional -- a push returns a new handle over a new tensor --
 except the ``store_block_`` of an executor that owns a private copy of the
-table.  The in-process and tiered backends are ported; the others are
-named so that a job asking for one gets an error that says where it is
+table.  The in-process, tiered and network backends are ported; SPMD is
+named so that a job asking for it gets an error that says where it is
 planned.
 """
 from __future__ import annotations
@@ -34,12 +34,10 @@ from repro_torch.device import Device, resolve_device
 from repro_torch.ps.backend import Backend, InProcessBackend
 from repro_torch.ps.routes import DenseRoute, PushRoute, Reassign, RouteDelta
 
-#: The backend names of the JAX package; ``in_process`` and ``tiered`` are
-#: ported.
+#: The backend names of the JAX package; all but ``spmd`` are ported.
 BACKEND_NAMES = ("in_process", "spmd", "tiered", "net")
-_PORTED = ("in_process", "tiered")
-_LATER = {"spmd": "ROADMAP A, 'SPMD'",
-          "net": "ROADMAP A, 'Network parameter server'"}
+_PORTED = ("in_process", "tiered", "net")
+_LATER = {"spmd": "ROADMAP A, 'SPMD'"}
 
 
 class BackendConfigError(ValueError):
@@ -329,11 +327,15 @@ class PSClient:
 
     @classmethod
     def create(cls, num_shards: int = 1, *,
-               backend: Union[str, Backend, None] = None) -> "PSClient":
+               backend: Union[str, Backend, None] = None,
+               server: Optional[str] = None) -> "PSClient":
         """Build a client.  ``backend`` is a name (``"in_process"``,
-        ``"tiered"``) or a ``Backend`` instance; None means in-process.
-        The JAX package's other backends raise ``BackendConfigError``
-        naming the ROADMAP item that ports them."""
+        ``"tiered"``, ``"net"``) or a ``Backend`` instance; None means
+        in-process.  ``backend="net"`` with ``server="host:port"`` connects
+        a ``NetClient`` to a running parameter server (either package's
+        ``launch.ps_server``); without ``server`` the net backend is
+        detached.  ``"spmd"`` raises ``BackendConfigError`` naming the
+        ROADMAP item that ports it."""
         if isinstance(backend, str):
             if backend in _LATER:
                 raise BackendConfigError(
@@ -342,6 +344,10 @@ class PSClient:
             if backend == "tiered":
                 from repro_torch.ps.tiered import TieredBackend
                 backend = TieredBackend()
+            elif backend == "net":
+                from repro_torch.ps.net import NetBackend, NetClient
+                backend = NetBackend(
+                    net=NetClient.connect(server) if server else None)
             elif backend == "in_process":
                 backend = InProcessBackend()
             else:

@@ -20,7 +20,8 @@ group boundary.
 
 **Eager groups.**  The JAX package scans over groups under ``jit``; here a
 Python loop runs them, each group a handful of launches on the card: the
-threefry draws, the ``mh_sample`` kernel in training mode, and the merge;
+``mh_draws_train`` kernel (the group's threefry draws), the ``mh_sample``
+kernel in training mode, and the merge;
 the alias tables come from the ``alias_build`` kernel, once per snapshot
 sweep or once per pipelined group.  A sweep never writes into the state it
 was given: the executor works on its own copies of ``z`` and of the count
@@ -311,9 +312,8 @@ def pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
         z0 = z_flat[idx]
         local = torch.clamp(layout.to_physical(wb) - grp * grp_rows, 0,
                             grp_rows - 1).to(torch.int32)
-        doc_draw = lda.make_doc_draw(db, z_flat, state.doc_start,
-                                     state.doc_len, cfg)
-        rng = lda.draw_mh_randoms(keys[grp], doc_draw, gcap, cfg)
+        rng = ops.mh_draws_train(keys[grp], db, z_flat, state.doc_start,
+                                 state.doc_len, gcap, cfg)
         z_new = ops.mh_sample(rng, z0, local, db, rows.to(torch.float32),
                               ndk, nk.to(torch.float32), table.prob,
                               table.alias, cfg, frozen=False)
@@ -401,9 +401,8 @@ def snapshot_sweep(state: "lda.SamplerState", key: torch.Tensor,
         w_b, d_b, valid_b = state.w[lo:hi], state.d[lo:hi], state.valid[lo:hi]
         z0 = z_flat[lo:hi].clone()
 
-        doc_draw = lda.make_doc_draw(d_b, z_flat, state.doc_start,
-                                     state.doc_len, cfg)
-        rng = lda.draw_mh_randoms(keys[grp], doc_draw, gtok, cfg)
+        rng = ops.mh_draws_train(keys[grp], d_b, z_flat, state.doc_start,
+                                 state.doc_len, gtok, cfg)
         z_new = ops.mh_sample(rng, z0, w_b, d_b, nwk_table, ndk,
                               nk.to(torch.float32), table.prob, table.alias,
                               cfg, frozen=False)
@@ -639,7 +638,8 @@ def make_tiered_executor(state: "lda.SamplerState", cfg: "lda.LDAConfig",
     write-back racing it.
 
     Per block, the JAX package's step: ``alias_build`` on the block's
-    weights, the threefry draws, ``mh_sample`` (training mode), and the
+    weights, the threefry draws (``mh_draws_train``), ``mh_sample``
+    (training mode), and the
     merge -- one ``delta_push`` launch adding the block's changes into its
     pulled rows, ``n_dk`` and ``n_k`` -- then ``z`` at the valid slots
     alone and the rows' changed-counts by ``index_add_``.  One
@@ -739,9 +739,8 @@ def make_tiered_executor(state: "lda.SamplerState", cfg: "lda.LDAConfig",
             i = blk_b.idx.long()
             wb, db, z0 = st.w[i], st.d[i], z[i]
             local = torch.clamp(wb - start, 0, rpb - 1).to(torch.int32)
-            doc_draw = lda.make_doc_draw(db, z, st.doc_start, st.doc_len,
-                                         cfg)
-            rng = lda.draw_mh_randoms(keys[b], doc_draw, i.shape[0], cfg)
+            rng = ops.mh_draws_train(keys[b], db, z, st.doc_start,
+                                     st.doc_len, i.shape[0], cfg)
             z_new = ops.mh_sample(rng, z0, local, db, rows.to(torch.float32),
                                   ndk, nk.to(torch.float32), table.prob,
                                   table.alias, cfg, frozen=False)

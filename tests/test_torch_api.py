@@ -1,7 +1,8 @@
 """The port's estimator API against the JAX package's: a whole
 ``APSLDA(job).fit()`` on the CPU gives the JAX package's count tables
 bitwise and its perplexities within rtol 1e-5; jobs validate alike;
-``Session`` refuses the planes the port does not have yet; callbacks,
+``Session`` refuses the plane the port does not have yet (SPMD) and runs
+the network PS; callbacks,
 tracing and publishing observe without perturbing."""
 import dataclasses
 import json
@@ -102,18 +103,22 @@ def test_job_validation_matches_jax(corpora, bad):
 
 @pytest.mark.parametrize("plane,item", [
     (dict(backend="spmd"), "SPMD"),
-    (dict(backend="net"), "Network parameter server"),
+    (dict(backend="net", workers=1), "Network parameter server"),
     (dict(storage="tiered", model_blocks=4), "Tiered storage"),
     (dict(route="auto"), "Autotuner"),
     (dict(staleness="auto"), "Autotuner"),
 ])
 def test_session_refuses_unported_planes(corpora, tmp_path, plane, item):
-    """``Session`` refuses the planes not ported yet (SPMD, the network
-    PS), naming their ROADMAP item.  Tiered storage and the autotuner are
+    """``Session`` refuses the plane not ported yet (SPMD), naming its
+    ROADMAP item.  Tiered storage, the autotuner and the network PS are
     ported: their planes run on the CPU and give the JAX package's counts
-    bitwise (for "auto", the JAX fit run with the plan the port chose)."""
+    bitwise (for "auto", the JAX fit run with the plan the port chose; for
+    the net plane, one worker, whose lease order is deterministic, and
+    the final perplexity, read once every commit has landed).  A net job
+    with two workers conserves counts: the server's tables are the
+    histogram of the persisted assignments."""
     job = tapi.LDAJob(corpus=corpora[1], **plane)
-    if item in ("SPMD", "Network parameter server"):
+    if item == "SPMD":
         with pytest.raises(tapi.JobValidationError, match=item):
             tapi.Session(job, device="cpu")
         with pytest.raises(tapi.JobValidationError, match="not ported yet"):
@@ -139,9 +144,25 @@ def test_session_refuses_unported_planes(corpora, tmp_path, plane, item):
     jm = japi.APSLDA(japi.LDAJob(corpus=corpora[0], **jkw), **QUIET).fit()
     np.testing.assert_array_equal(tm.nwk, np.asarray(jm.nwk))
     np.testing.assert_array_equal(tm.nk, np.asarray(jm.nk))
-    np.testing.assert_allclose([r["perplexity"] for r in tm.history],
-                               [r["perplexity"] for r in jm.history],
-                               rtol=1e-5)
+    tp = [r["perplexity"] for r in tm.history]
+    jp = [r["perplexity"] for r in jm.history]
+    if item != "Network parameter server":
+        np.testing.assert_allclose(tp, jp, rtol=1e-5)
+        return
+    # net: rows before the last read counts that later commits may move
+    assert len(tp) == len(jp) == tm.info["total_visits"]
+    np.testing.assert_allclose(tp[-1], jp[-1], rtol=1e-5)
+    assert tm.info["worker_stats"][0]["device"] == "cpu"
+    est = tapi.APSLDA(dataclasses.replace(job, workers=2), device="cpu",
+                      **QUIET)
+    m2 = est.fit()
+    from repro_torch.data import stream as tstream
+    rw, rk = tstream.rebuild_counts_from_stream(est.result_.reader, 8)
+    np.testing.assert_array_equal(m2.nwk, rw)
+    np.testing.assert_array_equal(m2.nk, rk)
+    assert int(m2.nk.sum()) == corpora[1].num_tokens
+    assert sum(s["visits"] for s in m2.info["worker_stats"]) \
+        == m2.info["total_visits"]
 
 
 def test_session_refuses_a_streamed_source(tmp_path):

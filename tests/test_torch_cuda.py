@@ -117,6 +117,59 @@ def test_serving_on_card_matches_cpu(card):
     np.testing.assert_array_equal(theta, np.stack([r.theta for r in cpu]))
 
 
+def _draw_group(k, batch, seed):
+    """A training group's draw inputs (numpy): documents of lengths 0, 1
+    and more, document 0 empty, padded slots naming it."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, 60, 400).astype(np.int32)
+    lens[::7], lens[1::7] = 0, 1
+    n = int(lens.sum())
+    npad = -(-n // batch) * batch + batch
+    d = np.zeros(npad, np.int32)
+    d[:n] = np.repeat(np.arange(lens.size, dtype=np.int32), lens)
+    start = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int32)
+    z = rng.integers(0, k, npad).astype(np.int32)
+    lo = max((n // batch) * batch - batch // 2, 0)
+    return d[lo:lo + batch], z, start, lens
+
+
+@pytest.mark.parametrize("k", [7, 130, 1000])
+@pytest.mark.parametrize("batch,steps", [(100, 2), (8192, 2), (8192, 4)])
+def test_mh_draws_train_kernel_matches_plain_bitwise(card, k, batch, steps):
+    """One launch writes all four arrays, bitwise the plain composition."""
+    cfg = tlda.LDAConfig(num_topics=k, vocab_size=50, mh_steps=steps)
+    args = [torch.from_numpy(x).to(card)
+            for x in _draw_group(k, batch, seed=k + batch)]
+    key = torch.tensor([0x9E3779B9, k], dtype=torch.int64, device=card)
+    before = ops.launch_counts()["mh_draws_train"]
+    got = ops.mh_draws_train(key, *args, batch, cfg)
+    assert ops.launch_counts()["mh_draws_train"] == before + 1
+    want = ref.mh_draws_train_ref(key, *args, batch, cfg)
+    for name, g, w in zip(got._fields, got, want):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("k,sweep", [(7, 0), (1000, 0), (1000, 29)])
+def test_mh_draws_foldin_kernel_matches_plain_bitwise(card, k, sweep):
+    """Serving's [32 x 1024] batch, empty and full rows included."""
+    from repro_torch import rng as trng
+    rng = np.random.default_rng(k)
+    b, l = 32, 1024
+    nd = rng.integers(0, l + 1, b).astype(np.int32)
+    nd[:3] = (0, 1, l)
+    z = torch.from_numpy(rng.integers(0, k, (b, l)).astype(np.int32)
+                         ).to(card)
+    nd = torch.from_numpy(nd).to(card)
+    keys = trng.keys_from_seeds(range(b), card)
+    cfg = tlda.LDAConfig(num_topics=k, vocab_size=50)
+    before = ops.launch_counts()["mh_draws_foldin"]
+    got = ops.mh_draws_foldin(keys, sweep, z, nd, cfg)
+    assert ops.launch_counts()["mh_draws_foldin"] == before + 1
+    want = ref.mh_draws_foldin_ref(keys, sweep, z, nd, cfg)
+    for name, g, w in zip(got._fields, got, want):
+        assert torch.equal(g, w), name
+
+
 def _delta_batch(card, rows, k, t, seed, frac):
     """Zipf-skewed rows (thousands of tokens on row 0), some past the
     matrix, ``changed`` at the given fraction."""

@@ -1,7 +1,8 @@
 """The port's launchers against the JAX package's: ``repro_torch.launch.lda``
 on the CPU writes the JAX launcher's perplexities (within rtol 1e-5) in
-memory and stream modes, checkpoint and resume included; the planes the
-port does not have exit naming their ROADMAP item; the serving launcher's
+memory and stream modes, checkpoint and resume included; SPMD, which the
+port does not have, exits naming its ROADMAP item, and ``--backend net``
+runs to the end; the serving launcher's
 selftest passes; both refuse to start without a card unless given
 ``--device cpu``."""
 import json
@@ -111,22 +112,77 @@ def test_run_single_matches_jax(kw):
                                [r["perplexity"] for r in jhist], rtol=1e-5)
 
 
+NET = ["--backend", "net", "--eval-every", "1"]
+
+
 @pytest.mark.parametrize("argv,item", [
     (["--devices", "4"], "ROADMAP A, 'SPMD'"),
-    (["--backend", "net"], "ROADMAP A, 'Network parameter server'"),
-    (["--backend", "net", "--server", "localhost:1", "--stream-dir",
-      "{dir}", "--stream-shard-tokens", "1024"],
+    (NET + ["--workers", "1", "--sweeps", "2"],
+     "ROADMAP A, 'Network parameter server'"),
+    (NET + ["--workers", "2", "--server", "{server}", "--stream-dir",
+            "{dir}", "--stream-shard-tokens", "1024", "--epochs", "2"],
      "ROADMAP A, 'Network parameter server'"),
 ])
-def test_unported_planes_exit_naming_their_item(tmp_path, capsys, argv,
-                                                item):
-    argv = [a.replace("{dir}", str(tmp_path / "s")) for a in argv]
-    with pytest.raises(SystemExit) as exc:
-        tlaunch.main(SMALL + argv + ["--device", "cpu", "--out",
-                                     str(tmp_path)])
-    assert exc.value.code != 0
-    assert item in capsys.readouterr().err
-    assert not (tmp_path / "history.json").exists()
+def test_unported_planes_exit_naming_their_item(monkeypatch, tmp_path,
+                                                capsys, argv, item):
+    """SPMD is not ported: the launcher exits naming its ROADMAP item.  The
+    network PS (``item``'s other entry) is ported: ``--backend net`` runs
+    to the end -- with one worker its final perplexity is the JAX
+    launcher's on the same argv -- and ``--server`` trains two workers
+    against a ``launch.ps_server`` process, conserving counts there."""
+    if "--backend" not in argv:
+        with pytest.raises(SystemExit) as exc:
+            tlaunch.main(SMALL + argv + ["--device", "cpu", "--out",
+                                         str(tmp_path)])
+        assert exc.value.code != 0
+        assert item in capsys.readouterr().err
+        assert not (tmp_path / "history.json").exists()
+        return
+    if "--server" not in argv:
+        t, j = _both(monkeypatch, tmp_path, SMALL + argv, "net")
+        assert len(t) == len(j) >= 4
+        np.testing.assert_allclose(t[-1], j[-1], rtol=1e-5)
+        out = capsys.readouterr()
+        assert "net training done: 1 workers" in out.out
+        assert item not in out.err
+        return
+    import subprocess
+
+    from repro_torch.data import corpus as tcorpus
+    from repro_torch.data import stream as tstream
+    from repro_torch.launch.net_smoke import wait_for_address
+    from repro_torch.ps.net import NetClient, wire
+    sdir, ready = str(tmp_path / "s"), str(tmp_path / "ps.addr")
+    tstream.write_sharded(sdir, tcorpus.synthetic_corpus(
+        100, 300, true_topics=6, mean_doc_len=40, seed=3), 1024)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(os.path.dirname(__file__), "..", "src"),
+         os.environ.get("PYTHONPATH", "")]))
+    srv = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.ps_server",
+         "--stream-dir", sdir, "--topics", "8", "--ready-file", ready,
+         "--quiet"], env=env, stdin=subprocess.DEVNULL,
+        stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)
+    try:
+        address = wait_for_address(srv, ready)
+        argv = [a.replace("{server}", address).replace("{dir}", sdir)
+                for a in argv]
+        assert tlaunch.main(SMALL + argv + ["--device", "cpu", "--out",
+                                            str(tmp_path)]) == 0
+        assert len(_ppl(str(tmp_path))) == 10
+        ctl = NetClient.connect(address, name="test", role="ctl")
+        rw, rk = tstream.rebuild_counts_from_stream(
+            tstream.ShardedCorpusReader(sdir), 8)
+        np.testing.assert_array_equal(ctl.pull_full(wire.MAT_NWK), rw)
+        np.testing.assert_array_equal(ctl.pull_full(wire.MAT_NK), rk)
+        assert ctl.status()["leases"]["done"] == 10
+        ctl.shutdown()
+        ctl.close()
+        assert srv.wait(timeout=30) == 0
+    finally:
+        if srv.poll() is None:
+            srv.kill()
+            srv.wait(timeout=30)
 
 
 def test_topic_serve_selftest_on_the_cpu(capsys):

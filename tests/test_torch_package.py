@@ -86,7 +86,8 @@ TRAINER_CALL = re.compile(
 def test_launchers_orchestrate_only_through_api():
     offenders = []
     files = sorted((PKG / "launch").rglob("*.py"))
-    assert len(files) == 3
+    assert len(files) == 5      # __init__, lda, topic_serve, ps_server,
+    #                             net_smoke
     for path in files:
         for lineno, line in enumerate(path.read_text().splitlines(), 1):
             if TRAINER_CALL.search(line):
@@ -130,7 +131,18 @@ def test_ops_dispatch_on_device():
                        docs=meta[0].int(),
                        ndk_out=torch.empty((2, 3), device="meta"),
                        nk_out=torch.empty(3, device="meta"))
-    names = {"mh_sample", "alias_build", "delta_push", "delta_apply_coo"}
+    from repro_torch.core.lightlda import LDAConfig
+    cfg = LDAConfig(num_topics=3, vocab_size=5)
+    key = torch.zeros(2, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.mh_draws_train(key, meta[0].int(), meta[0].int(), meta[0].int(),
+                           meta[0].int(), 3, cfg)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.mh_draws_foldin(torch.zeros((4, 2), dtype=torch.int64,
+                                        device="meta"), 0, meta.int(),
+                            meta[:, 0].int(), cfg)
+    names = {"mh_sample", "alias_build", "delta_push", "delta_apply_coo",
+             "mh_draws_train", "mh_draws_foldin"}
     assert set(ops.launch_counts()) == names
     ops.KERNELS["mh_sample"].launches = 7
     ops.KERNELS["delta_apply_coo"].launches = 2

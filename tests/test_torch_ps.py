@@ -260,21 +260,22 @@ def test_handles_pull_copies_and_store_block_variants():
 
 
 def test_client_names_unported_backends():
-    """SPMD and the network PS are refused with their ROADMAP item; the
-    tiered backend is ported: its client has the JAX package's backend
-    (all four moments the identity)."""
+    """SPMD is refused with its ROADMAP item; the tiered and network
+    backends are ported: each client has the JAX package's backend (all
+    four moments the identity), the net one detached without ``server``."""
     assert isinstance(tps.PSClient.create().backend, tps.InProcessBackend)
     assert isinstance(tps.InProcessBackend(), tps.Backend)
-    for name in ("spmd", "net"):
-        with pytest.raises(tps.BackendConfigError, match="ROADMAP"):
-            tps.PSClient.create(backend=name)
-    tb = tps.PSClient.create(backend="tiered").backend
-    jb = jps.PSClient.create(backend="tiered").backend
-    assert type(tb).__name__ == type(jb).__name__ == "TieredBackend"
-    assert isinstance(tb, tps.Backend)
-    x = torch.arange(6, dtype=torch.int32)
-    assert tb.reduce(x) is x and tb.gather_concat(x) is x
-    assert (tb.axis_name, tb.model_axis) == (jb.axis_name, jb.model_axis)
+    with pytest.raises(tps.BackendConfigError, match="ROADMAP A, 'SPMD'"):
+        tps.PSClient.create(backend="spmd")
+    for name in ("tiered", "net"):
+        tb = tps.PSClient.create(backend=name).backend
+        jb = jps.PSClient.create(backend=name).backend
+        assert type(tb).__name__ == type(jb).__name__
+        assert isinstance(tb, tps.Backend)
+        x = torch.arange(6, dtype=torch.int32)
+        assert tb.reduce(x) is x and tb.gather_concat(x) is x
+        assert (tb.axis_name, tb.model_axis) == (jb.axis_name, jb.model_axis)
+    assert isinstance(tb, tps.NetBackend) and tb.net is None
     with pytest.raises(tps.BackendConfigError, match="unknown"):
         tps.PSClient.create(backend="carrier-pigeon")
     assert tps.BACKEND_NAMES == jps.BACKEND_NAMES

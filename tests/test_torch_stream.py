@@ -305,6 +305,46 @@ def test_single_shard_blocked_equals_sweep_blocked_ref(tiny_corpus,
     np.testing.assert_array_equal(state.z.numpy(), reader.read_z(0))
 
 
+@pytest.mark.parametrize("prefetch", [True, False])
+def test_blocked_index_built_beside_the_shard(stream_dir, prefetch):
+    """With prefetch, the loader's thread builds a blocked visit's token
+    index beside the shard (a Future after it) and ``step`` takes it;
+    without, ``step`` builds it.  The index equals ``build_index``'s, and a
+    pinned cap that overflows raises in ``step``, not in the loader."""
+    path, _, corp = stream_dir
+    _, tcfg = _cfgs(corp)
+
+    def plane():
+        p = tsession._StreamPlane(path, tcfg,
+                                  texec.ExecConfig(**MODES["blocked"]), 1,
+                                  seed=3, prefetch=prefetch, device="cpu",
+                                  **QUIET)
+        p.setup()
+        return p
+
+    p = plane()
+    visits = p.schedule()
+    visit = next(visits)
+    assert len(visit) == (4 if prefetch else 3)
+    if prefetch:
+        shard = visit[2]
+        want = p.build_index(shard.w, p.valid_np < shard.n_tokens)
+        idx, bval, counts = visit[3].result()
+        assert torch.equal(idx, want[0]) and torch.equal(bval, want[1])
+        assert counts == want[1].sum(1).tolist()
+    p.step(visit)
+    visits.close()
+
+    p = plane()
+    full = p.build_index
+    p.build_index = lambda w, valid: full(w, valid, cap=8)
+    visits = p.schedule()
+    visit = next(visits)
+    with pytest.raises(ValueError, match="overflows"):
+        p.step(visit)
+    visits.close()
+
+
 def test_build_index_pinned_cap_and_overflow(stream_dir):
     path, jreader, corp = stream_dir
     jcfg, tcfg = _cfgs(corp)
