@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and network-PS paths on one
-NVIDIA GPU.
+"""Drive the PyTorch port's serving, training, network-PS and SPMD paths on
+one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -107,11 +107,28 @@ Phases (any failure raises and the script exits non-zero):
                  --device cuda --workers 2 (faults, a SIGKILL) exits 0; a
                  1-worker job at V = 3,000, K = 64 on the card and on the
                  CPU, counts and z files equal bitwise;
- 13. report   -- per-kernel times at the main paths' shapes (alias_build
+ 13. spmd     -- the SPMD parameter server (torch.distributed): 4 ranks
+                 sharing the card over gloo, mesh 2 x 2, on the training
+                 corpus with HybridRoute(2000): APSLDA(LDAJob(...,
+                 backend="spmd", mesh_model=2), devices=4) for 3 sweeps
+                 (exact conservation of the gathered state, falling
+                 perplexity, each rank's launches -- one mh_draws_train,
+                 mh_sample, delta_push and delta_apply_coo a group,
+                 alias_build once a sweep -- its peak device memory and
+                 ms per sweep split into the pull's all-gather, the group
+                 collectives and the rest); the streamed SPMD plane on
+                 stream_train's shards, 2 epochs (conservation against the
+                 z files after each epoch, read through the view); one
+                 rank on NCCL for one sweep, equal bitwise to the same
+                 rank on gloo; and at V = 3,000, K = 64 the memory and
+                 stream planes with the dense, hybrid and COO routes on 4
+                 ranks on the card equal to 4 ranks on the CPU bitwise;
+ 14. report   -- per-kernel times at the main paths' shapes (alias_build
                  held bitwise at serving's φ and at each executor's
                  weights; the merge at each executor's group, also by
                  destination; mh_draws at a snapshot group, a pipelined
-                 group, a tiered block and a fold-in batch), the whole
+                 group, a tiered block and a fold-in batch; the SPMD path's
+                 rows, delta_apply_coo at its gathered COO), the whole
                  merge of one group as the
                  executors composed it before (route plan, token_deltas,
                  adds) against the one-launch merge, in turns, then one
@@ -136,6 +153,7 @@ import argparse
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import threading
@@ -2090,6 +2108,317 @@ def net_train(torch, seed: int, card: str, corp, device: str = "cuda",
     return out
 
 
+# -- phase 13: the SPMD parameter server ------------------------------------
+
+SPMD_RANKS, SPMD_MODEL = 4, 2       # 4 ranks share the card: mesh 2 x 2
+
+
+def spmd_expected(groups: int, alias_builds: int, coo: bool) -> dict:
+    """One rank's launches on the SPMD path for ``groups`` groups: one
+    mh_draws_train and mh_sample a group, delta_push once a group (the
+    route's dense part: the hybrid's hot prefix) and, with a coordinate
+    part, one delta_apply_coo a group (the gathered cold COO); alias_build
+    ``alias_builds`` times (once a sweep or visit)."""
+    return {"mh_sample": groups, "delta_push": groups,
+            "delta_apply_coo": groups if coo else 0,
+            "alias_build": alias_builds, "mh_draws_train": groups,
+            "mh_draws_foldin": 0}
+
+
+def spmd_ranks(info: dict, want: dict, what: str, device: str) -> list:
+    """Each rank's launches against ``want``, and its split of a step's
+    host ms: the pull's all-gather, the group collectives, the rest."""
+    out = []
+    for r in info["ranks"]:
+        check_launches(r["launches"], want, f"{what} rank {r['rank']}",
+                       device)
+        rest = [a - b - c for a, b, c in zip(r["sweep_ms"], r["pull_ms"],
+                                             r["collective_ms"])]
+        out.append({"rank": r["rank"], "device": r["device"],
+                    "launches": r["launches"], "step_ms": r["sweep_ms"],
+                    "pull_ms": r["pull_ms"],
+                    "collective_ms": r["collective_ms"],
+                    "reduce_ms": r["reduce_ms"], "gather_ms": r["gather_ms"],
+                    "rest_ms": rest,
+                    "max_memory_allocated": r["max_memory_allocated"]})
+    return out
+
+
+def spmd_train(torch, seed: int, card: str, corp, device: str = "cuda",
+               v: int = V_FULL, k: int = K_FULL, block_tokens: int = 8192,
+               sweeps: int = 3, ranks: int = SPMD_RANKS,
+               model: int = SPMD_MODEL) -> dict:
+    """The SPMD plane at (v, k) on ``corp``: APSLDA(LDAJob(...,
+    backend="spmd", mesh_model=model), devices=ranks) with
+    HybridRoute(2000), ``sweeps`` sweeps; exact conservation of the whole
+    mesh's state (the gathered n_wk and n_k are the histogram of the
+    gathered z, the token mass the corpus's), falling perplexity, and each
+    rank's own launches, peak device memory and ms per sweep by part."""
+    from repro_torch.api import APSLDA, HybridRoute, LDAJob
+    from repro_torch.kernels import ops
+
+    job = LDAJob(corpus=corp, num_topics=k, vocab_size=v,
+                 route=HybridRoute(hot_words=HOT_WORDS),
+                 block_tokens=block_tokens, sweeps=sweeps, eval_every=1,
+                 backend="spmd", mesh_model=model, seed=seed)
+    ops.reset_launch_counts()
+    # ------------------------------------------------------------ main path
+    est = APSLDA(job, log_fn=log, device=device, devices=ranks)
+    m = est.fit()
+    sync(torch, device)
+    parent = ops.launch_counts()
+    # ---------------------------------------------------- end of main path
+    res = est.result_
+    info = res.info
+    conservation(torch, res.state, "spmd_train")
+    if int(res.nk.value.sum()) != corp.num_tokens:
+        raise AssertionError("spmd_train: the token mass changed")
+    ppl = [row["perplexity"] for row in m.history]
+    if not (len(ppl) == sweeps and ppl[-1] < ppl[0]):
+        raise AssertionError(f"spmd_train: perplexity did not fall: {ppl}")
+    groups = res.state.w.shape[0] // ranks // block_tokens
+    want = spmd_expected(groups * sweeps, sweeps, coo=True)
+    per_rank = spmd_ranks(info, want, "spmd_train", device)
+    if device == "cuda" and info["collective"] != (
+            "nccl" if ranks <= torch.cuda.device_count() else "gloo"):
+        raise AssertionError(f"spmd_train: transport {info['collective']}")
+    log(json.dumps({"spmd": {
+        "run": "train", "V": v, "K": k, "tokens": corp.num_tokens,
+        "ranks": ranks, "mesh": [info["mesh_data"], info["mesh_model"]],
+        "collective": info["collective"], "route": info["route"],
+        "groups_per_sweep_per_rank": groups, "perplexity": ppl,
+        "parent_launches": parent, "per_rank": per_rank, "checks": "ok",
+        "card": card}}))
+    totals = {name: sum(r["launches"][name] for r in per_rank)
+              for name in want}
+    return {"launches": totals, "ranks": per_rank, "groups": groups}
+
+
+def spmd_stream(torch, seed: int, card: str, corp, device: str = "cuda",
+                v: int = V_FULL, k: int = K_FULL,
+                tokens_per_shard: int = STREAM_SHARD_TOKENS,
+                block_tokens: int = 8192, epochs: int = 2,
+                ranks: int = SPMD_RANKS, model: int = SPMD_MODEL) -> dict:
+    """The streamed SPMD plane on ``corp`` in shards of
+    ``tokens_per_shard`` (stream_train's; raised by blocks until the shard
+    count splits over the ranks), ``ranks`` shards a visit, for
+    ``epochs`` epochs with HybridRoute(2000): after each epoch a callback
+    reads the view's n_wk and n_k (gathered from the ranks on demand) and
+    holds them to the histogram of the z files; the perplexity falls; each
+    rank's launches."""
+    import tempfile
+
+    from repro_torch.api import APSLDA, Callback
+    from repro_torch.data import stream
+    from repro_torch.kernels import ops
+
+    class EpochConservation(Callback):
+        def __init__(self, reader, every):
+            self.reader, self.every, self.checks = reader, every, []
+
+        def on_sweep_end(self, view):
+            if view.step % self.every:
+                return
+            rw, rk = stream.rebuild_counts_from_stream(self.reader, k)
+            self.checks.append({
+                "epoch": view.epoch,
+                "nwk": bool(np.array_equal(view.nwk.to_dense().cpu().numpy(),
+                                           rw)),
+                "nk": bool(np.array_equal(view.nk.value.cpu().numpy(), rk)),
+                "tokens": int(rk.sum()) == corp.num_tokens})
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "s")
+        meta = spmd_shards(stream, corp, path, ranks, block_tokens,
+                           tokens_per_shard)
+        tokens_per_shard = meta.tokens_per_shard
+        job = stream_job(path, k, v, seed, epochs, block_tokens=block_tokens,
+                         backend="spmd", mesh_model=model,
+                         eval_every=meta.num_shards)
+        cb = EpochConservation(stream.ShardedCorpusReader(path),
+                               meta.num_shards)
+        ops.reset_launch_counts()
+        # -------------------------------------------------------- main path
+        est = APSLDA(job, log_fn=log, device=device, devices=ranks)
+        m = est.fit([cb])
+        sync(torch, device)
+        parent = ops.launch_counts()
+        # ------------------------------------------------ end of main path
+        info = est.result_.info
+        ppl = [row["perplexity"] for row in m.history]
+        ok = (len(cb.checks) == epochs
+              and all(c["nwk"] and c["nk"] and c["tokens"]
+                      for c in cb.checks)
+              and len(ppl) == epochs and ppl[-1] < ppl[0])
+        visits = epochs * meta.num_shards // ranks
+        groups = visits * (tokens_per_shard // block_tokens)
+        want = spmd_expected(groups, visits, coo=True)
+        per_rank = spmd_ranks(info, want, "spmd_stream", device)
+        log(json.dumps({"spmd": {
+            "run": "stream", "V": v, "K": k, "shards": meta.num_shards,
+            "tokens_per_shard": tokens_per_shard, "epochs": epochs,
+            "ranks": ranks, "collective": info["collective"],
+            "visits_per_rank": visits, "epoch_checks": cb.checks,
+            "perplexity": ppl, "parent_launches": parent,
+            "per_rank": per_rank, "card": card}}))
+        if not ok:
+            raise AssertionError(f"spmd_stream failed: {cb.checks} {ppl}")
+    return {"ranks": per_rank}
+
+
+def spmd_shards(stream, corp, path: str, ranks: int, block_tokens: int,
+                tokens_per_shard: int):
+    """Write ``corp`` as a stream whose shard count the ranks split: the
+    first multiple of ``block_tokens`` from ``tokens_per_shard`` on that
+    gives one."""
+    tps = tokens_per_shard
+    while True:
+        meta = stream.write_sharded(path, corp, tps)
+        if meta.num_shards % ranks == 0:
+            return meta
+        shutil.rmtree(path)
+        tps += block_tokens
+
+
+def spmd_nccl(torch, seed: int, card: str, corp, v: int = V_FULL,
+              k: int = K_FULL, block_tokens: int = 8192) -> dict:
+    """One rank on NCCL at (v, k) for one sweep (the transport of a rank
+    with a card of its own): conservation, and its state equal bitwise to
+    the same one-rank job with the transport pinned to gloo."""
+    from repro_torch.api import APSLDA, HybridRoute, LDAJob
+    from repro_torch.api import session as sess
+    from repro_torch.kernels import ops
+
+    job = LDAJob(corpus=corp, num_topics=k, vocab_size=v,
+                 route=HybridRoute(hot_words=HOT_WORDS),
+                 block_tokens=block_tokens, sweeps=1, eval_every=0,
+                 backend="spmd", mesh_model=1, seed=seed)
+    ops.reset_launch_counts()
+    # ------------------------------------------------------------ main path
+    est = APSLDA(job, log_fn=log, device="cuda", devices=1)
+    est.fit()
+    sync(torch, "cuda")
+    parent = ops.launch_counts()
+    # ---------------------------------------------------- end of main path
+    res = est.result_
+    if res.info["collective"] != "nccl":
+        raise AssertionError(f"one rank with a card: transport "
+                             f"{res.info['collective']}, expected nccl")
+    conservation(torch, res.state, "spmd_nccl")
+    groups = res.state.w.shape[0] // block_tokens
+    per_rank = spmd_ranks(res.info, spmd_expected(groups, 1, coo=True),
+                          "spmd_nccl", "cuda")
+    plane = sess._SpmdPlane(corp, job.lda_config(v), job.exec_config(), 1,
+                            seed=seed, mesh_model=1, devices=1,
+                            log_fn=lambda m: None, device="cuda",
+                            transport="gloo")
+    gloo = sess._run_loop(plane, [])
+    equal = {name: bool(torch.equal(a, b)) for name, a, b in (
+        ("nwk", res.nwk.value, gloo.nwk.value),
+        ("nk", res.nk.value, gloo.nk.value),
+        ("z", res.state.z, gloo.state.z),
+        ("ndk", res.state.ndk, gloo.state.ndk))}
+    log(json.dumps({"spmd": {
+        "run": "nccl_w1", "V": v, "K": k, "collective": "nccl",
+        "compared_with": gloo.info["collective"], "equal": equal,
+        "parent_launches": parent, "per_rank": per_rank, "card": card}}))
+    if not all(equal.values()):
+        raise AssertionError(f"W = 1 on NCCL differs from gloo: {equal}")
+    return {"ranks": per_rank, "gloo_ranks": gloo.info["ranks"]}
+
+
+SPMD_ROUTES = {"dense": None, "hybrid": 200, "coo": 0}
+
+
+def spmd_small_run(torch, seed: int, plane: str, route: str, device: str,
+                   tmp: str, v: int = 3000, k: int = 64,
+                   ranks: int = SPMD_RANKS, model: int = SPMD_MODEL) -> dict:
+    """One small SPMD job on ``device`` (staleness 1, 1,024-token blocks):
+    the memory plane for 2 sweeps or the stream plane for 2 epochs; its
+    n_wk, n_k and z and n_dk (memory) or every z file (stream), as numpy."""
+    from repro_torch.api import APSLDA, LDAJob
+    from repro_torch.data import stream
+    from repro_torch.data.corpus import synthetic_corpus
+
+    corp = synthetic_corpus(300, v, true_topics=16, seed=seed)
+    if plane == "memory":
+        job = LDAJob(corpus=corp, sweeps=2)
+    else:
+        path = str(Path(tmp) / f"{route}_{device}")
+        spmd_shards(stream, corp, path, ranks, 1024, 4096)
+        job = LDAJob(stream_dir=path, epochs=2)
+    job = dataclasses.replace(job, num_topics=k, vocab_size=v,
+                              hot_words=SPMD_ROUTES[route], block_tokens=1024,
+                              eval_every=0, backend="spmd", mesh_model=model,
+                              staleness=1, seed=seed)
+    est = APSLDA(job, log_fn=lambda m: None, device=device, devices=ranks)
+    est.fit()
+    r = est.result_
+    out = {"nwk": r.nwk.value.cpu().numpy(), "nk": r.nk.value.cpu().numpy(),
+           "collective": np.asarray(r.info["collective"])}
+    if plane == "memory":
+        out.update(z=r.state.z.cpu().numpy(), ndk=r.state.ndk.cpu().numpy())
+    else:
+        out["z_files"] = np.stack([r.reader.read_z(s)
+                                   for s in range(r.reader.num_shards)])
+    return out
+
+
+def spmd_cpu_runs(torch, seed: int, out_dir: str) -> None:
+    """Every small SPMD job of spmd_card_vs_cpu on the CPU, each saved to
+    ``out_dir/<plane>_<route>.npz`` (``chip_smoke.py --spmd-cpu DIR``:
+    a process of its own, so that it runs beside the card's jobs)."""
+    for plane in ("memory", "stream"):
+        for route in SPMD_ROUTES:
+            np.savez(Path(out_dir) / f"{plane}_{route}.npz",
+                     **spmd_small_run(torch, seed, plane, route, "cpu",
+                                      out_dir))
+
+
+def spmd_card_vs_cpu(torch, seed: int, card: str, v: int = 3000,
+                     k: int = 64) -> None:
+    """W = 4 ranks on the card (sharing it) against W = 4 on the CPU, for
+    the memory and the stream plane and the dense, hybrid and COO routes:
+    n_wk, n_k, and z and n_dk (memory) or every z file (stream) equal
+    bitwise.  The CPU's jobs run in a process of their own, beside the
+    card's."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log_path = Path(tmp) / "cpu.log"
+        with open(log_path, "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--seed",
+                 str(seed), "--spmd-cpu", tmp], cwd=str(ROOT),
+                stdin=subprocess.DEVNULL, stdout=out,
+                stderr=subprocess.STDOUT)
+        try:
+            runs = {(plane, route): spmd_small_run(torch, seed, plane, route,
+                                                   "cuda", tmp, v, k)
+                    for plane in ("memory", "stream")
+                    for route in SPMD_ROUTES}
+            if proc.wait(timeout=600) != 0:
+                raise AssertionError(f"the CPU's SPMD jobs failed:\n"
+                                     f"{log_path.read_text()[-4000:]}")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        for (plane, route), got in runs.items():
+            with np.load(Path(tmp) / f"{plane}_{route}.npz") as ref:
+                equal = {n: bool(np.array_equal(got[n], ref[n]))
+                         for n in got if n != "collective"}
+            log(json.dumps({"check": "spmd_card_vs_cpu", "plane": plane,
+                            "route": route, "V": v, "K": k,
+                            "ranks": SPMD_RANKS,
+                            "collective": str(got["collective"]),
+                            "equal": equal}))
+            if not all(equal.values()):
+                raise AssertionError(f"SPMD {plane} plane, {route} route: "
+                                     f"the card differs from the CPU: "
+                                     f"{equal}")
+
+
 def card_name(card: str) -> str:
     """The card's name from the ``nvidia-smi`` line (name, power limit)."""
     return card.split(",")[0].strip()
@@ -2214,16 +2543,17 @@ def mh_sample_bytes(torch, rng, z0, w, d, nwk, ndk, nk, aprob,
     return t * 16 + steps * t * 16 + gathered * SECTOR
 
 
-def snapshot_group_inputs(torch, train: dict):
+def snapshot_group_inputs(torch, train: dict, tokens: int = 0):
     """mh_sample's inputs in the snapshot executor's first group (8192
-    tokens) of a sweep of the trained state: the [V, K] snapshot and its
-    alias tables, the [D, K] n_dk.  Returns them and the group's ``valid``."""
+    tokens; ``tokens``: the first that many) of a sweep of the trained
+    state: the [V, K] snapshot and its alias tables, the [D, K] n_dk.
+    Returns them and the group's ``valid``."""
     from repro_torch import rng as jrng
     from repro_torch.core import alias as alias_mod
     from repro_torch.core import lightlda as lda
 
     st, cfg = train["state"], train["cfg"]
-    g = cfg.block_tokens
+    g = tokens or cfg.block_tokens
     w_b, d_b = st.w[:g], st.d[:g]
     nwk_dense, nk = st.nwk.to_dense(), st.nk.value
     table = alias_mod.build_alias_rows(
@@ -2453,13 +2783,25 @@ def delta_rows(torch, timer: Timer, train: dict, groups: dict,
         "sectors": sectors, "library": lib_seen, "card": card}}}))
 
     # B4: the cold tail's COO buffer applied into the [V, K] table
-    v = nwk_dense.shape[0]
+    rows.append(coo_row(torch, timer, "delta_apply_coo", cr, cc, cv,
+                        nwk_dense, push_counts["delta_apply_coo"], card))
+    return rows
+
+
+def coo_row(torch, timer: Timer, name: str, cr, cc, cv, nwk_dense,
+            launches: int, card: str) -> dict:
+    """delta_apply_coo's row for the COO buffer (cr, cc, cv) applied into
+    a copy of ``nwk_dense``: held bitwise against its plain version, timed
+    against it and against one index_put_ with accumulate."""
+    from repro_torch.kernels import delta_push, ref
+
+    v, k = nwk_dense.shape
     got = delta_push.delta_apply_coo_cuda(cr, cc, cv, nwk_dense.clone())
     want = ref.delta_apply_coo_ref(cr, cc, cv, v, k, out=nwk_dense.clone())
     err = int((got - want).abs().max())
     if err:
-        raise AssertionError("delta_apply_coo differs from its plain "
-                             "version at the routed push's shapes")
+        raise AssertionError(f"{name}: delta_apply_coo differs from its "
+                             f"plain version")
     del got, want
     table = nwk_dense.clone()
     ms = timer.ms(lambda: delta_push.delta_apply_coo_cuda(cr, cc, cv, table),
@@ -2476,15 +2818,54 @@ def delta_rows(torch, timer: Timer, train: dict, groups: dict,
     sectors = touched_sectors(torch, cr[nz], cc[nz], k)
     nbytes = cr.shape[0] * 4 + (2 * stream_sectors(torch, nz)
                                 + 2 * sectors) * SECTOR
-    rows.append(kernel_row(
-        "delta_apply_coo", "src/repro_torch/kernels/csrc/delta_push.cu",
-        "src/repro/kernels/delta_push.py:133",
-        push_counts["delta_apply_coo"], float(err), ms, plain_ms, nbytes,
-        cr.shape[0] * 2 + n_nz * 6, lib_ms))
-    log(json.dumps({"timing": {"delta_apply_coo": {
+    log(json.dumps({"timing": {name: {
         "rows": v, "K": k, "entries": cr.shape[0], "nonzero": n_nz,
         "sectors": sectors, "library": lib_seen, "card": card}}}))
-    return rows
+    return kernel_row(
+        name, "src/repro_torch/kernels/csrc/delta_push.cu",
+        "src/repro/kernels/delta_push.py:133", launches, float(err), ms,
+        plain_ms, nbytes, cr.shape[0] * 2 + n_nz * 6, lib_ms)
+
+
+def spmd_kernel_rows(torch, timer: Timer, rows: list, train: dict,
+                     spmd: dict, card: str, ranks: int = SPMD_RANKS) -> list:
+    """The SPMD path's kernel rows, each with the launches of spmd_train
+    summed over its ranks.  mh_draws_train, mh_sample, alias_build and
+    delta_push's single-destination form run there at the shapes of rows
+    already measured in this run (a rank's group is 8,192 tokens against
+    the [100,000 x 1,000] snapshot and its sweep's alias tables, the
+    hybrid's hot prefix is [2,000 x 1,000]): those rows' measurements are
+    taken over (``timed_as``).  delta_apply_coo runs at a shape of its own,
+    the cold COO buffers of ``ranks`` groups gathered (``ranks`` x 16,384
+    entries into the [100,000 x 1,000] table), built from the trained
+    state's first ``ranks`` snapshot groups: held bitwise and timed here."""
+    from repro_torch.kernels import delta_push, mh_sample
+
+    by_name = {r["name"]: r for r in rows}
+    out = []
+    for kernel, same in (("mh_draws_train", "mh_draws_train_snapshot"),
+                         ("mh_sample", "mh_sample_train_snapshot"),
+                         ("alias_build", "alias_build_train_snapshot"),
+                         ("delta_push", "delta_push")):
+        out.append(dict(by_name[same], name=f"{kernel}_spmd",
+                        launches=spmd["launches"][kernel], timed_as=same))
+    cfg = train["cfg"]
+    g = cfg.block_tokens
+    args, valid = snapshot_group_inputs(torch, train, tokens=ranks * g)
+    z0, w = args[1], args[2]
+    z_new = torch.where(valid, mh_sample.mh_sample_cuda(*args, cfg,
+                                                        frozen=False), z0)
+    changed = (z_new != z0) & valid
+    parts = []
+    for r in range(ranks):
+        sl = slice(r * g, (r + 1) * g)
+        _, cold = delta_push.split_hot_cold(w[sl], changed[sl], HOT_WORDS)
+        parts.append(delta_push.cold_coo(w[sl], z0[sl], z_new[sl], cold))
+    cr, cc, cv = (torch.cat([p[i] for p in parts]) for i in range(3))
+    out.append(coo_row(torch, timer, "delta_apply_coo_spmd", cr, cc, cv,
+                       train["state"].nwk.to_dense(),
+                       spmd["launches"]["delta_apply_coo"], card))
+    return out
 
 
 def group_tables(torch, train: dict, executor: str) -> list:
@@ -3247,9 +3628,15 @@ def profile_sweep(torch, train: dict, card: str) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--spmd-cpu", default="",
+                    help=argparse.SUPPRESS)   # spmd_card_vs_cpu's CPU jobs
     args = ap.parse_args(argv)
 
     import torch
+
+    if args.spmd_cpu:
+        spmd_cpu_runs(torch, args.seed, args.spmd_cpu)
+        return 0
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3296,6 +3683,12 @@ def main(argv=None) -> int:
     phase("net", net_train, torch, args.seed, card, train["corpus"],
           "cuda", V_FULL, K_FULL, STREAM_SHARD_TOKENS, 8192,
           stream.pop("snapshot_final"))
+    spmd = phase("spmd_train", spmd_train, torch, args.seed, card,
+                 train["corpus"])
+    phase("spmd_stream", spmd_stream, torch, args.seed, card,
+          train["corpus"])
+    phase("spmd_nccl", spmd_nccl, torch, args.seed, card, train["corpus"])
+    phase("spmd_card_vs_cpu", spmd_card_vs_cpu, torch, args.seed, card)
     timer = Timer(torch)
     rows, groups = phase("kernel_report", kernel_report, torch, timer, serve,
                          train, card)
@@ -3303,6 +3696,8 @@ def main(argv=None) -> int:
                   card)
     rows += phase("draws_kernels", mh_draws_rows, torch, timer, serve, train,
                   tiered, card)
+    rows += phase("spmd_kernels", spmd_kernel_rows, torch, timer, rows,
+                  train, spmd, card)
     phase("merge_compare", merge_compare, torch, timer, train, groups, card)
     phase("sweep_compare", sweep_compare, torch, train, card)
     phase("profile_batch", profile_batch, torch, serve, card)

@@ -29,19 +29,23 @@ class APSLDA:
     session, and the same job gives the same counts.  ``device`` is where
     training runs and the fitted model lives: the card unless the caller
     passes another (``device="cpu"`` runs the plain PyTorch path).
+    ``devices`` is an SPMD job's rank count (``Session``).
     """
 
-    def __init__(self, job: LDAJob, log_fn=print, device: Device = None):
+    def __init__(self, job: LDAJob, log_fn=print, device: Device = None,
+                 devices: Optional[int] = None):
         self.job = job.validate()
         self.log_fn = log_fn
         self.device = device
+        self.devices = devices
         self.model_: Optional[TopicModel] = None
         self.result_: Optional[SessionResult] = None
 
     def fit(self, callbacks: Sequence[Callback] = ()) -> TopicModel:
         """Run the job end to end; returns the fitted ``TopicModel``.
         ``callbacks`` observe the run and never perturb it."""
-        session = Session(self.job, log_fn=self.log_fn, device=self.device)
+        session = Session(self.job, log_fn=self.log_fn, device=self.device,
+                          devices=self.devices)
         result = session.run(callbacks)
         model = TopicModel(result.nwk.to_dense(),
                            result.nk.pull_all().result(), session.cfg,

@@ -9,11 +9,11 @@ lower-level ``Session``) turns it into a trained ``TopicModel``.
 The job has every field of the JAX package's except the two that select
 its Pallas path (``use_kernels``, ``kernel_interpret``): here a CUDA tensor
 always runs the kernel, so a job reads the same in both packages.  The
-device is not a field; it is a keyword of ``APSLDA`` and ``Session``.
-The network backend (``backend="net"``) runs here as in the JAX package.
-The SPMD backend, which the port does not run yet, validates here as it
-does in the JAX package, and ``Session`` refuses it, naming the ROADMAP
-item that ports it.
+device is not a field; it is a keyword of ``APSLDA`` and ``Session``,
+and so is an SPMD job's rank count (``devices``, the counterpart of the JAX
+package's device count).  Every backend of the JAX package runs here: the
+SPMD one (``backend="spmd"``) as rank processes over ``torch.distributed``,
+the network one (``backend="net"``) as a server and worker processes.
 """
 from __future__ import annotations
 
@@ -83,9 +83,10 @@ class LDAJob:
                       are *re-ranked by frequency*, the section-3.2
                       contract every downstream component assumes).
 
-    Backend: ``"in_process"`` (single device) or ``"spmd"`` (shard_map
-    over a ``(data, model)`` mesh with ``mesh_model`` parameter-server
-    shards -- run under forced host devices or on a real pod).
+    Backend: ``"in_process"`` (single device), ``"spmd"`` (a ``(data,
+    model)`` mesh of rank processes with ``mesh_model`` parameter-server
+    shards; the rank count is ``APSLDA``/``Session``'s ``devices=``) or
+    ``"net"``.
 
     Schedule: ``sweeps`` full Gibbs sweeps for in-memory sources;
     ``epochs`` passes over the shard stream for streamed ones.

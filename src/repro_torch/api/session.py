@@ -7,14 +7,15 @@
     callbacks.on_fit_end(final_view)
 
 A *plane* binds a data source to an execution backend.  The port runs
-four: on the in-process backend the in-memory corpus (``_MemoryPlane``,
-dense storage; ``route``/``staleness`` may be ``"auto"``), the same over
-tiered storage (``_TieredPlane``) and the on-disk shard stream
-(``_StreamPlane``, the out-of-core trainer); on the network backend
+every plane of the JAX package: on the in-process backend the in-memory
+corpus (``_MemoryPlane``, dense storage; ``route``/``staleness`` may be
+``"auto"``), the same over tiered storage (``_TieredPlane``) and the
+on-disk shard stream (``_StreamPlane``, the out-of-core trainer); on the
+SPMD backend (``backend="spmd"``) a ``(data, model)`` mesh of ranks, one
+process each, over either source (``_SpmdPlane``, ``_StreamSpmdPlane``;
+``torch.distributed``, ``ps/spmd_worker.py``); on the network backend
 (``backend="net"``) a parameter-server process and a pool of worker
-processes over either source (``_NetPlane``).  The JAX package's SPMD
-planes belong to a later slice, and ``Session`` refuses a job that needs
-one with the ROADMAP item that ports it.
+processes over either source (``_NetPlane``).
 
 Random streams, as the JAX package draws them, so a job's counts equal its
 bitwise:
@@ -22,14 +23,19 @@ bitwise:
   * memory: ``init_state`` draws the initial topics from ``PRNGKey(seed)``
     itself, then ``key, sub = split(key)`` once before the plane, and once
     more before every sweep;
-  * stream and net: every draw derives from the base seed through
-    ``fold_in`` chains keyed by *schedule position* (``stream_init_key``,
-    ``stream_sweep_key``), never by host iteration state -- which is what
-    makes resume bitwise, and a visit's sweep the same whichever worker
-    runs it.
+  * SPMD over memory: ``randint(PRNGKey(seed), [W, npad])`` over the
+    stacked workers, then the *same* key goes on: per sweep ``key, sub =
+    split(key)`` and rank ``r`` takes ``split(sub, W)[r]``;
+  * stream, SPMD over a stream, and net: every draw derives from the base
+    seed through ``fold_in`` chains keyed by *schedule position*
+    (``stream_init_key``, ``stream_sweep_key``; SPMD: rank ``r`` takes
+    ``split(stream_sweep_key(...), W)[r]``), never by host iteration state
+    -- which is what makes resume bitwise, and a visit's sweep the same
+    whichever worker runs it.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import List, NamedTuple, Optional, Sequence
@@ -66,12 +72,9 @@ class SessionResult(NamedTuple):
 
 
 def unported_planes(job: LDAJob) -> List[str]:
-    """Why the port cannot run ``job`` yet, one line per plane it needs
-    (empty: a ported plane runs it)."""
-    out = []
-    if job.backend == SPMD:
-        out.append("backend='spmd' is not ported yet: ROADMAP A, 'SPMD'")
-    return out
+    """Why the port cannot run ``job`` yet, one line per plane it needs.
+    Every plane of the JAX package is ported, so the list is empty."""
+    return []
 
 
 # ---------------------------------------------------------------------------
@@ -149,6 +152,80 @@ def seed_net_server(ctl, reader, cfg, seed: int, epochs: int, *,
     ctl.plan(sched, mode=mode, slots=workers if mode != "dynamic" else 0,
              expected_workers=workers)
     return sched
+
+
+# ---------------------------------------------------------------------------
+# SPMD wiring: one rank's sweep, and the initial state of every worker.
+# ---------------------------------------------------------------------------
+
+def make_spmd_sweep(mesh, cfg: "lda.LDAConfig", staleness: int = 0,
+                    hot_words=None, route: Optional["ps.PushRoute"] = None):
+    """This rank's part of the SPMD sweep -- what ``shard_map`` runs on one
+    mesh shard in the JAX package: tokens split over ``(data, model)``,
+    ``n_wk`` rows cyclic over ``model`` (the servers), deltas summed over
+    all workers.  The count tables enter through an SPMD-backed
+    ``PSClient``, so the sweep takes its collectives (the all-gather pull,
+    one sum per group) from the handle's backend.
+
+    Returns ``sweep(w, d, z, valid, doc_start, doc_len, ndk, nwk_local,
+    nk, key) -> (z, ndk, nwk_local, nk)``: this rank's slices of the
+    stacked per-worker arrays, its ``[rows_per_shard, K]`` server shard,
+    the replicated ``n_k`` and its own key (row ``rank`` of the sweep's
+    key batch)."""
+    client = ps.client_for(cfg, mesh=mesh, axis_name=("data", "model"),
+                           model_axis="model")
+
+    def local(w, d, z, valid, doc_start, doc_len, ndk, nwk_local, nk, key):
+        state = lda.SamplerState(w, d, z, valid, doc_start, doc_len,
+                                 client.wrap_matrix(nwk_local, cfg.V),
+                                 client.wrap_vector(nk), ndk)
+        out = lda.sweep(state, key, cfg, staleness=staleness,
+                        hot_words=hot_words, route=route)
+        return out.z, out.ndk, out.nwk.value, out.nk.value
+
+    return local
+
+
+def init_distributed_state(corp, cfg: "lda.LDAConfig", workers: int,
+                           key: torch.Tensor, device: Device = None):
+    """Shard the corpus over ``workers`` and build the global count tables
+    on ``device``, as the JAX package does.
+
+    Returns ``(w, d, valid, doc_start, doc_len, z, ndk, nwk, nk)`` with a
+    leading worker dim on the per-worker arrays; ``z`` is ``randint(key,
+    [workers, npad], 0, K)``; ``nwk`` is an in-process handle, cyclic over
+    ``cfg.num_shards``."""
+    from repro_torch.data import corpus as corpus_mod
+
+    dev = resolve_device(device)
+    shards = corpus_mod.shard_tokens(corp, workers, cfg.block_tokens)
+    npad = max(sh[0].shape[0] for sh in shards)
+    dmax = max(sh[3].shape[0] for sh in shards)
+
+    def stack(i, pad_to):
+        return torch.from_numpy(np.stack([
+            np.pad(sh[i], (0, pad_to - len(sh[i])), constant_values=0)
+            for sh in shards])).to(dev)
+
+    w, d, valid = stack(0, npad), stack(1, npad), stack(2, npad)
+    doc_start, doc_len = stack(3, dmax), stack(4, dmax)
+    z = jrng.randint(key.to(dev), (workers, npad), 0, cfg.K)
+    # counts from the valid tokens of the global view
+    m = valid.reshape(-1)
+    wv, zv = w.reshape(-1)[m].long(), z.reshape(-1)[m].long()
+    ones = torch.ones(wv.shape[0], dtype=torch.int32, device=dev)
+    nwk = torch.zeros(cfg.V * cfg.K, dtype=torch.int32, device=dev
+                      ).index_add_(0, wv * cfg.K + zv, ones
+                                   ).view(cfg.V, cfg.K)
+    nk = torch.zeros(cfg.K, dtype=torch.int32, device=dev).index_add_(
+        0, zv, ones)
+    widx = torch.arange(workers, device=dev)[:, None].expand(-1, npad)
+    ndk = torch.zeros(workers * dmax * cfg.K, dtype=torch.int32,
+                      device=dev).index_add_(
+        0, (widx.reshape(-1)[m] * dmax + d.reshape(-1)[m].long()) * cfg.K
+        + zv, ones).view(workers, dmax, cfg.K)
+    return (w, d, valid, doc_start, doc_len, z, ndk,
+            ps.client_for(cfg).matrix_from_dense(nwk), nk)
 
 
 # ---------------------------------------------------------------------------
@@ -927,28 +1004,385 @@ class _NetPlane:
 
 
 # ---------------------------------------------------------------------------
+# SPMD planes: rank 0 of a mesh of rank processes (ps/spmd_worker.py).
+# ---------------------------------------------------------------------------
+
+def default_devices(device: torch.device) -> int:
+    """The rank count of an SPMD job that names none: every card on the
+    card (``torch.cuda.device_count()``), one on the CPU -- as the JAX
+    package's device count without forced host devices."""
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def _resolve_mesh(cfg: "lda.LDAConfig", mesh_model: int, devices: int):
+    """``(data, model, workers, cfg)`` for ``devices`` ranks and
+    ``mesh_model`` servers, the PS shard count pinned to the model axis
+    (paper section 2.2); the divisibility error of
+    ``launch.mesh.resolve_mesh`` otherwise."""
+    from repro_torch.launch.mesh import resolve_mesh
+
+    data, model = resolve_mesh(devices, mesh_model)
+    cfg = dataclasses.replace(cfg, num_shards=model)
+    return data, model, data * model, cfg
+
+
+class _MeshMatrix:
+    """A view's ``n_wk`` on an SPMD run: gathered from the servers only
+    when a callback reads it (one gather step of the command loop), then
+    an in-process ``MatrixHandle`` over the full physical table.  A view
+    reads the counts of its own visit; once the run has moved on, reading
+    it raises."""
+
+    def __init__(self, plane, step: int):
+        self._plane = plane
+        self._step = step
+        self._handle = None
+
+    def _get(self):
+        if self._handle is None:
+            if self._plane.steps_done != self._step:
+                raise RuntimeError(
+                    f"this view's counts (visit {self._step}) are gone: the "
+                    f"SPMD run is at visit {self._plane.steps_done}")
+            self._handle = self._plane.gathered_nwk()
+        return self._handle
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        return getattr(self._get(), name)
+
+
+class _SpmdPlaneBase:
+    """What the two SPMD planes share: the mesh, the rank processes, views
+    whose counts are gathered on demand, and the result on rank 0.  The
+    transport follows from the layout (``launch.mesh.transport_for``);
+    ``transport`` pins one, for a caller that compares two on one layout
+    (``Session`` never does)."""
+
+    def _start(self, spec: dict, init=None) -> None:
+        from repro_torch.ps.spmd_worker import SpmdRun
+
+        # if start raises, the loop's ``close`` stops what it started
+        self.run = SpmdRun(spec, self.device, log_fn=self.log_fn,
+                           timeout_s=self.timeout_s,
+                           transport=self.transport)
+        self.run.start(init)
+        self.steps_done = 0
+        self._client = ps.client_for(self.cfg)
+        self.info.update(collective=self.run.transport, devices=self.workers,
+                         rank_logs=self.run.log_dir,
+                         helper_pids=self.run.helper_pids)
+
+    def gathered_nwk(self) -> "ps.MatrixHandle":
+        """The full physical ``n_wk`` on rank 0 (a gather step)."""
+        from repro_torch.ps.spmd_worker import OP_GATHER
+        return self._client.wrap_matrix(self.run.do(OP_GATHER), self.cfg.V)
+
+    def _view_handles(self, step: int):
+        return (_MeshMatrix(self, step),
+                self._client.wrap_vector(self.run.program.nk))
+
+    def sync(self, view):
+        if self.run.device.type == "cuda":
+            torch.cuda.synchronize(self.run.device)
+
+    def perplexity(self, view) -> float:
+        from repro_torch.ps.spmd_worker import OP_PPL
+        return self.run.do(OP_PPL)
+
+    def should_stop(self) -> bool:
+        return False
+
+    def final_view(self, last):
+        return last
+
+    def _finish_run(self) -> None:
+        from repro_torch.ps.spmd_worker import OP_FINISH, OP_RESULT, OP_STATS
+
+        self.info["ranks"] = self.run.do(OP_STATS)
+        self._final = self.run.do(OP_RESULT)
+        self.run.do(OP_FINISH)
+
+    def close(self):
+        """Stop every rank process and leave the process group
+        (idempotent; the loop calls it however the run ended)."""
+        run = getattr(self, "run", None)
+        if run is not None:
+            run.close()
+
+    def _result_handles(self):
+        f = self._final
+        return (self._client.wrap_matrix(f["nwk_phys"], self.cfg.V),
+                self._client.wrap_vector(f["nk"]))
+
+
+class _SpmdPlane(_SpmdPlaneBase):
+    """Training over a ``(data, model)`` mesh of rank processes.
+
+    Workers (all ranks) sample their document partitions
+    (``shard_tokens``); servers (the model axis) hold cyclic rows of
+    ``n_wk``.  Random streams as the JAX package's SPMD plane: ``key =
+    PRNGKey(seed)`` seeds the stacked z init, then per sweep ``key, sub =
+    split(key)`` and rank ``r`` takes ``split(sub, workers)[r]``.  The
+    perplexity gathers what ``training_perplexity`` needs onto rank 0;
+    ``result().state`` holds the whole mesh's tokens and counts."""
+
+    kind = "spmd"
+
+    def __init__(self, corp, cfg, exec_cfg, sweeps, *, seed=0,
+                 mesh_model=2, devices=1, log_fn=print,
+                 device: Device = None, timeout_s: float = 600.0,
+                 transport: Optional[str] = None):
+        self.corp = corp
+        self.transport = transport
+        self.cfg = cfg
+        self.exec_cfg = exec_cfg
+        self.sweeps = int(sweeps)
+        self.seed = int(seed)
+        self.mesh_model = int(mesh_model)
+        self.devices = int(devices)
+        self.log_fn = log_fn
+        self.device = resolve_device(device)
+        self.timeout_s = timeout_s
+        self.info: dict = {}
+        self.t0 = time.time()
+        self._ready = False
+
+    def setup(self):
+        if self._ready:
+            return
+        self._ready = True
+        data, model, workers, cfg = _resolve_mesh(self.cfg, self.mesh_model,
+                                                  self.devices)
+        self.workers = workers
+        self.cfg = cfg
+        self.log_fn(f"[lda] mesh data={data} x model={model} "
+                    f"({workers} workers, {model} servers)")
+        route = self.exec_cfg.resolve_route(cfg.V)
+        self.info = {"mode": "spmd", "mesh_data": data, "mesh_model": model,
+                     "workers": workers,
+                     "staleness": self.exec_cfg.staleness,
+                     "route": repr(route)}
+        self._start({"kind": "spmd", "cfg": cfg,
+                     "exec_cfg": dataclasses.replace(self.exec_cfg, obs=None),
+                     "seed": self.seed, "data": data, "model": model,
+                     "corpus": self.corp})
+        self.num_tokens = int(self.corp.num_tokens)
+        self.t0 = time.time()
+
+    def schedule(self):
+        return range(self.sweeps)
+
+    def step(self, i: int):
+        from repro_torch.ps.spmd_worker import OP_SWEEP
+        self.run.do(OP_SWEEP, i)
+        self.steps_done = i + 1
+
+    def view(self, i: int) -> SweepView:
+        nwk, nk = self._view_handles(i + 1)
+        return SweepView(self, step=i + 1, epoch=0, pos=i, shard_id=None,
+                         is_last=(i == self.sweeps - 1), state=None,
+                         nwk=nwk, nk=nk,
+                         tokens_seen=self.num_tokens * (i + 1))
+
+    def history_row(self, view, p: float) -> dict:
+        return {"sweep": view.step, "perplexity": p,
+                "elapsed_s": view.elapsed_s}
+
+    def log_line(self, view, p: float) -> str:
+        return (f"[lda] sweep {view.step:4d}  perplexity {p:9.2f}  "
+                f"({view.elapsed_s:.1f}s)")
+
+    def checkpoint(self, view, path: str):
+        raise ValueError("checkpointing the SPMD plane is not supported; "
+                         "train in-process to checkpoint, or persist the "
+                         "final model via TopicModel.save")
+
+    def finish(self, stopped: bool):
+        self._finish_run()
+
+    def result(self) -> SessionResult:
+        nwk, nk = self._result_handles()
+        f = self._final
+        state = lda.SamplerState(f["w"], f["d"], f["z"], f["valid"],
+                                 f["doc_start"], f["doc_len"], nwk, nk,
+                                 f["ndk"])
+        return SessionResult(nwk, nk, [], self.info, state, None)
+
+
+class _StreamSpmdPlane(_SpmdPlaneBase):
+    """Each visit feeds ``workers`` consecutive scheduled stream shards to
+    the ``workers`` ranks (the uniform padded shard geometry is one
+    worker's partition); each rank reads its own shard and writes its own
+    ``z`` file.  Correctness anchor: the exactly-once conservation law --
+    after any number of epochs the global counts equal the histogram of
+    the persisted assignments."""
+
+    kind = "stream_spmd"
+
+    def __init__(self, reader, cfg, exec_cfg, epochs, *, seed=0,
+                 mesh_model=2, devices=1, max_shards=None, log_fn=print,
+                 device: Device = None, timeout_s: float = 600.0,
+                 transport: Optional[str] = None):
+        self.transport = transport
+        if isinstance(reader, str):
+            reader = stream_mod.ShardedCorpusReader(reader)
+        self.reader = reader
+        self.cfg = cfg
+        self.exec_cfg = exec_cfg
+        self.epochs = int(epochs)
+        self.seed = int(seed)
+        self.mesh_model = int(mesh_model)
+        self.devices = int(devices)
+        self.max_shards = max_shards
+        self.log_fn = log_fn
+        self.device = resolve_device(device)
+        self.timeout_s = timeout_s
+        self.info: dict = {}
+        self.t0 = time.time()
+        self._ready = False
+
+    def setup(self):
+        if self._ready:
+            return
+        self._ready = True
+        data, model, workers, cfg = _resolve_mesh(self.cfg, self.mesh_model,
+                                                  self.devices)
+        self.workers = workers
+        meta = self.reader.meta
+        if meta.num_shards % workers:
+            raise ValueError(
+                f"stream has {meta.num_shards} shards but the SPMD "
+                f"backend consumes groups of {workers} (= mesh "
+                f"data x model) per sweep; re-shard the stream so the "
+                f"shard count is a multiple of {workers}, or adjust "
+                f"mesh_model/--devices")
+        if meta.tokens_per_shard % cfg.block_tokens:
+            raise ValueError(
+                f"tokens_per_shard={meta.tokens_per_shard} must be a "
+                f"multiple of block_tokens={cfg.block_tokens} for "
+                f"the snapshot executor")
+        self.cfg = cfg
+        self.log_fn(f"[lda] mesh data={data} x model={model} "
+                    f"({workers} workers, {model} servers); stream of "
+                    f"{meta.num_shards} shards in groups of {workers}")
+        route = self.exec_cfg.resolve_route(cfg.V)
+        self.info = {"mode": "stream_spmd", "mesh_data": data,
+                     "mesh_model": model, "workers": workers,
+                     "stream_shards": meta.num_shards,
+                     "tokens_per_shard": meta.tokens_per_shard,
+                     "num_tokens": meta.num_tokens,
+                     "staleness": self.exec_cfg.staleness,
+                     "route": repr(route)}
+        nwk, nk = init_stream(self.reader, cfg, self.seed, device=self.device)
+        loader = stream_mod.StreamingLoader(self.reader, seed=self.seed,
+                                            prefetch=False)
+        self._sched = loader.schedule(stream_mod.Cursor(0, 0), self.epochs)
+        self.total_visits = len(self._sched)
+        if self.max_shards is not None:
+            self.total_visits = min(self.total_visits, self.max_shards)
+        self._start({"kind": "stream_spmd", "cfg": cfg,
+                     "exec_cfg": dataclasses.replace(self.exec_cfg, obs=None),
+                     "seed": self.seed, "data": data, "model": model,
+                     "stream_dir": self.reader.path, "epochs": self.epochs},
+                    init=(nwk.value, nk.value))
+        del nwk, nk
+        self._tokens = [self.reader.shard(s, load_z=False).n_tokens
+                        for s in range(meta.num_shards)]
+        self.shards_done = 0
+        self.tokens_seen = 0
+        self.t0 = time.time()
+
+    def schedule(self):
+        for g in range(0, len(self._sched) // self.workers):
+            yield g
+
+    def _group(self, g: int):
+        return self._sched[g * self.workers:(g + 1) * self.workers]
+
+    def step(self, g: int):
+        from repro_torch.ps.spmd_worker import OP_VISIT
+        self.run.do(OP_VISIT, g)
+        self.steps_done = g + 1
+        group = self._group(g)
+        self.shards_done += len(group)
+        self.tokens_seen += sum(self._tokens[sid] for _, sid in group)
+
+    def view(self, g: int) -> SweepView:
+        # step counts *shard visits* (not groups), so eval cadences mean
+        # the same thing as on the in-process stream plane; callbacks fire
+        # on crossing a multiple, since steps advance by ``workers``
+        cur0 = self._group(g)[0][0]
+        nwk, nk = self._view_handles(g + 1)
+        return SweepView(self, step=self.shards_done,
+                         epoch=cur0.epoch, pos=cur0.pos, shard_id=None,
+                         is_last=(self.shards_done >= self.total_visits),
+                         state=None, nwk=nwk, nk=nk,
+                         tokens_seen=self.tokens_seen)
+
+    def history_row(self, view, p: float) -> dict:
+        el = view.elapsed_s
+        return {"epoch": view.epoch, "pos": view.pos, "perplexity": p,
+                "elapsed_s": el, "tokens_per_s": self.tokens_seen / el}
+
+    def log_line(self, view, p: float) -> str:
+        el = view.elapsed_s
+        return (f"[stream] epoch {view.epoch} group at pos {view.pos:3d}  "
+                f"perplexity {p:9.2f}  "
+                f"({self.tokens_seen / el:,.0f} tok/s)")
+
+    def checkpoint(self, view, path: str):
+        raise ValueError("checkpointing the streamed SPMD plane is not "
+                         "supported yet; train in-process to checkpoint")
+
+    def should_stop(self) -> bool:
+        return (self.max_shards is not None
+                and self.shards_done >= self.max_shards)
+
+    def finish(self, stopped: bool):
+        self._finish_run()
+        if self.shards_done:
+            el = time.time() - self.t0
+            self.log_fn(f"[stream] done: {self.shards_done} shard visits "
+                        f"({self.workers} per sweep), {self.tokens_seen} "
+                        f"tokens in {el:.1f}s "
+                        f"({self.tokens_seen / el:,.0f} tok/s)")
+
+    def result(self) -> SessionResult:
+        nwk, nk = self._result_handles()
+        return SessionResult(nwk, nk, [], self.info, None, self.reader)
+
+
+# ---------------------------------------------------------------------------
 # Session: LDAJob -> plane -> result.
 # ---------------------------------------------------------------------------
 
 class Session:
-    """Resolve a validated ``LDAJob`` into the memory, tiered, stream or
-    net plane and run it on ``device`` (the card unless the caller passes
-    another; the net plane's workers sweep there).
+    """Resolve a validated ``LDAJob`` into the memory, tiered, stream, SPMD
+    or net plane and run it on ``device`` (the card unless the caller
+    passes another; the net plane's workers sweep there, and so do the
+    SPMD ranks).  ``devices`` is the SPMD rank count, the port's
+    counterpart of the JAX package's device count (None:
+    ``default_devices``); the other planes ignore it.
 
     ``run(callbacks)`` executes the schedule and returns a
     ``SessionResult``, with the job's eval cadence wired in as the first
     callback and its checkpoint policy as the last.  ``make_step()``
     exposes the in-memory executor for timing loops.  A job that needs a
-    plane the port does not have yet is refused here, before any device
-    work, with the ROADMAP item that ports it.
+    plane the port does not have would be refused here, before any device
+    work (``unported_planes``; none is left).
     """
 
-    def __init__(self, job: LDAJob, log_fn=print, device: Device = None):
+    def __init__(self, job: LDAJob, log_fn=print, device: Device = None,
+                 devices: Optional[int] = None):
         self.job = job.validate()
         problems = unported_planes(job)
         if problems:
             raise JobValidationError(problems)
         self.device = resolve_device(device)
+        self.devices = (default_devices(self.device) if devices is None
+                        else int(devices))
         self.log_fn = log_fn
         self._plane = None
         self.cfg: Optional[lda.LDAConfig] = None
@@ -964,6 +1398,13 @@ class Session:
                 self.log_fn(f"[api] stream vocab {vocab} overrides "
                             f"vocab_size={job.vocab_size}")
             self.cfg = job.lda_config(vocab)
+            if job.backend == SPMD:
+                self._plane = _StreamSpmdPlane(
+                    reader, self.cfg, job.exec_config(), job.epochs,
+                    seed=job.seed, mesh_model=job.mesh_model,
+                    devices=self.devices, max_shards=job.max_shards,
+                    log_fn=self.log_fn, device=dev)
+                return self._plane
             if job.backend == NET:
                 self._plane = _NetPlane(reader, self.cfg, job.exec_config(),
                                         job.epochs, job, log_fn=self.log_fn,
@@ -984,6 +1425,12 @@ class Session:
                  f"infer it from the corpus"])
         cfg = job.lda_config(vocab)
         self.cfg = cfg
+        if job.backend == SPMD:
+            self._plane = _SpmdPlane(corp, cfg, job.exec_config(), job.sweeps,
+                                     seed=job.seed, mesh_model=job.mesh_model,
+                                     devices=self.devices, log_fn=self.log_fn,
+                                     device=dev)
+            return self._plane
         if job.backend == NET:
             # a sweep over the materialised corpus == one stream epoch
             self._plane = _NetPlane(corp, cfg, job.exec_config(), job.sweeps,
@@ -1010,7 +1457,7 @@ class Session:
         if self.job.eval_every:
             ev = EvalCallback(every=self.job.eval_every,
                               include_last=plane.kind in ("memory",
-                                                          "tiered"),
+                                                          "tiered", "spmd"),
                               log_fn=self.log_fn)
             cbs.append(ev)
         cbs.extend(callbacks)
@@ -1021,6 +1468,8 @@ class Session:
         # save trace/metrics under obs.out_dir on exit (no-op otherwise)
         with _obs.session(self.job.obs if self.job.obs.enabled else None):
             res = _run_loop(plane, cbs)
+        # cfg may have been refined during setup (the SPMD shard count)
+        self.cfg = plane.cfg
         return res._replace(history=ev.history if ev is not None else [])
 
     def make_step(self):

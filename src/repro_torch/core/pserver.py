@@ -19,8 +19,8 @@ over a new tensor and leaves the old one as it was, so a sampler state that
 callers still hold never changes under them.  Application code goes through
 the client API in ``repro_torch/ps``; the raw ``push_sparse`` assumes
 in-range logical rows, which ``MatrixHandle.push_coo`` guarantees.  The
-SPMD collectives of the JAX package (``spmd_pull_all``/``spmd_push_reduce``)
-belong to the multi-process slice of the port.
+SPMD collectives (``spmd_pull_all``/``spmd_push_reduce``) run on the ranks
+of a ``repro_torch.launch.mesh.Mesh``.
 """
 from __future__ import annotations
 
@@ -263,3 +263,23 @@ class DeltaBuffer:
               ) -> Tuple[DistributedMatrix, "DeltaBuffer"]:
         return matrix.push_dense(self.delta), DeltaBuffer(
             torch.zeros_like(self.delta))
+
+
+# ---------------------------------------------------------------------------
+# SPMD pull / push collectives (on the ranks of a launch.mesh.Mesh).
+# ---------------------------------------------------------------------------
+
+def spmd_pull_all(local_shard: torch.Tensor, axis_name: str, *,
+                  mesh) -> torch.Tensor:
+    """Snapshot pull: all-gather every server shard's rows along the model
+    axis (tiled), so the result is the full physical (cyclic-ordered)
+    matrix, the same on every rank of the axis."""
+    return mesh.all_gather(local_shard, axis_name, tag="pull")
+
+
+def spmd_push_reduce(delta_phys: torch.Tensor, axis_name: str, *,
+                     mesh) -> torch.Tensor:
+    """Push: sum the workers' full physical-order dense deltas over the
+    model axis and keep only this server's row slice -- the exactly-once
+    additive push of paper sections 2.4-2.5 as one reduce-scatter."""
+    return mesh.reduce_scatter(delta_phys, axis_name, tag="push")

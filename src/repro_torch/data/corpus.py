@@ -183,6 +183,43 @@ def _offsets(d: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return _starts_of(doc_len), doc_len
 
 
+def shard_tokens(corpus: Corpus, num_shards: int, block_tokens: int
+                 ) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                 np.ndarray, np.ndarray]]:
+    """Partition documents across data-parallel workers (Spark partitions,
+    paper Fig. 3).  Documents are assigned round-robin by size (greedy LPT)
+    so token counts balance; each shard's arrays are padded to
+    ``block_tokens``.  Returns per-shard (w, d_local, valid, doc_start,
+    doc_len), byte-equal to the JAX package's."""
+    order = np.argsort(-corpus.doc_len, kind="stable")
+    loads = np.zeros(num_shards, dtype=np.int64)
+    assign = np.empty(corpus.num_docs, dtype=np.int32)
+    for doc in order:
+        s = int(np.argmin(loads))
+        assign[doc] = s
+        loads[s] += corpus.doc_len[doc]
+
+    shards = []
+    for s in range(num_shards):
+        docs = np.where(assign == s)[0]
+        tok_mask = np.isin(corpus.d, docs)
+        w = corpus.w[tok_mask]
+        d = _compact_docs(corpus.d[tok_mask])
+        doc_start, doc_len = _offsets(corpus.d[tok_mask])
+        # every shard pads to at least one full block: an empty shard
+        # (num_shards > num_docs) still yields block-shaped, all-invalid
+        # arrays
+        pad = (-len(w)) % block_tokens
+        if len(w) + pad == 0:
+            pad = block_tokens
+        valid = np.concatenate([np.ones(len(w), bool), np.zeros(pad, bool)])
+        w = np.concatenate([w, np.zeros(pad, np.int32)])
+        d = np.concatenate([d, np.zeros(pad, np.int32)])
+        shards.append((w.astype(np.int32), d.astype(np.int32), valid,
+                       doc_start, doc_len))
+    return shards
+
+
 def fold_eval_split(corpus: Corpus, seed: int = 2
                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Alternate tokens of each held-out doc into fold-in vs eval halves.

@@ -1,6 +1,7 @@
 """Command-line entry points of the port: ``python -m
 repro_torch.launch.lda`` (train; ``--backend net`` through a parameter
-server and a worker pool), ``python -m repro_torch.launch.topic_serve``
+server and a worker pool, ``--devices N`` over a mesh of N rank processes,
+whose layout ``launch.mesh`` holds), ``python -m repro_torch.launch.topic_serve``
 (train -> snapshot -> serve), ``python -m repro_torch.launch.ps_server``
 (a standalone parameter server) and ``python -m
 repro_torch.launch.net_smoke`` (the network plane's fault drill).  They

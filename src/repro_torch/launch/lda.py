@@ -30,8 +30,14 @@ package's) when ``--server host:port`` is given:
   PYTHONPATH=src python -m repro_torch.launch.lda --backend net \
       --workers 2 --server $(cat /tmp/ps.addr) --stream-dir /data/s -k 100
 
-``--devices`` (SPMD) translates as in the JAX package's launcher, and the
-session refuses it with the ROADMAP item that ports it.
+SPMD (``--devices N --mesh-model M``): N rank processes in a ``N/M x M``
+``(data, model)`` mesh, workers = every rank (tokens split over data x
+model), servers = the model axis (cyclic rows of n_wk, paper section 2.2),
+over ``torch.distributed``: NCCL when each rank has a card of its own, gloo
+when the ranks share one card or run on the CPU; with ``--stream-dir``,
+groups of N stream shards feed the ranks:
+  PYTHONPATH=src python -m repro_torch.launch.lda --devices 4 \
+      --mesh-model 2 --device cpu
 """
 from __future__ import annotations
 
@@ -124,6 +130,22 @@ def run_single(corp, cfg, sweeps: int, seed: int, eval_every: int, out=None,
     return res.state, res.history
 
 
+def run_distributed(corp, cfg, sweeps: int, seed: int, eval_every: int,
+                    mesh_model: int, staleness: int = 0, hot_words=None,
+                    devices=None, device=None):
+    """SPMD training through the session: ``devices`` ranks (None: the
+    session's default) with ``mesh_model`` servers, on ``device`` (the card
+    unless the caller passes another); returns the history list."""
+    job = api.LDAJob(corpus=corp, num_topics=cfg.num_topics,
+                     vocab_size=cfg.vocab_size, alpha=cfg.alpha,
+                     beta=cfg.beta, mh_steps=cfg.mh_steps,
+                     block_tokens=cfg.block_tokens,
+                     backend=api.SPMD, mesh_model=mesh_model,
+                     staleness=staleness, hot_words=hot_words,
+                     sweeps=sweeps, seed=seed, eval_every=eval_every)
+    return api.Session(job, device=device, devices=devices).run().history
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--docs", type=int, default=1000)
@@ -139,14 +161,14 @@ def main(argv=None) -> int:
                          "kernel the hand-written one) or 'cpu' (the plain "
                          "PyTorch path)")
     ap.add_argument("--devices", type=int, default=0,
-                    help="SPMD over N devices (not ported yet)")
+                    help="SPMD over N rank processes (a mesh of N / "
+                         "--mesh-model data rows x --mesh-model servers)")
     ap.add_argument("--mesh-model", type=int, default=2)
     ap.add_argument("--backend", default="",
                     choices=["", api.IN_PROCESS, api.SPMD, api.NET],
                     help="parameter-server backend (default: inferred; "
                          "'net' trains through worker subprocesses against "
-                         "a network PS, DESIGN.md sec. 15; spmd is not "
-                         "ported yet)")
+                         "a network PS, DESIGN.md sec. 15)")
     ap.add_argument("--server", default="",
                     help="net backend: address (host:port) of a running "
                          "launch.ps_server process (default: embed one)")
@@ -202,7 +224,8 @@ def main(argv=None) -> int:
               f"(--sweeps is the in-memory trainer's knob and is ignored)")
     try:
         job = job_from_args(args)
-        session = api.Session(job, device=device)
+        session = api.Session(job, device=device,
+                              devices=args.devices or None)
         result = session.run()
     except api.JobValidationError as e:
         ap.error(str(e))
@@ -213,10 +236,10 @@ def main(argv=None) -> int:
     if args.backend == api.NET:
         print(f"[lda] net training done: {result.info.get('workers')} "
               f"workers against {result.info.get('server')}")
-    elif args.stream_dir:
+    elif args.stream_dir and not args.devices:
         print(f"[lda] stream training done ({result.info['mode']} "
               f"executor); checkpoint at {job.checkpoint.path}")
-    elif args.checkpoint:
+    elif args.checkpoint and not args.devices and not args.stream_dir:
         print(f"[lda] checkpointed assignments to {args.checkpoint}")
 
     os.makedirs(args.out, exist_ok=True)

@@ -10,14 +10,14 @@ The one gateway to the distributed count tables:
 
 Routes (``DenseRoute`` / ``CooRoute`` / ``HybridRoute``) make the paper's
 section-3.3 hybrid push a declarative policy; backends
-(``InProcessBackend`` / ``TieredBackend`` / ``NetBackend``) swap the
-collectives -- and, for the tiered backend, the storage substrate itself (a
+(``InProcessBackend`` / ``SpmdBackend`` / ``TieredBackend`` /
+``NetBackend``) swap the collectives -- and, for the tiered backend, the storage substrate itself (a
 device hot-row cache over a host memmap cold tier, ``ps.tiered``); for the
 network backend a standalone server process (``ps.net``) -- without
 touching call sites.  ``ps.autotune`` measures routes and staleness bounds.
 ``core/pserver.py`` is the storage layer underneath.
 """
-from repro_torch.ps.backend import Backend, InProcessBackend
+from repro_torch.ps.backend import Backend, InProcessBackend, SpmdBackend
 from repro_torch.ps.client import (BACKEND_NAMES, BackendConfigError,
                                    MatrixHandle, PSClient, PullHandle,
                                    ReadOnlyView, VectorHandle, client_for)
@@ -34,7 +34,7 @@ from repro_torch.ps import net
 from repro_torch.ps.net import NetBackend, NetClient, NetMatrixHandle
 
 __all__ = [
-    "Backend", "InProcessBackend", "TieredBackend",
+    "Backend", "InProcessBackend", "SpmdBackend", "TieredBackend",
     "MatrixHandle", "PSClient", "PullHandle", "ReadOnlyView",
     "VectorHandle", "client_for",
     "ColdStore", "TieredMatrix", "TieredMatrixHandle", "TierStats",

@@ -17,9 +17,9 @@ client surface:
 
 Writes are functional -- a push returns a new handle over a new tensor --
 except the ``store_block_`` of an executor that owns a private copy of the
-table.  The in-process, tiered and network backends are ported; SPMD is
-named so that a job asking for it gets an error that says where it is
-planned.
+table.  All four backends of the JAX package are ported: in-process,
+SPMD (``torch.distributed`` collectives over a ``launch.mesh.Mesh``),
+tiered and network.
 """
 from __future__ import annotations
 
@@ -31,13 +31,12 @@ import torch
 from repro_torch import obs as _obs
 from repro_torch.core.pserver import DistributedMatrix, DistributedVector
 from repro_torch.device import Device, resolve_device
-from repro_torch.ps.backend import Backend, InProcessBackend
+from repro_torch.ps.backend import Backend, InProcessBackend, SpmdBackend
 from repro_torch.ps.routes import DenseRoute, PushRoute, Reassign, RouteDelta
 
-#: The backend names of the JAX package; all but ``spmd`` are ported.
+#: The backend names of the JAX package, all ported.
 BACKEND_NAMES = ("in_process", "spmd", "tiered", "net")
-_PORTED = ("in_process", "tiered", "net")
-_LATER = {"spmd": "ROADMAP A, 'SPMD'"}
+_PORTED = BACKEND_NAMES
 
 
 class BackendConfigError(ValueError):
@@ -328,37 +327,64 @@ class PSClient:
     @classmethod
     def create(cls, num_shards: int = 1, *,
                backend: Union[str, Backend, None] = None,
+               mesh=None, axis_name=None,
+               model_axis: Optional[str] = None,
                server: Optional[str] = None) -> "PSClient":
         """Build a client.  ``backend`` is a name (``"in_process"``,
-        ``"tiered"``, ``"net"``) or a ``Backend`` instance; None means
-        in-process.  ``backend="net"`` with ``server="host:port"`` connects
-        a ``NetClient`` to a running parameter server (either package's
+        ``"spmd"``, ``"tiered"``, ``"net"``) or a ``Backend`` instance.
+        ``backend=None`` infers as the JAX package does: no mesh/axes means
+        in-process, any of ``mesh`` / ``axis_name`` / ``model_axis`` means
+        ``SpmdBackend`` -- ``axis_name`` defaults to both of the mesh's
+        axes (every rank is a worker), ``model_axis`` names the server
+        axis holding the cyclic ``n_wk`` rows; ``mesh`` is the
+        ``launch.mesh.Mesh`` its collectives run on.
+        ``backend="net"`` with ``server="host:port"`` connects a
+        ``NetClient`` to a running parameter server (either package's
         ``launch.ps_server``); without ``server`` the net backend is
-        detached.  ``"spmd"`` raises ``BackendConfigError`` naming the
-        ROADMAP item that ports it."""
+        detached."""
         if isinstance(backend, str):
-            if backend in _LATER:
-                raise BackendConfigError(
-                    f"backend {backend!r} is not ported yet: "
-                    f"{_LATER[backend]}")
-            if backend == "tiered":
-                from repro_torch.ps.tiered import TieredBackend
-                backend = TieredBackend()
-            elif backend == "net":
-                from repro_torch.ps.net import NetBackend, NetClient
-                backend = NetBackend(
-                    net=NetClient.connect(server) if server else None)
-            elif backend == "in_process":
+            backend = cls._backend_by_name(backend, server=server, mesh=mesh,
+                                           axis_name=axis_name,
+                                           model_axis=model_axis)
+        elif backend is None:
+            if mesh is None and axis_name is None and model_axis is None:
                 backend = InProcessBackend()
             else:
-                raise BackendConfigError(f"unknown backend {backend!r}")
-        elif backend is None:
-            backend = InProcessBackend()
+                backend = cls._spmd_backend(mesh, axis_name, model_axis)
         elif not isinstance(backend, Backend):
             raise BackendConfigError(
                 f"backend must be a name or a ps.Backend instance "
                 f"(got {type(backend).__name__})")
         return cls(backend=backend, num_shards=num_shards)
+
+    @staticmethod
+    def _spmd_backend(mesh, axis_name, model_axis) -> SpmdBackend:
+        if axis_name is None and mesh is not None:
+            axis_name = ("data", "model")
+        if isinstance(axis_name, list):
+            axis_name = tuple(axis_name)
+        return SpmdBackend(axis_name=axis_name, model_axis=model_axis,
+                           mesh=mesh)
+
+    @classmethod
+    def _backend_by_name(cls, name: str, *, server, mesh, axis_name,
+                         model_axis) -> Backend:
+        if name == "in_process":
+            return InProcessBackend()
+        if name == "spmd":
+            if mesh is None and axis_name is None:
+                raise BackendConfigError(
+                    "backend='spmd' needs mesh= or axis_name= (the "
+                    "shard_map axes the collectives run over)")
+            return cls._spmd_backend(mesh, axis_name, model_axis)
+        if name == "tiered":
+            from repro_torch.ps.tiered import TieredBackend
+            return TieredBackend()
+        if name == "net":
+            from repro_torch.ps.net import NetBackend, NetClient
+            return NetBackend(
+                net=NetClient.connect(server) if server else None)
+        raise BackendConfigError(f"unknown backend {name!r}")
 
     def with_backend(self, backend: Backend) -> "PSClient":
         return dataclasses.replace(self, backend=backend)
@@ -423,6 +449,9 @@ class PSClient:
         return VectorHandle(value, self)
 
 
-def client_for(cfg) -> PSClient:
-    """Client matching an ``LDAConfig`` (its shard count)."""
-    return PSClient.create(num_shards=cfg.num_shards)
+def client_for(cfg, *, mesh=None, axis_name=None,
+               model_axis: Optional[str] = None) -> PSClient:
+    """Client matching an ``LDAConfig`` (its shard count); mesh/axes as in
+    ``PSClient.create``."""
+    return PSClient.create(num_shards=cfg.num_shards, mesh=mesh,
+                           axis_name=axis_name, model_axis=model_axis)

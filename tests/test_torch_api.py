@@ -109,20 +109,33 @@ def test_job_validation_matches_jax(corpora, bad):
     (dict(staleness="auto"), "Autotuner"),
 ])
 def test_session_refuses_unported_planes(corpora, tmp_path, plane, item):
-    """``Session`` refuses the plane not ported yet (SPMD), naming its
-    ROADMAP item.  Tiered storage, the autotuner and the network PS are
-    ported: their planes run on the CPU and give the JAX package's counts
+    """Every plane is ported, and ``unported_planes`` names none.  SPMD
+    runs on 4 gloo rank processes (mesh 2 x 2): its counts are the
+    histogram of the whole mesh's assignments, the token mass is the
+    corpus's, and its perplexity falls.  Tiered storage, the autotuner
+    and the network PS run on the CPU and give the JAX package's counts
     bitwise (for "auto", the JAX fit run with the plan the port chose; for
     the net plane, one worker, whose lease order is deterministic, and
     the final perplexity, read once every commit has landed).  A net job
     with two workers conserves counts: the server's tables are the
     histogram of the persisted assignments."""
     job = tapi.LDAJob(corpus=corpora[1], **plane)
+    assert tapi.session.unported_planes(job) == []
     if item == "SPMD":
-        with pytest.raises(tapi.JobValidationError, match=item):
-            tapi.Session(job, device="cpu")
-        with pytest.raises(tapi.JobValidationError, match="not ported yet"):
-            tapi.APSLDA(job, device="cpu").fit()
+        from repro_torch.core import lightlda as tlda
+        est = tapi.APSLDA(dataclasses.replace(
+            job, num_topics=8, sweeps=2, eval_every=1, block_tokens=512,
+            seed=3), device="cpu", devices=4, **QUIET)
+        m = est.fit()
+        st = est.result_.state
+        nwk, nk, _ = tlda.rebuild_counts(st.w, st.d, st.z, st.valid,
+                                         st.ndk.shape[0], m.cfg)
+        np.testing.assert_array_equal(m.nwk, nwk.to_dense().numpy())
+        np.testing.assert_array_equal(m.nk, nk.value.numpy())
+        assert int(m.nk.sum()) == corpora[1].num_tokens
+        ppl = [r["perplexity"] for r in m.history]
+        assert len(ppl) == 2 and ppl[1] < ppl[0]
+        assert m.info["mesh_data"] == m.info["mesh_model"] == 2
         return
     def tier_dir(name):
         return ({"tier_dir": str(tmp_path / name)} if "storage" in plane

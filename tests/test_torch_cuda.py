@@ -547,3 +547,38 @@ def test_pipelined_sweep_times_the_z_update_under_obs(card):
         s.close(save=False)
     assert h is not None and h.count == 1 and h.total > 0
     assert torch.equal(plain.z, traced.z)
+
+
+@pytest.mark.parametrize("extra", [{"hot_words": 60}, {"staleness": 1}],
+                         ids=["hybrid", "dense"])
+def test_spmd_ranks_sharing_the_card_match_the_cpu(card, extra):
+    """Two SPMD ranks sharing the card (gloo: NCCL refuses two ranks on
+    one GPU) equal two ranks on the CPU bitwise in n_wk, n_k, z and n_dk;
+    each rank ran the training kernels on the card: one mh_draws_train,
+    mh_sample and delta_push a group (the routed push's dense part), and
+    with the hybrid route one delta_apply_coo (its gathered COO part)."""
+    from repro_torch.api import APSLDA, LDAJob
+    from repro_torch.data.corpus import synthetic_corpus
+
+    corp = synthetic_corpus(120, 900, true_topics=8, seed=2)
+    job = LDAJob(corpus=corp, num_topics=24, block_tokens=1024, sweeps=2,
+                 eval_every=0, backend="spmd", mesh_model=2, **extra)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        est = APSLDA(job, log_fn=lambda m: None, device=dev, devices=2)
+        est.fit()
+        out[dev] = est.result_
+    gpu, cpu = out["cuda"], out["cpu"]
+    assert gpu.info["collective"] == ("nccl" if torch.cuda.device_count()
+                                      >= 2 else "gloo")
+    for a, b in ((gpu.nwk.value, cpu.nwk.value), (gpu.nk.value, cpu.nk.value),
+                 (gpu.state.z, cpu.state.z), (gpu.state.ndk, cpu.state.ndk)):
+        assert torch.equal(a.cpu(), b)
+    for rank in gpu.info["ranks"]:
+        n = rank["launches"]
+        groups = n["mh_sample"]
+        assert groups > 0 and rank["steps"] == job.sweeps
+        assert n["mh_draws_train"] == n["delta_push"] == groups
+        assert n["delta_apply_coo"] == (groups if "hot_words" in extra
+                                        else 0)
+        assert n["alias_build"] == job.sweeps

@@ -1,8 +1,7 @@
 """The port's launchers against the JAX package's: ``repro_torch.launch.lda``
 on the CPU writes the JAX launcher's perplexities (within rtol 1e-5) in
-memory and stream modes, checkpoint and resume included; SPMD, which the
-port does not have, exits naming its ROADMAP item, and ``--backend net``
-runs to the end; the serving launcher's
+memory and stream modes, checkpoint and resume included; ``--devices``
+(SPMD) and ``--backend net`` run to the end; the serving launcher's
 selftest passes; both refuse to start without a card unless given
 ``--device cpu``."""
 import json
@@ -116,7 +115,8 @@ NET = ["--backend", "net", "--eval-every", "1"]
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--devices", "4"], "ROADMAP A, 'SPMD'"),
+    (["--devices", "4", "--mesh-model", "2", "--sweeps", "2",
+      "--eval-every", "1"], "ROADMAP A, 'SPMD'"),
     (NET + ["--workers", "1", "--sweeps", "2"],
      "ROADMAP A, 'Network parameter server'"),
     (NET + ["--workers", "2", "--server", "{server}", "--stream-dir",
@@ -125,18 +125,45 @@ NET = ["--backend", "net", "--eval-every", "1"]
 ])
 def test_unported_planes_exit_naming_their_item(monkeypatch, tmp_path,
                                                 capsys, argv, item):
-    """SPMD is not ported: the launcher exits naming its ROADMAP item.  The
-    network PS (``item``'s other entry) is ported: ``--backend net`` runs
-    to the end -- with one worker its final perplexity is the JAX
-    launcher's on the same argv -- and ``--server`` trains two workers
-    against a ``launch.ps_server`` process, conserving counts there."""
-    if "--backend" not in argv:
-        with pytest.raises(SystemExit) as exc:
-            tlaunch.main(SMALL + argv + ["--device", "cpu", "--out",
-                                         str(tmp_path)])
-        assert exc.value.code != 0
-        assert item in capsys.readouterr().err
-        assert not (tmp_path / "history.json").exists()
+    """Every plane is ported; ``item`` names each one's ROADMAP entry,
+    which no longer appears.  ``--devices 4 --mesh-model 2`` trains on 4
+    gloo rank processes, and its counts and perplexities equal the port's
+    ``Session`` on the same job.  ``--backend net`` runs to the end -- with
+    one worker its final perplexity is the JAX launcher's on the same
+    argv -- and ``--server`` trains two workers against a
+    ``launch.ps_server`` process, conserving counts there."""
+    if "--devices" in argv:
+        from repro_torch import api as tapi
+        from repro_torch.data.corpus import synthetic_corpus
+
+        runs = []
+        real_run = tapi.Session.run
+
+        def spy(self, *a, **k):
+            runs.append(real_run(self, *a, **k))
+            return runs[-1]
+
+        monkeypatch.setattr(tapi.Session, "run", spy)
+        assert tlaunch.main(SMALL + argv + ["--device", "cpu", "--out",
+                                            str(tmp_path)]) == 0
+        monkeypatch.undo()
+        out = capsys.readouterr()
+        assert item not in out.err
+        assert "mesh data=2 x model=2" in out.out
+        corp = synthetic_corpus(100, 300, true_topics=6, mean_doc_len=40,
+                                seed=3)
+        job = tapi.LDAJob(corpus=corp, num_topics=8, block_tokens=256,
+                          seed=3, sweeps=2, eval_every=1, backend="spmd",
+                          mesh_model=2)
+        want = tapi.Session(job, device="cpu", devices=4,
+                            log_fn=lambda *a: None).run()
+        (got,) = runs
+        assert got.info["collective"] == "gloo" and got.info["workers"] == 4
+        np.testing.assert_array_equal(got.nwk.value.numpy(),
+                                      want.nwk.value.numpy())
+        np.testing.assert_array_equal(got.nk.value.numpy(),
+                                      want.nk.value.numpy())
+        assert _ppl(str(tmp_path)) == [r["perplexity"] for r in want.history]
         return
     if "--server" not in argv:
         t, j = _both(monkeypatch, tmp_path, SMALL + argv, "net")

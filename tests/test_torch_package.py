@@ -86,8 +86,8 @@ TRAINER_CALL = re.compile(
 def test_launchers_orchestrate_only_through_api():
     offenders = []
     files = sorted((PKG / "launch").rglob("*.py"))
-    assert len(files) == 5      # __init__, lda, topic_serve, ps_server,
-    #                             net_smoke
+    assert len(files) == 6      # __init__, lda, topic_serve, ps_server,
+    #                             net_smoke, mesh
     for path in files:
         for lineno, line in enumerate(path.read_text().splitlines(), 1):
             if TRAINER_CALL.search(line):

@@ -260,13 +260,28 @@ def test_handles_pull_copies_and_store_block_variants():
 
 
 def test_client_names_unported_backends():
-    """SPMD is refused with its ROADMAP item; the tiered and network
-    backends are ported: each client has the JAX package's backend (all
-    four moments the identity), the net one detached without ``server``."""
+    """Every backend of the JAX package is ported.  ``backend="spmd"``
+    builds an ``SpmdBackend`` over the JAX package's axes (by name, or
+    inferred from the axes as the JAX package infers it), and without
+    axes or a mesh it is refused with the JAX package's text; the tiered
+    and network backends have the JAX package's backend (all four moments
+    the identity), the net one detached without ``server``."""
     assert isinstance(tps.PSClient.create().backend, tps.InProcessBackend)
     assert isinstance(tps.InProcessBackend(), tps.Backend)
-    with pytest.raises(tps.BackendConfigError, match="ROADMAP A, 'SPMD'"):
+    axes = dict(axis_name=("data", "model"), model_axis="model")
+    for backend in ("spmd", None):
+        tb = tps.PSClient.create(backend=backend, **axes).backend
+        jb = jps.PSClient.create(backend=backend, **axes).backend
+        assert isinstance(tb, tps.SpmdBackend) and isinstance(tb,
+                                                              tps.Backend)
+        assert (tb.axis_name, tb.model_axis) == (jb.axis_name, jb.model_axis)
+    with pytest.raises(jps.BackendConfigError) as je:
+        jps.PSClient.create(backend="spmd")
+    with pytest.raises(tps.BackendConfigError) as te:
         tps.PSClient.create(backend="spmd")
+    assert str(te.value).split("; valid")[0] == \
+        str(je.value).split("; valid")[0]
+    assert "spmd" in te.value.valid
     for name in ("tiered", "net"):
         tb = tps.PSClient.create(backend=name).backend
         jb = jps.PSClient.create(backend=name).backend
