@@ -14,7 +14,8 @@
 """
 from repro_torch.api.callbacks import (Callback, CheckpointCallback,
                                        EvalCallback, LogCallback,
-                                       PublishCallback, SweepView)
+                                       PublishCallback, SweepView,
+                                       TraceCallback)
 from repro_torch.api.estimator import APSLDA
 from repro_torch.api.job import (IN_PROCESS, NET, SPMD, CheckpointPolicy,
                                  JobValidationError, LDAJob)
@@ -27,6 +28,6 @@ __all__ = [
     "APSLDA", "LDAJob", "TopicModel", "Session", "SessionResult",
     "CheckpointPolicy", "JobValidationError", "IN_PROCESS", "NET", "SPMD",
     "Callback", "CheckpointCallback", "EvalCallback", "LogCallback",
-    "PublishCallback", "SweepView", "ObsConfig",
+    "PublishCallback", "SweepView", "TraceCallback", "ObsConfig",
     "CooRoute", "DenseRoute", "HybridRoute", "PushRoute", "resolve_device",
 ]

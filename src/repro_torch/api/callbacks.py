@@ -18,10 +18,10 @@ Built-ins:
   * ``PublishCallback``     the continuous-learning handoff: publishes a
                             serving snapshot through a
                             ``SnapshotPublisher`` every N visits while the
-                            engine keeps serving.
-
-The JAX package's ``TraceCallback`` belongs to ROADMAP A, 'Timing and
-trace replay'.
+                            engine keeps serving;
+  * ``TraceCallback``       attaches the ``repro_torch.obs`` telemetry
+                            plane to one fit (per-visit spans, a
+                            ``tokens_seen`` counter series).
 """
 from __future__ import annotations
 
@@ -31,6 +31,7 @@ from typing import IO, Optional, Union
 
 import numpy as np
 
+from repro_torch import obs as _obs
 
 
 class SweepView:
@@ -316,3 +317,64 @@ class PublishCallback(Callback):
     def on_fit_end(self, view: Optional[SweepView]) -> None:
         if self.include_last and view is not None:
             self._publish(view)
+
+
+class TraceCallback(Callback):
+    """Attach the ``repro_torch.obs`` telemetry plane to one fit.
+
+    Two modes:
+
+      * ``TraceCallback(ObsConfig(enabled=True, out_dir=...))`` -- the
+        callback *owns* an obs session: installed at ``on_fit_start``,
+        saved (trace.json + metrics.jsonl under ``out_dir``) and closed
+        at ``on_fit_end``.  This is the hook for runs driven through
+        hand-built planes, where no ``LDAJob.obs`` exists to do the
+        wiring.
+      * ``TraceCallback()`` -- adopt whatever session is already
+        installed (e.g. by ``Session.run`` honouring ``LDAJob.obs``) and
+        only contribute the per-visit spans.
+
+    Either way the callback is an observer like every other: it reads
+    clocks and the view, and never touches the state or the random
+    stream, so the trained model is bitwise identical with or without it.
+    Per visit it records a ``session.visit`` span (host wall time from
+    the previous visit boundary) and a ``tokens_seen`` counter series;
+    ``fit.start`` and ``fit.end`` are instant events.
+    """
+
+    def __init__(self, obs_cfg: Optional["_obs.ObsConfig"] = None):
+        self.obs_cfg = obs_cfg
+        self._session: Optional["_obs.ObsSession"] = None
+        self._last_ns: Optional[int] = None
+
+    def on_fit_start(self, info: dict) -> None:
+        if (self.obs_cfg is not None and self.obs_cfg.enabled
+                and _obs.active() is None):
+            self._session = _obs.ObsSession(self.obs_cfg).install()
+        tr = _obs.tracer()
+        if tr is not None:
+            tr.instant("fit.start", cat="session",
+                       **{k: v for k, v in info.items()
+                          if isinstance(v, (int, float, str, bool,
+                                            type(None)))})
+        self._last_ns = time.perf_counter_ns()
+
+    def on_sweep_end(self, view: SweepView) -> None:
+        tr = _obs.tracer()
+        if tr is None:
+            return
+        now = time.perf_counter_ns()
+        if self._last_ns is not None:
+            tr.complete("session.visit", self._last_ns, now, cat="session",
+                        step=view.step, epoch=view.epoch,
+                        shard=view.shard_id)
+        tr.counter("tokens_seen", tokens=view.tokens_seen)
+        self._last_ns = now
+
+    def on_fit_end(self, view: Optional[SweepView]) -> None:
+        tr = _obs.tracer()
+        if tr is not None:
+            tr.instant("fit.end", cat="session")
+        if self._session is not None:
+            self._session.close(save=True)
+            self._session = None

@@ -7,8 +7,10 @@ four tables, and a JAX ``SamplerState``'s arrays (``nwk`` in its physical
 cyclic layout), from which a sweep starts on the same state in both
 packages; and a JAX SPMD state (``init_distributed_state``'s stacked
 per-worker arrays and the physical ``n_wk``) into one rank's state, from
-which one SPMD sweep starts on the same state in both packages.  Carrying
-the alias tables too matters: the
+which one SPMD sweep starts on the same state in both packages; and the
+two Spark-LDA baselines' states (EM's responsibilities and expected
+counts, online VB's λ and step), from which both packages iterate on the
+same state.  Carrying the alias tables too matters: the
 assignments of an alias table depend on the order its stacks were filled,
 so only identical tables give identical fold-in chains -- which is what lets
 a whole fold-in be compared bitwise between the packages.
@@ -20,6 +22,8 @@ import torch
 from repro_torch.api.model import (Device, TopicModel, as_tensor,
                                    cfg_from_dict, resolve_device)
 from repro_torch import ps
+from repro_torch.core.lda_em import EMState
+from repro_torch.core.lda_online import OnlineState
 from repro_torch.core.lightlda import FrozenModel, SamplerState
 
 
@@ -93,3 +97,20 @@ def spmd_state_from_arrays(w, d, valid, doc_start, doc_len, z, ndk,
                                                         (i + 1) * rps]),
                                            num_rows=cfg.V),
                         client.wrap_vector(i32(nk)), i32(ndk[r]))
+
+
+def em_state_from_arrays(gamma, ndk, nwk, nk,
+                         device: Device = None) -> EMState:
+    """A port ``EMState`` holding exactly a JAX ``EMState``'s float32
+    arrays."""
+    dev = resolve_device(device)
+    return EMState(*(as_tensor(x, dev).to(torch.float32)
+                     for x in (gamma, ndk, nwk, nk)))
+
+
+def online_state_from_arrays(lam, t, device: Device = None) -> OnlineState:
+    """A port ``OnlineState`` holding exactly a JAX ``OnlineState``'s λ
+    (float32 [K, V]) and step counter (int32 scalar)."""
+    dev = resolve_device(device)
+    return OnlineState(as_tensor(lam, dev).to(torch.float32),
+                       as_tensor(t, dev).to(torch.int32).reshape(()))

@@ -13,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-# log_likelihood forms the [N, K] gathered rows this many elements at a time
+# log_likelihood and fold_in_theta form their [N, K] gathered rows this many
+# elements at a time
 _CHUNK_ELEMS = 1 << 26
 
 
@@ -48,17 +49,23 @@ def log_likelihood(w: torch.Tensor, d: torch.Tensor, valid: torch.Tensor,
 def fold_in_theta(w: torch.Tensor, d: torch.Tensor, valid: torch.Tensor,
                   phi: torch.Tensor, num_docs: int, alpha: float,
                   num_iters: int = 20) -> torch.Tensor:
-    """Estimate θ for held-out docs with φ frozen (EM on responsibilities)."""
+    """Estimate θ for held-out docs with φ frozen (EM on responsibilities).
+    Each iteration forms the [N, K] responsibilities ``_CHUNK_ELEMS``
+    elements at a time and adds them into the new counts chunk by chunk,
+    in token order, as one ``index_add_`` over all of them would."""
     k = phi.shape[1]
-    d = d.long()
+    d, w = d.long(), w.long()
+    step = max(1, _CHUNK_ELEMS // max(k, 1))
     ndk = torch.ones((num_docs, k), dtype=torch.float32, device=phi.device)
-    phi_rows = phi[w.long()]                                  # [N, K]
     wgt = valid.to(torch.float32)[:, None]
     for _ in range(num_iters):
         theta = theta_from_counts(ndk, alpha)
-        resp = theta[d] * phi_rows
-        resp = resp / torch.clamp_min(resp.sum(-1, keepdim=True), 1e-30)
-        ndk = torch.zeros_like(ndk).index_add_(0, d, resp * wgt)
+        ndk = torch.zeros_like(ndk)
+        for lo in range(0, w.shape[0], step):
+            sl = slice(lo, lo + step)
+            resp = theta[d[sl]] * phi[w[sl]]
+            resp = resp / torch.clamp_min(resp.sum(-1, keepdim=True), 1e-30)
+            ndk.index_add_(0, d[sl], resp * wgt[sl])
     return theta_from_counts(ndk, alpha)
 
 

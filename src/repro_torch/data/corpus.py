@@ -227,3 +227,12 @@ def fold_eval_split(corpus: Corpus, seed: int = 2
     rng = np.random.default_rng(seed)
     coin = rng.random(corpus.num_tokens) < 0.5
     return corpus.w, corpus.d, coin, ~coin
+
+
+def doc_term_matrix(corpus: Corpus, docs: np.ndarray) -> np.ndarray:
+    """Dense doc-term counts for a batch of docs (online-VB pipeline)."""
+    out = np.zeros((len(docs), corpus.vocab_size), np.float32)
+    for i, doc in enumerate(docs):
+        s, l = corpus.doc_start[doc], corpus.doc_len[doc]
+        np.add.at(out[i], corpus.w[s:s + l], 1.0)
+    return out

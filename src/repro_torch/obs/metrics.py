@@ -193,7 +193,8 @@ class MetricsRegistry:
 
 
 def load_jsonl(path: str) -> List[dict]:
-    """Parse a metrics JSONL dump back into dicts (for obs_report)."""
+    """Parse a metrics JSONL dump back into dicts (``launch.obs_report``
+    renders them)."""
     out = []
     with open(path) as f:
         for line in f:

@@ -200,6 +200,29 @@ class Tracer:
         endpoints), on the calling thread's track or on lane ``tid``."""
         self._complete(name, cat, t0_ns, t1_ns, args or None, tid)
 
+    def instant(self, name: str, cat: str = "host", **args) -> None:
+        """A Chrome instant event (``"ph": "i"``, thread scope) on the
+        calling thread's track: a moment, such as a fit's start."""
+        if not _host_time_ok():
+            return
+        ev = {"name": name, "cat": cat, "ph": "i", "s": "t",
+              "pid": self.pid, "tid": self._tid(),
+              "ts": self._us(time.perf_counter_ns())}
+        if args:
+            ev["args"] = args
+        with self._lock:
+            self._events.append(ev)
+
+    def counter(self, name: str, **values) -> None:
+        """A Chrome counter event (``"ph": "C"``) -- renders as a stacked
+        area series in Perfetto."""
+        if not _host_time_ok():
+            return
+        ev = {"name": name, "ph": "C", "pid": self.pid,
+              "ts": self._us(time.perf_counter_ns()), "args": values}
+        with self._lock:
+            self._events.append(ev)
+
     # -- output -----------------------------------------------------------
     def events(self) -> List[dict]:
         with self._lock:

@@ -18,9 +18,8 @@ forces one retry for every op type a run uses.
 Telemetry: every request records ``ps.rpc.<op>`` spans plus
 ``ps.rpc.bytes_out.<op>`` / ``ps.rpc.bytes_in.<op>`` / ``ps.rpc.calls.<op>``
 counters, ``ps.rpc.retries`` / ``ps.rpc.reconnects`` totals and a
-``ps.rpc.ms.<op>`` latency histogram -- what the JAX package's
-``launch.obs_report`` reads for its "network" section (the port's
-``obs_report`` is ROADMAP A, 'Timing and trace replay').
+``ps.rpc.ms.<op>`` latency histogram -- what ``launch.obs_report`` (the
+port's and the JAX package's) reads for its "network" section.
 
 ``NetClient`` is the typed op surface over the transport (numpy in/out);
 ``repro_torch.ps.net.backend`` builds ``Backend``/handle objects on top

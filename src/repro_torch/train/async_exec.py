@@ -61,7 +61,7 @@ from repro_torch import rng as jrng
 from repro_torch.core import lightlda as lda
 from repro_torch.kernels import ops
 from repro_torch.obs import ObsConfig
-from repro_torch.obs.trace import _block
+from repro_torch.obs.trace import NULL_SPAN, _block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,6 +203,18 @@ def routed_merge_block(route: ps.PushRoute, rows, nk, ndk, local, words,
     return d_rows.add_(rows), nk, ndk
 
 
+def valid_slots(counts: Sequence[int], cap: int, device
+                ) -> Union[slice, torch.Tensor]:
+    """The valid slots of a group's row of the token index: the first
+    ``counts[j]`` of each run of ``cap`` slots.  A slice when the group is
+    one block (every blocked executor's index), else an index tensor on
+    ``device``."""
+    if len(counts) == 1:
+        return slice(0, counts[0])
+    return torch.cat([torch.arange(j * cap, j * cap + n)
+                      for j, n in enumerate(counts)]).to(device)
+
+
 def write_valid_z(z_flat: torch.Tensor, idx: torch.Tensor,
                   z_new: torch.Tensor, cap: int, counts: Sequence[int]
                   ) -> None:
@@ -229,13 +241,39 @@ def _weights(rows: torch.Tensor, nk: torch.Tensor,
 # Blocked executor (paper section 3.4).
 # ---------------------------------------------------------------------------
 
+class SweepPhases:
+    """What ``pipelined_sweep`` tells of each group's phases; this one
+    tells nothing.  ``obs.exec_trace`` subclasses it to close every phase
+    on a device synchronise.  ``routed`` True takes the routed merge on
+    every backend (the same result: all of it is integer addition)."""
+
+    routed = False
+
+    def before_pull(self) -> None:
+        """A group's pull is about to be issued."""
+
+    def pulled(self, grp: int, rows: torch.Tensor) -> None:
+        """Group ``grp``'s rows have been awaited."""
+
+    def phase(self, name: str, grp: int, **args):
+        """The span around phase ``name`` of group ``grp``."""
+        return NULL_SPAN
+
+    def drained(self, pending) -> None:
+        """The sweep's wrap-around pull, which no group awaits."""
+
+
+_NO_PHASES = SweepPhases()
+
+
 def pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
                     cfg: "lda.LDAConfig", block_idx: torch.Tensor,
                     block_valid: torch.Tensor, rows_per_block: int,
                     staleness: int = 0,
                     hot_words: Optional[int] = None,
                     route: Optional[ps.PushRoute] = None,
-                    block_counts: Optional[Sequence[int]] = None
+                    block_counts: Optional[Sequence[int]] = None,
+                    phases: SweepPhases = _NO_PHASES
                     ) -> "lda.SamplerState":
     """One staleness-bounded, double-buffered, routed blocked sweep.
 
@@ -254,15 +292,19 @@ def pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
          one ``delta_push`` adds the group's changes into the pulled rows
          (block-local row ids), ``n_dk`` and ``n_k`` -- the executor's own
          copies -- in place; otherwise the route materialises the
-         group-local delta and ``n_k``/``n_dk`` take duplicate-tolerant
-         adds (``routed_merge_block``).  ``store_block_`` writes the rows
-         back, and ``z`` takes the new topics at the valid slots alone.
+         group-local delta of the valid slots and ``n_k``/``n_dk`` take
+         duplicate-tolerant adds (``routed_merge_block``).
+         ``store_block_`` writes the rows back, and ``z`` takes the new
+         topics at the valid slots alone.
 
     Each block's valid slots are a prefix of its row of ``block_idx``, as
     ``lightlda.block_token_index`` builds it, and each names a token of
-    its own.  ``block_counts`` gives the valid slots per block from the
-    host that built the index; None reads them from ``block_valid`` (one
-    device-to-host copy a sweep).  With an obs session installed, a sweep
+    its own; the padding all names token 0, so the routed merge leaves it
+    out (``valid_slots``) rather than add its zeros into one address one
+    after another.  ``block_counts`` gives the valid slots per block from
+    the host that built the index; None reads them from ``block_valid``
+    (one device-to-host copy a sweep).  ``phases`` is told of each phase
+    (``obs.exec_trace`` times them).  With an obs session installed, a sweep
     on the card records the z updates' device ms (CUDA events around
     them, read after the sweep's last one) in the ``exec.z_update_ms``
     histogram.  ``staleness=0`` equals ``lightlda.sweep_blocked_ref``
@@ -286,7 +328,7 @@ def pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
         block_counts = block_valid.sum(1).tolist()
 
     nwk = state.nwk.with_value(state.nwk.value.clone())   # owned copy
-    one_launch = merges_in_one_launch(nwk)
+    one_launch = merges_in_one_launch(nwk) and not phases.routed
     nk, ndk, z_flat = state.nk.value, state.ndk, state.z.clone()
     if one_launch:
         nk, ndk = nk.clone(), ndk.clone()       # owned, merged in place
@@ -295,48 +337,59 @@ def pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
     # their device ms is recorded once the sweep is done
     reg = _obs.metrics_registry() if z_flat.is_cuda else None
     marks = []
+    phases.before_pull()
     pulled = nwk.pull_block(0, grp_rows)
     for grp in range(n_groups):
         # 1. double buffer: await this group's rows, issue the next pull
         rows = pulled.result()
+        phases.pulled(grp, rows)
+        phases.before_pull()
         pulled = nwk.pull_block((grp + 1) % n_groups, grp_rows)
 
         # 2. alias tables for the group's rows only
-        table = ops.alias_build(_weights(rows, nk, cfg))
+        with phases.phase("alias.build", grp) as sp:
+            table = ops.alias_build(_weights(rows, nk, cfg))
+            sp.sync_on(table.prob)
 
         # 3. fused resample of the group's tokens against the stale view
-        idx = gidx[grp].long()
-        vb = gval[grp]
-        wb = state.w[idx]
-        db = state.d[idx]
-        z0 = z_flat[idx]
-        local = torch.clamp(layout.to_physical(wb) - grp * grp_rows, 0,
-                            grp_rows - 1).to(torch.int32)
-        rng = ops.mh_draws_train(keys[grp], db, z_flat, state.doc_start,
-                                 state.doc_len, gcap, cfg)
-        z_new = ops.mh_sample(rng, z0, local, db, rows.to(torch.float32),
-                              ndk, nk.to(torch.float32), table.prob,
-                              table.alias, cfg, frozen=False)
-        z_new = torch.where(vb, z_new, z0)
+        with phases.phase("sample", grp) as sp:
+            idx = gidx[grp].long()
+            vb = gval[grp]
+            wb = state.w[idx]
+            db = state.d[idx]
+            z0 = z_flat[idx]
+            local = torch.clamp(layout.to_physical(wb) - grp * grp_rows, 0,
+                                grp_rows - 1).to(torch.int32)
+            rng = ops.mh_draws_train(keys[grp], db, z_flat, state.doc_start,
+                                     state.doc_len, gcap, cfg)
+            z_new = ops.mh_sample(rng, z0, local, db, rows.to(torch.float32),
+                                  ndk, nk.to(torch.float32), table.prob,
+                                  table.alias, cfg, frozen=False)
+            z_new = torch.where(vb, z_new, z0)
+            sp.sync_on(z_new)
 
         # 4. group-boundary merge; the rows go back in
-        changed = (z_new != z0) & vb
-        if one_launch:
-            ops.delta_push(local, z0, z_new, changed, grp_rows, cfg.K,
-                           out=rows, docs=db, ndk_out=ndk, nk_out=nk)
-        else:
-            rows, nk, ndk = routed_merge_block(route, rows, nk, ndk, local,
-                                               wb, db, z0, z_new, changed,
-                                               cfg.K)
-        nwk.store_block_(grp, rows, grp_rows)
-        if reg is not None:
-            marks.append((torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True)))
-            marks[-1][0].record()
-        write_valid_z(z_flat, idx, z_new, cap,
-                      block_counts[grp * group:(grp + 1) * group])
-        if reg is not None:
-            marks[-1][1].record()
+        counts = block_counts[grp * group:(grp + 1) * group]
+        with phases.phase("merge.store", grp, route=route.label) as sp:
+            changed = (z_new != z0) & vb
+            if one_launch:
+                ops.delta_push(local, z0, z_new, changed, grp_rows, cfg.K,
+                               out=rows, docs=db, ndk_out=ndk, nk_out=nk)
+            else:
+                v = valid_slots(counts, cap, z0.device)
+                rows, nk, ndk = routed_merge_block(
+                    route, rows, nk, ndk, local[v], wb[v], db[v], z0[v],
+                    z_new[v], changed[v], cfg.K)
+            nwk.store_block_(grp, rows, grp_rows)
+            if reg is not None:
+                marks.append((torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True)))
+                marks[-1][0].record()
+            write_valid_z(z_flat, idx, z_new, cap, counts)
+            if reg is not None:
+                marks[-1][1].record()
+            sp.sync_on(z_flat)
+    phases.drained(pulled)
     if marks:
         marks[-1][1].synchronize()
         reg.histogram("exec.z_update_ms").record(
@@ -485,6 +538,23 @@ def blocked_geometry(layout, model_blocks: int, staleness: int
     return rpb, n_blocks, effective_staleness(n_blocks, staleness)
 
 
+def blocked_index(state: "lda.SamplerState", model_blocks: int,
+                  staleness: int):
+    """The blocked executor's token index, built on the host at merge-unit
+    granularity (``s + 1`` fused blocks a unit), as the JAX package builds
+    it: ``(idx, bval, counts, rows)`` -- the index and its mask on the
+    state's device, the valid slots of each unit, the rows of a unit."""
+    layout = state.nwk.layout
+    rpb, _, s = blocked_geometry(layout, model_blocks, staleness)
+    rows = rpb * (s + 1)
+    idx, bval = lda.block_token_index(state.w.cpu().numpy(),
+                                      state.valid.cpu().numpy(), rows,
+                                      layout)
+    dev = state.w.device
+    return (torch.from_numpy(idx).to(dev), torch.from_numpy(bval).to(dev),
+            bval.sum(1).tolist(), rows)
+
+
 def make_stream_executor(cfg: "lda.LDAConfig", exec_cfg: ExecConfig,
                          layout, cap_round: int = 2048):
     """Build the per-shard step for the streaming trainer.
@@ -565,17 +635,11 @@ def make_executor(state: "lda.SamplerState", cfg: "lda.LDAConfig",
         exec_cfg, report = _autotune.resolve_exec(state, cfg, exec_cfg)
     route = exec_cfg.resolve_route(cfg.V)
     if exec_cfg.model_blocks > 0:
-        layout = state.nwk.layout
-        rpb, n_blocks, s = blocked_geometry(layout, exec_cfg.model_blocks,
+        rpb, n_blocks, s = blocked_geometry(state.nwk.layout,
+                                            exec_cfg.model_blocks,
                                             exec_cfg.staleness)
-        rpb_step = rpb * (s + 1)
-        idx, bval = lda.block_token_index(state.w.cpu().numpy(),
-                                          state.valid.cpu().numpy(),
-                                          rpb_step, layout)
-        counts = bval.sum(1).tolist()
-        dev = state.w.device
-        idx = torch.from_numpy(idx).to(dev)
-        bval = torch.from_numpy(bval).to(dev)
+        idx, bval, counts, rpb_step = blocked_index(
+            state, exec_cfg.model_blocks, exec_cfg.staleness)
 
         def step_fn(st, k):
             return pipelined_sweep(st, k, cfg, idx, bval, rpb_step,

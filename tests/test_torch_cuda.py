@@ -582,3 +582,67 @@ def test_spmd_ranks_sharing_the_card_match_the_cpu(card, extra):
         assert n["delta_apply_coo"] == (groups if "hot_words" in extra
                                         else 0)
         assert n["alias_build"] == job.sweeps
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+    sys.path.append(str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.parametrize("route", ["dense", "hybrid"])
+def test_replay_on_card_matches_cpu(card, route):
+    """obs.exec_trace's replay of a blocked sweep at V = 3,000, K = 64 on
+    the card equals the CPU's bitwise (z, n_wk, n_k, n_dk), and on the card
+    it launched per group one mh_draws_train, alias_build and mh_sample and
+    what the route's group-local delta issues."""
+    from repro_torch import obs
+    from repro_torch import ps
+    from repro_torch import rng as trng
+    from repro_torch.api import LDAJob, Session
+    from repro_torch.data.corpus import synthetic_corpus
+    from repro_torch.obs import exec_trace
+    from repro_torch.train.async_exec import blocked_geometry
+
+    job = LDAJob(corpus=synthetic_corpus(300, 3000, true_topics=16, seed=0),
+                 num_topics=64, sweeps=1, eval_every=0, seed=0)
+    rt = ps.DenseRoute() if route == "dense" else ps.HybridRoute(200)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        session = Session(job, log_fn=lambda m: None, device=dev)
+        st, _, _ = session.make_step()
+        ops.reset_launch_counts()
+        s = obs.ObsSession(obs.ObsConfig(enabled=True)).install()
+        try:
+            out[dev] = exec_trace.traced_pipelined_sweep(
+                st, trng.PRNGKey(4, dev), session.cfg, model_blocks=4,
+                staleness=1, route=rt)
+        finally:
+            s.close(save=False)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+    gpu, cpu = out["cuda"], out["cpu"]
+    for a, b in ((gpu.z, cpu.z), (gpu.nwk.value, cpu.nwk.value),
+                 (gpu.nk.value, cpu.nk.value), (gpu.ndk, cpu.ndk)):
+        assert torch.equal(a.cpu(), b)
+    rpb, n_blocks, stale = blocked_geometry(cpu.nwk.layout, 4, 1)
+    group_rows = rpb * (stale + 1)
+    cs = _chip_smoke()
+    assert counts == cs.replay_launches(
+        rt, group_rows, n_blocks // (stale + 1),
+        cs.replay_groups_filled(st, group_rows))
+
+
+def test_baselines_on_card_match_cpu(card):
+    """EM and online VB at tests/test_lda_baselines.py's size from states
+    drawn on the CPU: the card's within chip_smoke.BASELINE_CASES'
+    tolerances of the CPU's, and EM's perplexity within 15 % of
+    LightLDA's on the card."""
+    cs = _chip_smoke()
+    out = cs.baselines_card_vs_cpu(torch, 0, "cuda")
+    for algo, steps, rtol in cs.BASELINE_CASES:
+        assert out["max_rel_err"][f"{algo}_{steps}"] <= rtol
+    assert out["gap"] < cs.QUALITY_GAP

@@ -49,15 +49,17 @@ def test_source_has_no_jax_or_repro_import():
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 30
     # the training slice's modules are among them, and the stream,
-    # checkpoint, serving facade, launchers, tiered storage, autotuner and
-    # timer
+    # checkpoint, serving facade, launchers, tiered storage, autotuner,
+    # timer, the Spark-LDA baselines, the trace replay and the report
     for mod in ("core/pserver.py", "ps/client.py", "ps/routes.py",
                 "train/async_exec.py", "api/session.py", "api/job.py",
                 "kernels/delta_push.py", "core/coherence.py",
                 "data/stream.py", "train/checkpoint.py", "serve/__init__.py",
                 "serve/topic_service.py", "launch/__init__.py",
                 "launch/lda.py", "launch/topic_serve.py", "ps/coldstore.py",
-                "ps/tiered.py", "ps/autotune.py", "obs/timing.py"):
+                "ps/tiered.py", "ps/autotune.py", "obs/timing.py",
+                "core/lda_em.py", "core/lda_online.py", "obs/exec_trace.py",
+                "launch/obs_report.py"):
         assert PKG / mod in files, mod
     for f in files:
         assert not pattern.search(f.read_text()), f
@@ -86,8 +88,8 @@ TRAINER_CALL = re.compile(
 def test_launchers_orchestrate_only_through_api():
     offenders = []
     files = sorted((PKG / "launch").rglob("*.py"))
-    assert len(files) == 6      # __init__, lda, topic_serve, ps_server,
-    #                             net_smoke, mesh
+    assert len(files) == 7      # __init__, lda, topic_serve, ps_server,
+    #                             net_smoke, mesh, obs_report
     for path in files:
         for lineno, line in enumerate(path.read_text().splitlines(), 1):
             if TRAINER_CALL.search(line):
