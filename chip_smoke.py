@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, network-PS and SPMD paths,
-the Spark-LDA baselines and the traced executor replay on one NVIDIA GPU.
+the LM serving path, the Spark-LDA baselines and the traced executor
+replay on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -123,7 +124,22 @@ Phases (any failure raises and the script exits non-zero):
                  rank on gloo; and at V = 3,000, K = 64 the memory and
                  stream planes with the dense, hybrid and COO routes on 4
                  ranks on the card equal to 4 ranks on the CPU bitwise;
- 14. report   -- per-kernel times at the main paths' shapes (alias_build
+ 14. lm_serve -- the LM serving path at gemma3-4b's full width and depth
+                 (34 layers, d_model 2,560, vocab 262,144, bf16, weights
+                 drawn from --seed on the card) through
+                 repro_torch.launch.serve's main: batch 4, prompt 2,048,
+                 128 greedy tokens; the output's shape and range, a
+                 second generate equal to the first, a timed prefill and
+                 decode loop equal to generate, the first 8 decode steps'
+                 logits against one full-sequence forward (within
+                 LM_BF16_TOL of the row's largest logit), one decode step
+                 under the profiler (device busy share, kernels), peak
+                 memory, and the decode (bytes) and prefill (FLOPs)
+                 bounds in a {"lm_serve": ...} line; then every arch's
+                 smoke variant (MLA, MoE, SSM, the hybrid, both
+                 cross-attention modes) on the card against the CPU from
+                 the same weights;
+ 15. report   -- per-kernel times at the main paths' shapes (alias_build
                  held bitwise at serving's φ and at each executor's
                  weights; the merge at each executor's group, also by
                  destination; mh_draws at a snapshot group, a pipelined
@@ -136,7 +152,7 @@ Phases (any failure raises and the script exits non-zero):
                  profile of one fold-in batch and of one training sweep,
                  the tensor operations of the key derivations that stay
                  eager;
- 15. baselines -- paper Table 1 on the card on the training corpus at
+ 16. baselines -- paper Table 1 on the card on the training corpus at
                  V = 100,000 for K in {80, 1000}: Spark-EM (10 iterations),
                  Spark-Online (30 minibatches of 128 documents, densified
                  off the clock) and LightLDA-PS (3 snapshot sweeps through
@@ -148,7 +164,7 @@ Phases (any failure raises and the script exits non-zero):
                  test_lda_baselines.py's size EM and online VB on the card
                  within stated tolerances of the CPU from states drawn on
                  the CPU, and EM's perplexity within 15 % of LightLDA's;
- 16. replay   -- obs.exec_trace's traced replay of a pipelined sweep (16
+ 17. replay   -- obs.exec_trace's traced replay of a pipelined sweep (16
                  model blocks, staleness 1, HybridRoute(2000), 8 groups of
                  [12,500 x 1,000]) on the trained state under an obs
                  session: bitwise equal to the pipelined executor, one
@@ -168,7 +184,7 @@ runs' to chiprun_out/stream_obs/, the service's to
 chiprun_out/service_obs/, the tiered runs' to chiprun_out/tiered_obs/, the
 Table 1 LightLDA run's to chiprun_out/baselines_obs/ and the replay's to
 chiprun_out/replay_obs/; one tiered sweep runs under the profiler
-(tiered_profile.txt).  Stream
+(tiered_profile.txt), and one LM decode step (lm_decode_profile.txt).  Stream
 directories, checkpoints and cold stores go to temporary directories,
 removed at exit.
 """
@@ -2467,6 +2483,248 @@ EM_PEAK_BYTES = 16e9            # EM's own device memory at K = 1,000
 BASELINE_CASES = (("em", 1, 1e-5), ("em", 20, 1e-4),
                   ("online", 1, 1e-4), ("online", 30, 1e-3))
 QUALITY_GAP = 0.15              # EM vs LightLDA (tests/test_lda_baselines)
+# -- the LM serving path (gemma3-4b at full width) ---------------------------
+
+BF16_FLOPS = 989e12            # H100 SXM bf16 dense, tensor cores
+LM_ARCH = "gemma3-4b"
+LM_BATCH, LM_PROMPT, LM_GEN, LM_CHECK_STEPS = 4, 2048, 128, 8
+# cache against full forward, bf16: a decode step and the full forward
+# round the same values through other kernels (a [B, 1] against a
+# [B, S] product, other accumulation orders), so each of the 34 layers'
+# two residual branches can differ by about one bf16 rounding (2^-8
+# relative) of its output.  Eight such ulps of the row's largest logit
+# bound the drift of a step's logits; a cache fault (a wrong slot, window
+# or RoPE position) moves them by the logits' own scale.
+LM_BF16_TOL = 8 * 2.0 ** -8
+# card against CPU at the smoke sizes (float32, TF32 off), as the CPU
+# parity tests hold the port to the JAX package
+LM_RTOL, LM_ATOL = 1e-4, 1e-5
+LM_SMOKE_STEPS = 8
+
+
+def lm_decode_bytes(model, batch: int, pos: int) -> int:
+    """Bytes a decode step at ``pos`` must read: every weight once (the
+    tied head reads the whole table) and each attention layer's K and V
+    over the slots its query sees (its window, or the filled prefix)."""
+    from repro_torch.models.attention import live_range
+    cfg = model.cfg
+    n = sum(p.numel() * p.element_size() for p in model.parameters())
+    slot = cfg.num_kv_heads * cfg.head_dim_ * 2 * model.embed.table.element_size()
+    for w in cfg.windows():
+        lo, hi = live_range(pos, w)
+        n += batch * (hi - lo) * slot
+    return n
+
+
+def lm_prefill_flops(model, batch: int, prompt: int) -> int:
+    """FLOPs prefill must do: every block's matmul weights once a token
+    (2 a weight), attention over the (query, key) pairs the causal mask
+    and the window leave (QK^T and PV, 2 each a pair and head dim), and
+    the head on the last position only."""
+    cfg = model.cfg
+    blocks = list(model.blocks) + list(getattr(model, "dense_blocks", []))
+    weights = sum(p.numel() for b in blocks for p in b.parameters()
+                  if p.dim() >= 2)
+    flops = 2 * batch * prompt * weights
+    for w in cfg.windows():
+        pairs = sum(min(q + 1, w) if w else q + 1 for q in range(prompt))
+        flops += 4 * batch * cfg.num_heads * cfg.head_dim_ * pairs
+    return flops + 2 * batch * cfg.d_model * model.layout.pad_rows
+
+
+def lm_card_vs_cpu(torch, seed: int, device: str, batch: int = 2,
+                   prompt: int = 24, names=None) -> dict:
+    """Each arch's smoke variant (float32) with the same weights on the
+    card and on the CPU: prefill and LM_SMOKE_STEPS decode steps fed the
+    CPU's greedy tokens; logits within LM_RTOL / LM_ATOL, greedy tokens
+    equal except at a near tie (top-2 margin of the CPU's logits under the
+    tolerance), which is counted."""
+    from repro_torch import rng as jrng
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as tfm
+    out = {}
+    for name in names or registry.all_arch_names():
+        cfg = registry.smoke_variant(name)
+        ref = tfm.init_params(seed, cfg, device="cpu")
+        card = tfm.Transformer(cfg, device=device)
+        card.load_state_dict(ref.state_dict())
+        prompts = jrng.randint(jrng.PRNGKey(seed), (batch, prompt), 0,
+                               cfg.vocab_size)
+        cond = None
+        if cfg.cross_attn_mode:
+            cond = torch.randn((batch, cfg.cond_len, cfg.cond_dim_),
+                               generator=torch.Generator().manual_seed(seed))
+        runs, toks = [], []          # the CPU's greedy tokens, fed to both
+        for model, dev in ((ref, "cpu"), (card, device)):
+            c = None if cond is None else cond.to(dev)
+            with torch.no_grad():
+                caches = tfm.allocate_cache(cfg, batch,
+                                            prompt + LM_SMOKE_STEPS, dev)
+                logits, _ = tfm.prefill(model, prompts.to(dev), c, caches)
+                rows = [logits.cpu()]
+                for i in range(LM_SMOKE_STEPS):
+                    if len(toks) == i:
+                        toks.append(rows[-1].argmax(-1))
+                    logits, _ = tfm.decode_step(model, toks[i].to(dev),
+                                                caches, prompt + i, c)
+                    rows.append(logits.cpu())
+            runs.append(torch.stack(rows))
+        want, got = runs
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=LM_RTOL, atol=LM_ATOL):
+            raise AssertionError(f"{name}: card logits differ from the CPU's "
+                                 f"by {err:.3g} (rtol {LM_RTOL}, atol "
+                                 f"{LM_ATOL})")
+        top2 = want.topk(2, dim=-1).values
+        tie = (top2[..., 0] - top2[..., 1]) < 2 * (
+            LM_ATOL + LM_RTOL * top2[..., 0].abs())
+        differ = got.argmax(-1) != want.argmax(-1)
+        if bool((differ & ~tie).any()):
+            raise AssertionError(f"{name}: the card's greedy token differs "
+                                 f"from the CPU's away from a near tie")
+        out[name] = {"max_abs_err": err, "near_ties": int(tie.sum()),
+                     "tokens_differ_at_ties": int(differ.sum())}
+    return out
+
+
+def lm_serve(torch, seed: int, card: str, device: str = "cuda",
+             batch: int = LM_BATCH, prompt: int = LM_PROMPT,
+             gen: int = LM_GEN, layers: int = 0) -> dict:
+    """gemma3-4b at full width through ``repro_torch.launch.serve``'s main
+    on the card (``layers`` cuts the depth for a CPU rehearsal): shapes and
+    token range, a second generation equal to the first, a timed prefill
+    and decode loop equal to ``generate``, the first LM_CHECK_STEPS decode
+    steps' logits against one full-sequence forward, one decode step under
+    the profiler, the bounds; then every arch's smoke variant on the card
+    against the CPU."""
+    from repro_torch.launch import serve as serve_launch
+
+    argv = ["--arch", LM_ARCH, "--batch", str(batch), "--prompt-len",
+            str(prompt), "--gen", str(gen), "--seed", str(seed),
+            "--device", device]
+    if layers:
+        argv += ["--layers", str(layers)]
+    if device == "cuda":
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    res = serve_launch.main(argv)
+    eng, prompts, out = res.engine, res.prompts, res.out
+    cfg = eng.cfg
+    if (cfg.d_model, cfg.vocab_size, cfg.dtype) != (2560, 262_144,
+                                                    "bfloat16") or \
+            cfg.num_layers != (layers or 34):
+        raise AssertionError(f"not gemma3-4b's full config: {cfg}")
+    if tuple(out.shape) != (batch, gen) or out.dtype != torch.int32:
+        raise AssertionError(f"output {tuple(out.shape)} {out.dtype}")
+    if int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+        raise AssertionError("a generated token is out of the vocabulary")
+    gen_ms = [res.seconds * 1e3]
+
+    sync(torch, device)
+    t0 = time.perf_counter()
+    again = eng.generate(prompts, gen)
+    sync(torch, device)
+    gen_ms.append((time.perf_counter() - t0) * 1e3)
+    if not torch.equal(again, out):
+        raise AssertionError("a second generate on the same prompts differs")
+
+    # the engine's loop, each part timed: prefill, then one step a token
+    sync(torch, device)
+    t0 = time.perf_counter()
+    logits, caches = eng.prefill(prompts)
+    tok = eng.sample(logits, None)
+    sync(torch, device)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    toks, step_ms, step_logits = [tok], [], []
+    for i in range(gen - 1):
+        t = time.perf_counter()
+        logits = eng.step(tok, caches, prompt + i)
+        tok = eng.sample(logits, None)
+        sync(torch, device)
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        if i < LM_CHECK_STEPS:
+            step_logits.append(logits)
+        toks.append(tok)
+    gen_ms.append(prefill_ms + sum(step_ms))
+    if not torch.equal(torch.stack(toks, dim=1), out):
+        raise AssertionError("the timed prefill + decode loop differs from "
+                             "generate")
+
+    # cache against full forward: the decode step at prompt + i consumed
+    # out[:, i]; the forward over prompt + out[:, :8] gives the logits at
+    # the same positions
+    seq = torch.cat([prompts, out[:, :LM_CHECK_STEPS]], dim=1)
+    with torch.no_grad():
+        full, _ = eng.model(seq, head_at=slice(prompt,
+                                               prompt + LM_CHECK_STEPS))
+    dec = torch.stack(step_logits, dim=1).float()
+    full = full.float()
+    scale = full.abs().amax(-1, keepdim=True)
+    rel = float(((dec - full).abs() / scale).max())
+    argmax_agree = float((dec.argmax(-1) == full.argmax(-1)).float().mean())
+    if not rel <= LM_BF16_TOL:
+        raise AssertionError(f"decode logits differ from the full forward "
+                             f"by {rel:.4g} of the row's largest logit "
+                             f"(tolerance {LM_BF16_TOL:.4g})")
+    del full, dec, step_logits
+
+    stats = {}
+    if device == "cuda":
+        peak = torch.cuda.max_memory_allocated()
+        pos = prompt + gen - 1
+        wall, busy, stats = device_profile(
+            torch, lambda: eng.sample(eng.step(tok, caches, pos), None))
+        (ROOT / "chiprun_out").mkdir(exist_ok=True)
+        (ROOT / "chiprun_out" / "lm_decode_profile.txt").write_text(
+            f"{card}\none decode step of {LM_ARCH} at batch {batch}, "
+            f"position {pos}: wall {wall:.3f} ms (profiler on), device busy "
+            f"{busy:.3f} ms\n\n{profile_table(stats)}\n")
+    model = eng.model
+    mean_bytes = float(np.mean([lm_decode_bytes(model, batch, prompt + i)
+                                for i in range(gen - 1)]))
+    decode_ms = float(np.median(step_ms))
+    summary = {
+        "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "vocab": cfg.vocab_size, "dtype": cfg.dtype, "batch": batch,
+        "prompt": prompt, "gen": gen, "device": device,
+        "params": sum(p.numel() for p in model.parameters()),
+        "prefill_ms": prefill_ms,
+        "decode_step_ms_median": decode_ms,
+        "decode_step_ms_min": min(step_ms), "decode_step_ms_max": max(step_ms),
+        "generate_ms_runs": gen_ms,
+        "generate_ms_median": float(np.median(gen_ms)),
+        "tokens_per_s": batch * gen / (float(np.median(gen_ms)) / 1e3),
+        "decode_bound_ms": mean_bytes / HBM_BYTES_PER_S * 1e3,
+        "decode_bound_bytes": mean_bytes,
+        "prefill_bound_ms": lm_prefill_flops(model, batch, prompt)
+        / BF16_FLOPS * 1e3,
+        "prefill_flops": lm_prefill_flops(model, batch, prompt),
+        "cache_vs_forward_rel_err": rel, "cache_vs_forward_tol": LM_BF16_TOL,
+        "cache_vs_forward_argmax_agree": argmax_agree,
+        "card": card}
+    if device == "cuda":
+        summary.update({
+            "peak_mem_gb": peak / 1e9,
+            "phase_peak_mem_gb": (peak - base_mem) / 1e9,
+            "decode_profiled_wall_ms": wall, "decode_device_busy_ms": busy,
+            "decode_device_idle_share": 1.0 - busy / wall,
+            "decode_kernels": sum(n for n, _ in stats.values())})
+    else:
+        summary.update(dict.fromkeys(
+            ("peak_mem_gb", "decode_device_idle_share", "decode_kernels"),
+            "not measured"))
+    log(f"[lm_serve] {cfg.name}: prefill {prefill_ms:.1f} ms, decode step "
+        f"{decode_ms:.2f} ms (bound {summary['decode_bound_ms']:.3f}), "
+        f"{summary['tokens_per_s']:.1f} tok/s; cache vs forward {rel:.4g} "
+        f"of the largest logit")
+    del eng, caches, model, res
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    summary["card_vs_cpu"] = lm_card_vs_cpu(torch, seed, device)
+    log(json.dumps({"lm_serve": summary}))
+    return summary
+
+
 # EM at large K from the Dirichlet(1) init stays near its symmetric fixed
 # point (every γ row uniform), the JAX package's EM and the port's alike
 # (tests/test_torch_baselines.py, K = 400 on 10k tokens).  From that K on,
@@ -4297,6 +4555,7 @@ def main(argv=None) -> int:
           train["corpus"])
     phase("spmd_nccl", spmd_nccl, torch, args.seed, card, train["corpus"])
     phase("spmd_card_vs_cpu", spmd_card_vs_cpu, torch, args.seed, card)
+    phase("lm_serve", lm_serve, torch, args.seed, card)
     timer = Timer(torch)
     rows, groups = phase("kernel_report", kernel_report, torch, timer, serve,
                          train, card)

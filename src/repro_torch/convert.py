@@ -10,13 +10,16 @@ per-worker arrays and the physical ``n_wk``) into one rank's state, from
 which one SPMD sweep starts on the same state in both packages; and the
 two Spark-LDA baselines' states (EM's responsibilities and expected
 counts, online VB's λ and step), from which both packages iterate on the
-same state.  Carrying the alias tables too matters: the
+same state; and an LM's parameters (the JAX ``init_params`` pytree, its
+layer stacks ``[L, ...]``) into the port's ``Transformer``, from which both
+packages compute the same logits.  Carrying the alias tables too matters: the
 assignments of an alias table depend on the order its stacks were filled,
 so only identical tables give identical fold-in chains -- which is what lets
 a whole fold-in be compared bitwise between the packages.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.api.model import (Device, TopicModel, as_tensor,
@@ -25,6 +28,9 @@ from repro_torch import ps
 from repro_torch.core.lda_em import EMState
 from repro_torch.core.lda_online import OnlineState
 from repro_torch.core.lightlda import FrozenModel, SamplerState
+from repro_torch.models.transformer import Transformer
+
+LAYER_STACKS = ("blocks", "dense_blocks", "cross_blocks")
 
 
 def topic_model_from_arrays(nwk, nk, cfg_dict: dict,
@@ -114,3 +120,42 @@ def online_state_from_arrays(lam, t, device: Device = None) -> OnlineState:
     dev = resolve_device(device)
     return OnlineState(as_tensor(lam, dev).to(torch.float32),
                        as_tensor(t, dev).to(torch.int32).reshape(()))
+
+
+def _from_numpy(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # ml_dtypes, as jax exports it
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def lm_params_from_arrays(params: dict, cfg, device: Device = None
+                          ) -> Transformer:
+    """The port's ``Transformer`` holding exactly a JAX LM's parameters:
+    ``params`` is the JAX ``init_params`` pytree as nested dicts of numpy
+    arrays; a layer stack's leaves are ``[L, ...]`` and layer ``i`` becomes
+    ``<stack>.<i>.<path>`` of the module.  Every leaf must land on a
+    parameter of the same shape and dtype, and every parameter must get
+    one."""
+    model = Transformer(cfg, device=device)
+    state = {}
+
+    def walk(path, tree):
+        if isinstance(tree, dict):
+            for name, sub in tree.items():
+                walk(path + (name,), sub)
+        elif path[0] in LAYER_STACKS:
+            for i in range(tree.shape[0]):
+                state[".".join((path[0], str(i)) + path[1:])] = \
+                    _from_numpy(tree[i])
+        else:
+            state[".".join(path)] = _from_numpy(tree)
+
+    walk((), params)
+    own = model.state_dict()
+    for name, t in state.items():
+        if name in own and own[name].dtype != t.dtype:
+            raise ValueError(f"{name}: {t.dtype} where the model has "
+                             f"{own[name].dtype}")
+    model.load_state_dict(state, strict=True)
+    return model

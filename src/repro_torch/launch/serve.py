@@ -1,0 +1,98 @@
+"""Serving launcher: batched generation with the cache engine.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \\
+      --smoke --batch 4 --prompt-len 32 --gen 32 --device cpu
+
+The same argv as the JAX package's ``repro.launch.serve``, plus
+``--device`` (default ``cuda``: the card; ``cpu`` runs the plain PyTorch
+path), ``--seed`` (the weights, drawn on the device, and the prompts,
+which are ``jax.random.randint``'s for that seed bitwise) and ``--layers``
+(cut the depth; the widths stay the config's).  ``main``
+returns the engine and its output to an in-process caller.  One device
+only: ``--mesh host|pod|multipod`` is ROADMAP A.8.3.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import time
+from typing import Optional
+
+import torch
+
+from repro_torch import rng
+from repro_torch.configs import registry
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as tfm
+from repro_torch.serve.engine import Engine, ServeConfig
+
+
+@dataclasses.dataclass
+class ServeResult:
+    engine: Engine
+    prompts: torch.Tensor
+    cond: Optional[torch.Tensor]
+    out: torch.Tensor
+    seconds: float
+
+
+def main(argv=None) -> ServeResult:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="gemma3-4b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--mesh", default="none",
+                    choices=["none", "host", "pod", "multipod"])
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to N layers (0: the config's)")
+    args = ap.parse_args(argv)
+
+    if args.mesh != "none":
+        ap.error(f"--mesh {args.mesh}: the LM on a device mesh is ROADMAP "
+                 "A.8.3, not ported yet; the port serves on one device")
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError:
+        ap.error(f"no CUDA device available for --device {args.device}: "
+                 "pass --device cpu to run the plain PyTorch path")
+    cfg = registry.smoke_variant(args.arch) if args.smoke \
+        else registry.get(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+
+    model = tfm.init_params(args.seed, cfg, device=device)
+    engine = Engine(model, ServeConfig(
+        max_seq=args.prompt_len + args.gen + 1,
+        temperature=args.temperature, seed=args.seed))
+    prompts = rng.randint(rng.PRNGKey(args.seed),
+                          (args.batch, args.prompt_len), 0,
+                          cfg.vocab_size).to(device)
+    cond = None
+    if cfg.cross_attn_mode:
+        g = torch.Generator(device=device).manual_seed(args.seed)
+        cond = torch.randn((args.batch, cfg.cond_len, cfg.cond_dim_),
+                           generator=g, device=device)
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, args.gen, cond=cond)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    tps = args.batch * args.gen / dt
+    print(f"[serve] {cfg.name}: generated {tuple(out.shape)} tokens in "
+          f"{dt:.2f}s ({tps:.1f} tok/s, batch={args.batch})")
+    print("[serve] sample:", out[0, :16].tolist())
+    return ServeResult(engine, prompts, cond, out, dt)
+
+
+if __name__ == "__main__":
+    main()
+    sys.exit(0)

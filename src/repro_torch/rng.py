@@ -3,8 +3,9 @@
 The fold-in sampler draws all of its randomness from per-document keys, and
 the port is held to the JAX package bitwise, so the port has to reproduce
 jax's random stream exactly.  This module covers the calls the serving path
-makes: ``PRNGKey``, ``fold_in``, ``split``, ``uniform`` (float32) and
-``randint`` (int32), in the layout jax uses with
+makes: ``PRNGKey``, ``fold_in``, ``split``, ``uniform`` (float32),
+``randint`` (int32) and ``gumbel`` (float32, the LM engine's temperature
+sampling), in the layout jax uses with
 ``jax_threefry_partitionable=True`` (the default since jax 0.5):
 
   * a key is a pair of uint32 words ``(k1, k2)``;
@@ -119,6 +120,17 @@ def uniform(keys: torch.Tensor, shape: Shape) -> torch.Tensor:
     bits = random_bits(keys, shape)
     one = 0x3F800000                                # float32 1.0
     return ((bits >> 9) | one).to(torch.int32).view(torch.float32) - 1.0
+
+
+def gumbel(keys: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """``jax.random.gumbel`` in float32 (its default "low" mode):
+    ``-log(-log(u))`` of a uniform on [tiny, 1).  The uniform is jax's
+    bitwise: ``u * (1 - tiny) + tiny`` with ``1 - tiny == 1`` in float32 is
+    ``u``, or ``tiny`` where ``u == 0``, FMA or not.  The two logs are
+    PyTorch's, within a few ulps of XLA's."""
+    tiny = torch.finfo(torch.float32).tiny
+    u = torch.clamp(uniform(keys, shape), min=tiny)
+    return -torch.log(-torch.log(u))
 
 
 def randint(keys: torch.Tensor, shape: Shape, minval: int, maxval: int

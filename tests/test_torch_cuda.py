@@ -646,3 +646,31 @@ def test_baselines_on_card_match_cpu(card):
     for algo, steps, rtol in cs.BASELINE_CASES:
         assert out["max_rel_err"][f"{algo}_{steps}"] <= rtol
     assert out["gap"] < cs.QUALITY_GAP
+
+
+def test_lm_smoke_on_card_matches_cpu(card):
+    """hymba's smoke variant (windowed GQA beside the SSD, both caches) on
+    the card against the CPU from the same weights: prefill and 8 decode
+    steps within chip_smoke's LM_RTOL / LM_ATOL, greedy tokens equal away
+    from near ties."""
+    cs = _chip_smoke()
+    out = cs.lm_card_vs_cpu(torch, 0, "cuda", names=("hymba-1.5b",))
+    assert out["hymba-1.5b"]["max_abs_err"] <= 1e-3
+
+
+def test_bf16_attention_scores_stay_float32_on_card(card):
+    """A bf16 cache on the card: _attend_decode's products accumulate and
+    return float32 (cuBLAS bmm with a float32 output), so it matches the
+    CPU path, which widens the operands, within one bf16 rounding of the
+    output."""
+    from repro_torch.models import attention as tattn
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((2, 1, 4, 2, 256), generator=g).to(torch.bfloat16)
+    k = torch.randn((2, 300, 4, 256), generator=g).to(torch.bfloat16)
+    v = torch.randn((2, 300, 4, 256), generator=g).to(torch.bfloat16)
+    pos = torch.arange(300)
+    want = tattn._attend_decode(q, k, v, pos, 290, 128).float()
+    got = tattn._attend_decode(q.to(card), k.to(card), v.to(card),
+                               pos.to(card), 290, 128).float().cpu()
+    assert got.dtype == want.dtype
+    torch.testing.assert_close(got, want, rtol=2 ** -7, atol=2 ** -7)

@@ -50,7 +50,8 @@ def test_source_has_no_jax_or_repro_import():
     assert len(files) > 30
     # the training slice's modules are among them, and the stream,
     # checkpoint, serving facade, launchers, tiered storage, autotuner,
-    # timer, the Spark-LDA baselines, the trace replay and the report
+    # timer, the Spark-LDA baselines, the trace replay and the report, and
+    # the LM serving path
     for mod in ("core/pserver.py", "ps/client.py", "ps/routes.py",
                 "train/async_exec.py", "api/session.py", "api/job.py",
                 "kernels/delta_push.py", "core/coherence.py",
@@ -59,7 +60,12 @@ def test_source_has_no_jax_or_repro_import():
                 "launch/lda.py", "launch/topic_serve.py", "ps/coldstore.py",
                 "ps/tiered.py", "ps/autotune.py", "obs/timing.py",
                 "core/lda_em.py", "core/lda_online.py", "obs/exec_trace.py",
-                "launch/obs_report.py"):
+                "launch/obs_report.py", "configs/base.py",
+                "configs/registry.py", "configs/gemma3_4b.py",
+                "sharding/specs.py", "models/layers.py",
+                "models/attention.py", "models/moe.py", "models/ssm.py",
+                "models/transformer.py", "serve/engine.py",
+                "launch/serve.py"):
         assert PKG / mod in files, mod
     for f in files:
         assert not pattern.search(f.read_text()), f
@@ -88,8 +94,8 @@ TRAINER_CALL = re.compile(
 def test_launchers_orchestrate_only_through_api():
     offenders = []
     files = sorted((PKG / "launch").rglob("*.py"))
-    assert len(files) == 7      # __init__, lda, topic_serve, ps_server,
-    #                             net_smoke, mesh, obs_report
+    assert len(files) == 8      # __init__, lda, topic_serve, ps_server,
+    #                             net_smoke, mesh, obs_report, serve
     for path in files:
         for lineno, line in enumerate(path.read_text().splitlines(), 1):
             if TRAINER_CALL.search(line):
