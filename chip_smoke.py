@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, network-PS and SPMD paths,
-the LM serving path, the Spark-LDA baselines and the traced executor
-replay on one NVIDIA GPU.
+the LM serving and training paths, the Spark-LDA baselines and the traced
+executor replay on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -139,7 +139,23 @@ Phases (any failure raises and the script exits non-zero):
                  smoke variant (MLA, MoE, SSM, the hybrid, both
                  cross-attention modes) on the card against the CPU from
                  the same weights;
- 15. report   -- per-kernel times at the main paths' shapes (alias_build
+ 15. lm_train -- the LM training path through repro_torch.launch.train's
+                 main: lm100m (the JAX launcher's end-to-end preset,
+                 100.7 M parameters, float32) for 300 steps of 8 x 256,
+                 its loss falling by more than 0.5 and its final npz
+                 (the JAX package's layout) equal to the model; gemma3-4b
+                 at full width and depth (bf16, remat) for 6 steps of
+                 2 x 2,048 with microbatch 2: finite losses and grad
+                 norms, every parameter and moment moved; for each, step
+                 ms against the FLOP and byte bounds, tokens/s, peak
+                 memory, one step under the profiler (kernels, idle
+                 share) and gemma3-4b's split (a microbatch's forward
+                 and backward, the fold, AdamW) in a {"lm_train": ...}
+                 line; then every arch's smoke variant's train step (and
+                 gemma3-4b's with microbatch 2) on the card against the
+                 CPU, and a bf16 attention step's backward (_bmm_f32)
+                 against the widened operands' autograd;
+ 16. report   -- per-kernel times at the main paths' shapes (alias_build
                  held bitwise at serving's φ and at each executor's
                  weights; the merge at each executor's group, also by
                  destination; mh_draws at a snapshot group, a pipelined
@@ -152,7 +168,7 @@ Phases (any failure raises and the script exits non-zero):
                  profile of one fold-in batch and of one training sweep,
                  the tensor operations of the key derivations that stay
                  eager;
- 16. baselines -- paper Table 1 on the card on the training corpus at
+ 17. baselines -- paper Table 1 on the card on the training corpus at
                  V = 100,000 for K in {80, 1000}: Spark-EM (10 iterations),
                  Spark-Online (30 minibatches of 128 documents, densified
                  off the clock) and LightLDA-PS (3 snapshot sweeps through
@@ -164,7 +180,7 @@ Phases (any failure raises and the script exits non-zero):
                  test_lda_baselines.py's size EM and online VB on the card
                  within stated tolerances of the CPU from states drawn on
                  the CPU, and EM's perplexity within 15 % of LightLDA's;
- 17. replay   -- obs.exec_trace's traced replay of a pipelined sweep (16
+ 18. replay   -- obs.exec_trace's traced replay of a pipelined sweep (16
                  model blocks, staleness 1, HybridRoute(2000), 8 groups of
                  [12,500 x 1,000]) on the trained state under an obs
                  session: bitwise equal to the pipelined executor, one
@@ -184,7 +200,9 @@ runs' to chiprun_out/stream_obs/, the service's to
 chiprun_out/service_obs/, the tiered runs' to chiprun_out/tiered_obs/, the
 Table 1 LightLDA run's to chiprun_out/baselines_obs/ and the replay's to
 chiprun_out/replay_obs/; one tiered sweep runs under the profiler
-(tiered_profile.txt), and one LM decode step (lm_decode_profile.txt).  Stream
+(tiered_profile.txt), one LM decode step (lm_decode_profile.txt) and one
+LM train step of each training cell (lm100m_train_profile.txt,
+lm_train_profile.txt).  Stream
 directories, checkpoints and cold stores go to temporary directories,
 removed at exit.
 """
@@ -2725,6 +2743,470 @@ def lm_serve(torch, seed: int, card: str, device: str = "cuda",
     return summary
 
 
+# -- the LM training path (lm100m, gemma3-4b at full width) ------------------
+
+LM100M_STEPS, LM100M_BATCH, LM100M_SEQ = 300, 8, 256
+LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_MB = 6, 2, 2048, 2
+# card against CPU, one train step of each smoke arch (float32, TF32 off),
+# with the bounds tests/test_torch_lm_grads.py holds the port to the JAX
+# package with: the loss within rtol 1e-5; the grad norm, each gradient leaf
+# and each updated parameter within rtol 1e-4 and atol 1e-5 of the leaf's
+# largest magnitude.  Step 1 moves every element by lr * sign(g) (AdamW's
+# first step), so an element whose gradient is itself under that atol may
+# move either way: such elements are counted, not failed.
+LM_LOSS_RTOL, LM_GRAD_RTOL, LM_GRAD_ATOL = 1e-5, 1e-4, 1e-5
+LM_MB_ARCH = "gemma3-4b"          # the card-vs-CPU case with microbatch 2
+# _bmm_f32's backward on the card: a bf16 attention step against the same
+# step with the operands of every product widened to float32 and autograd's
+# own float32 backward.  The two forwards sum the same exact products in
+# other orders, so a bf16 rounding (p, the output, each gradient) may land
+# one ulp apart: at most 2^-7 of a value, two such of the leaf's largest
+# gradient bound the difference.
+BMM_BF16_TOL = 2.0 ** -6
+
+
+def lm_train_flops(model, batch: int, seq: int) -> int:
+    """FLOPs a training step must do: forward and backward (6 a weight and
+    token) of every block's matmul weights and the head, and of attention
+    over the (query, key) pairs the causal mask and window leave (QK^T and
+    PV: 4 a pair and head dim forward, 12 in all).  Remat's second forward
+    is not counted: it is work the bound need not do."""
+    cfg = model.cfg
+    blocks = [b for n in ("blocks", "dense_blocks", "cross_blocks")
+              for b in getattr(model, n, [])]
+    weights = sum(p.numel() for b in blocks for p in b.parameters()
+                  if p.dim() >= 2) + cfg.d_model * model.layout.pad_rows
+    flops = 6 * batch * seq * weights
+    for w in cfg.windows():
+        pairs = sum(min(q + 1, w) if w else q + 1 for q in range(seq))
+        flops += 12 * batch * cfg.num_heads * cfg.head_dim_ * pairs
+    return flops
+
+
+def lm_train_bytes(model, microbatches: int) -> int:
+    """Bytes AdamW and the gradient accumulation must move a step: per
+    parameter, the update reads the gradient, both float32 moments and the
+    weight and writes the moments and the weight; with microbatches the
+    float32 accumulator is read and written and a microbatch's gradient
+    (the weight's dtype) read, once a microbatch."""
+    n = 0
+    for p in model.parameters():
+        w = p.element_size()
+        grad = 4 if microbatches > 1 else w
+        n += p.numel() * (grad + 16 + 2 * w)
+        if microbatches > 1:
+            n += p.numel() * microbatches * (8 + w)
+    return n
+
+
+def perturb_constants(torch, model, seed: int) -> None:
+    """Noise on every constant leaf (zero norm scales and gates, unit
+    mixes), so that each of them matters to the loss, as the CPU parity
+    tests do to the JAX weights."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            flat = p.reshape(-1)
+            if flat.numel() and bool((flat == flat[0]).all()):
+                p.add_(0.3 * torch.randn(p.shape, generator=g).to(p))
+
+
+def smoke_batch(cfg, seed: int, batch: int = 4, seq: int = 24) -> dict:
+    from repro_torch.data.lm_data import LMDataConfig, MarkovZipfSource
+    return next(MarkovZipfSource(LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, batch_size=batch, seed=seed,
+        cond_len=cfg.cond_len if cfg.cross_attn_mode else 0,
+        cond_dim=cfg.cond_dim_ if cfg.cross_attn_mode else 0)).batches(1))
+
+
+def batch_args(torch, batch: dict, device) -> list:
+    keys = ["tokens", "targets", "mask"] + (["cond"] if "cond" in batch
+                                            else [])
+    return [torch.from_numpy(batch[k]).to(device) for k in keys]
+
+
+def leaf_err(torch, got, want) -> float:
+    """max |got - want| over the leaf's largest |want|."""
+    scale = float(want.abs().max())
+    return float((got - want).abs().max()) / (scale or 1.0)
+
+
+def lm_train_card_vs_cpu(torch, seed: int, device: str, names=None) -> dict:
+    """Each arch's smoke variant (float32) from the same weights (constant
+    leaves perturbed) and the same batch on the card and on the CPU: the
+    loss, its gradient (one backward) and one make_train_step (AdamW step
+    1), within the LM_* bounds; LM_MB_ARCH once more with microbatch 2."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train import optimizer as opt
+    out = {}
+    cases = [(n, 0) for n in names or registry.all_arch_names()]
+    for name, mb in cases + [(LM_MB_ARCH, 2)]:
+        cfg = registry.smoke_variant(name)
+        ref = tfm.init_params(seed, cfg, device="cpu")
+        perturb_constants(torch, ref, seed)
+        card = tfm.Transformer(cfg, device=device)
+        card.load_state_dict(ref.state_dict())
+        batch = smoke_batch(cfg, seed)
+        tc = TrainConfig(learning_rate=1e-3, warmup_steps=0, total_steps=10,
+                         microbatch=mb)
+        runs = []
+        for model, dev in ((ref, "cpu"), (card, device)):
+            args = batch_args(torch, batch, dev)
+            loss, _ = tfm.loss_fn(model, *args)
+            loss.backward()
+            grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+            state = train_loop.TrainState(model, opt.init(
+                dict(model.named_parameters())))
+            state, met = train_loop.make_train_step(cfg, tc)(state, *args)
+            runs.append((float(loss.detach()), grads,
+                         {n: p.detach().cpu() for n, p in
+                          model.named_parameters()},
+                         {k: float(v) for k, v in met.items()}))
+        (wl, wg, wp, wm), (gl, gg, gp, gm) = runs
+        what = f"{name} (microbatch {mb})" if mb else name
+        if not abs(gl - wl) <= LM_LOSS_RTOL * abs(wl):
+            raise AssertionError(f"{what}: card loss {gl} against CPU {wl}")
+        if not abs(gm["grad_norm"] - wm["grad_norm"]) <= \
+                LM_GRAD_RTOL * wm["grad_norm"]:
+            raise AssertionError(f"{what}: card grad norm {gm['grad_norm']} "
+                                 f"against CPU {wm['grad_norm']}")
+        grad_err = param_err = 0.0
+        flips = 0
+        for n in wg:
+            g_tol = LM_GRAD_ATOL * float(wg[n].abs().max())
+            err = leaf_err(torch, gg[n], wg[n])
+            if not torch.allclose(gg[n], wg[n], rtol=LM_GRAD_RTOL,
+                                  atol=g_tol):
+                raise AssertionError(f"{what}: gradient of {n} differs from "
+                                     f"the CPU's by {err:.3g} of its largest")
+            grad_err = max(grad_err, err)
+            close = torch.isclose(gp[n], wp[n], rtol=LM_GRAD_RTOL,
+                                  atol=LM_GRAD_ATOL * float(wp[n].abs().max()))
+            tiny = wg[n].abs() <= g_tol
+            if bool((~close & ~tiny).any()):
+                raise AssertionError(f"{what}: updated {n} differs from the "
+                                     f"CPU's where its gradient is not tiny")
+            flips += int((~close & tiny).sum())
+            param_err = max(param_err, leaf_err(torch, gp[n], wp[n]))
+        out[what] = {"loss_rel_err": abs(gl - wl) / abs(wl),
+                     "grad_norm_rel_err": abs(gm["grad_norm"]
+                                              - wm["grad_norm"])
+                     / wm["grad_norm"],
+                     "grad_max_rel_err": grad_err,
+                     "param_max_rel_err": param_err,
+                     "tiny_gradient_elements_moved_apart": flips}
+    return out
+
+
+def bmm_bf16_backward(torch, seed: int, device: str) -> dict:
+    """One bf16 attention step of smoke gemma3-4b (qk-norm, a window,
+    several q and kv tiles) on the card through ``_bmm_f32``'s backward,
+    against the same step with every product's operands widened to
+    float32 (autograd's own backward): the output and each gradient within
+    BMM_BF16_TOL of the leaf's largest value."""
+    import dataclasses as dc
+    from repro_torch.configs import registry
+    from repro_torch.models import attention
+    cfg = dc.replace(registry.smoke_variant("gemma3-4b"), dtype="bfloat16")
+    g = torch.Generator(device=device).manual_seed(seed)
+    src = attention.Attention(cfg, device=device)
+    src.reset_parameters(g)
+    for norm in (src.q_norm, src.k_norm):
+        with torch.no_grad():
+            norm.scale.normal_(0.0, 0.3, generator=g)
+    x0 = torch.randn((2, 80, cfg.d_model), generator=g, device=device
+                     ).to(torch.bfloat16)
+    w = torch.randn((2, 80, cfg.d_model), generator=g, device=device)
+    positions = torch.arange(80, device=device)
+    kernel = attention._bmm_f32
+    runs = []
+    for bmm in (kernel, lambda a, b: torch.bmm(a.float(), b.float())):
+        attn = attention.Attention(cfg, device=device)
+        attn.load_state_dict(src.state_dict())
+        x = x0.clone().requires_grad_(True)
+        attention._bmm_f32 = bmm
+        try:
+            out, _ = attn(x, positions=positions, window=8, theta=1e4)
+            (out.float() * w).sum().backward()
+        finally:
+            attention._bmm_f32 = kernel
+        leaves = {"out": out.detach(), "x": x.grad}
+        leaves.update({n: p.grad for n, p in attn.named_parameters()})
+        runs.append(leaves)
+    got, want = runs
+    errs = {}
+    for n in want:
+        if got[n].dtype != want[n].dtype:
+            raise AssertionError(f"bmm backward: {n} is {got[n].dtype}, the "
+                                 f"widened run's {want[n].dtype}")
+        errs[n] = leaf_err(torch, got[n].float(), want[n].float())
+        if not errs[n] <= BMM_BF16_TOL:
+            raise AssertionError(f"bmm backward: {n} differs from the "
+                                 f"widened operands' autograd by "
+                                 f"{errs[n]:.4g} of its largest (tolerance "
+                                 f"{BMM_BF16_TOL:.4g})")
+    return {"max_rel_err": max(errs.values()), "tolerance": BMM_BF16_TOL,
+            "bitwise_equal": sorted(n for n in want
+                                    if torch.equal(got[n], want[n]))}
+
+
+def param_sums(torch, model) -> dict:
+    return {n: float(torch.sum(p.detach(), dtype=torch.float64))
+            for n, p in model.named_parameters()}
+
+
+def step_summary(torch, res, batch: int, seq: int, card: str,
+                 device: str, profile_name: str) -> dict:
+    """A cell's numbers from its run: the loss first -> last, step ms from
+    the history's clock (each logged step synchronises), tokens/s; on the
+    card one more step under the profiler (kernels, device busy, idle)."""
+    from repro_torch.data.lm_data import LMDataConfig, MarkovZipfSource
+    from repro_torch.train import loop as train_loop
+    hist = res.history
+    for h in hist:
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+            raise AssertionError(f"{res.cfg.name}: step {h['step']} loss "
+                                 f"{h['loss']} grad norm {h['grad_norm']}")
+    step_ms = [(b["elapsed_s"] - a["elapsed_s"]) * 1e3
+               / (b["step"] - a["step"]) for a, b in zip(hist, hist[1:])]
+    ms = float(np.median(step_ms))
+    out = {"arch": res.cfg.name, "layers": res.cfg.num_layers,
+           "d_model": res.cfg.d_model, "vocab": res.cfg.vocab_size,
+           "dtype": res.cfg.dtype, "remat": res.cfg.remat, "batch": batch,
+           "seq": seq, "microbatch": max(res.tc.microbatch, 1),
+           "steps": res.tc.total_steps,
+           "params": sum(p.numel() for p in res.state.model.parameters()),
+           "loss_first": hist[0]["loss"], "loss_last": hist[-1]["loss"],
+           "step_ms_median": ms, "step_ms_min": min(step_ms),
+           "step_ms_max": max(step_ms), "tokens_per_s": batch * seq / ms
+           * 1e3, "card": card}
+    if device != "cuda":
+        out.update(dict.fromkeys(("step_kernels", "step_device_idle_share"),
+                                 "not measured"))
+        return out
+    src = MarkovZipfSource(LMDataConfig(vocab_size=res.cfg.vocab_size,
+                                        seq_len=seq, batch_size=batch,
+                                        seed=1))
+    args = batch_args(torch, src.batch(), device)
+    step = train_loop.make_train_step(res.cfg, res.tc)
+    state = res.state
+    wall, busy, stats = device_profile(torch, lambda: step(state, *args))
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / profile_name).write_text(
+        f"{card}\none train step of {res.cfg.name} at batch {batch}, seq "
+        f"{seq}, microbatch {out['microbatch']}: wall {wall:.3f} ms "
+        f"(profiler on), device busy {busy:.3f} ms\n\n"
+        f"{profile_table(stats)}\n")
+    out.update({"step_profiled_wall_ms": wall, "step_device_busy_ms": busy,
+                "step_device_idle_share": 1.0 - busy / wall,
+                "step_kernels": sum(n for n, _ in stats.values()),
+                "step_gemm_ms": sum(ms_ for k, (_, ms_) in stats.items()
+                                    if any(t in k.lower() for t in
+                                           ("gemm", "nvjet", "cutlass")))})
+    return out
+
+
+def train_step_split(torch, res, args: list) -> dict:
+    """Where an eager step's device time goes, each part synchronised and
+    timed alone on the trained state: one microbatch's forward and backward
+    (its gradients left in ``.grad``, the weights' dtype), folding them
+    into a float32 accumulator (what the step's hooks do), and AdamW on
+    that accumulator (``optimizer.apply``, the global norm included)."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train import optimizer as opt
+    state, tc = res.state, res.tc
+    mb = max(tc.microbatch, 1)
+    n = args[0].shape[0] // mb
+    part = [a[:n] for a in args]
+    params = state.params
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    def fwd_bwd():
+        loss, _ = tfm.loss_fn(state.model, *part)
+        loss.backward()
+
+    for p in params.values():
+        p.grad = None
+    fb_ms = timed(fwd_bwd)
+    acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           for k, p in params.items()}
+
+    def fold():
+        for k, p in params.items():
+            train_loop._fold_into(acc[k], mb)(p)
+
+    fold_ms = timed(fold)
+    opt_ms = timed(lambda: opt.apply(acc, state.opt, params, tc))
+    del acc
+    return {"microbatch_forward_backward_ms": fb_ms,
+            "microbatch_fold_ms": fold_ms, "adamw_ms": opt_ms,
+            "split_step_ms": mb * (fb_ms + fold_ms) + opt_ms}
+
+
+def remat_flops(model, batch: int, seq: int) -> int:
+    """The second forward remat runs in the backward: every layer's matmul
+    weights (2 a weight and token) and its attention pairs (4 a pair and
+    head dim); the head is not rematerialised."""
+    cfg = model.cfg
+    blocks = [b for n in ("blocks", "dense_blocks", "cross_blocks")
+              for b in getattr(model, n, [])]
+    flops = 2 * batch * seq * sum(p.numel() for b in blocks
+                                  for p in b.parameters() if p.dim() >= 2)
+    for w in cfg.windows():
+        pairs = sum(min(q + 1, w) if w else q + 1 for q in range(seq))
+        flops += 4 * batch * cfg.num_heads * cfg.head_dim_ * pairs
+    return flops
+
+
+def add_bounds(cell: dict, model, batch: int, seq: int, mb: int) -> None:
+    flops = lm_train_flops(model, batch, seq)
+    nbytes = lm_train_bytes(model, mb)
+    rate = FP32_FLOPS if model.cfg.dtype == "float32" else BF16_FLOPS
+    cell.update({"flops": flops, "flop_bound_ms": flops / rate * 1e3,
+                 "rate_flops_per_s": rate, "optimizer_bytes": nbytes,
+                 "byte_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+    cell["bound_ms"] = cell["flop_bound_ms"] + cell["byte_bound_ms"]
+    cell["bound_share"] = cell["bound_ms"] / cell["step_ms_median"]
+
+
+def lm_train(torch, seed: int, card: str, device: str = "cuda",
+             smoke: bool = False, lm100m_steps: int = LM100M_STEPS,
+             seq: int = LM_TRAIN_SEQ) -> dict:
+    """The LM training path through ``repro_torch.launch.train``'s main:
+    lm100m (the JAX launcher's end-to-end preset) for ``lm100m_steps``
+    steps, its loss falling by more than 0.5, its final npz written in the
+    JAX package's layout; gemma3-4b at full width and depth for
+    LM_TRAIN_STEPS steps of batch 2 x 2,048 with microbatch 2: finite
+    losses and grad norms, every parameter and moment changed; step ms
+    against the FLOP and byte bounds, tokens/s, peak memory, one step under
+    the profiler and the step's split.  Then the smoke archs' train step
+    card = CPU and _bmm_f32's bf16 backward.  ``smoke`` (a CPU rehearsal)
+    trains gemma3-4b's smoke variant instead, at ``seq``."""
+    import tempfile
+    from repro_torch.configs import registry
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import transformer as tfm
+    cuda = device == "cuda"
+    summary = {"card": card}
+    if cuda:
+        torch.cuda.empty_cache()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+    # lm100m until its loss falls
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = train_launch.main([
+            "--preset", "lm100m", "--steps", str(lm100m_steps), "--batch",
+            str(LM100M_BATCH), "--seq", str(LM100M_SEQ), "--seed", str(seed),
+            "--device", device, "--out", tmp])
+        run_s = time.perf_counter() - t0
+        npz = Path(tmp) / "lm100m_final.npz"
+        with np.load(npz) as data:
+            if not np.array_equal(data["embed/table"],
+                                  res.state.model.embed.table.detach().cpu()
+                                  .numpy()):
+                raise AssertionError("lm100m: the final npz's embedding "
+                                     "differs from the model's")
+        npz_bytes = npz.stat().st_size
+    cell = step_summary(torch, res, LM100M_BATCH, LM100M_SEQ, card, device,
+                        "lm100m_train_profile.txt")
+    cell.update(npz_bytes=npz_bytes, run_s=run_s)
+    if not cell["loss_last"] < cell["loss_first"] - 0.5:
+        raise AssertionError(f"lm100m: the loss did not fall by 0.5: "
+                             f"{cell['loss_first']} -> {cell['loss_last']}")
+    add_bounds(cell, res.state.model, LM100M_BATCH, LM100M_SEQ, 1)
+    if cuda:
+        cell["phase_peak_mem_gb"] = (torch.cuda.max_memory_allocated()
+                                     - base_mem) / 1e9
+    summary["lm100m"] = cell
+    log(f"[lm_train] lm100m: loss {cell['loss_first']:.4f} -> "
+        f"{cell['loss_last']:.4f} in {lm100m_steps} steps; step "
+        f"{cell['step_ms_median']:.2f} ms (bound {cell['bound_ms']:.3f}), "
+        f"{cell['tokens_per_s']:.0f} tokens/s, {cell['step_kernels']} "
+        f"kernels, idle {cell['step_device_idle_share']}; {card}")
+    del res
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # gemma3-4b at full width and depth: first the sums of the weights
+    # main will draw from the same seed, to show every one of them moved
+    arch = ["--arch", LM_ARCH] + (["--smoke"] if smoke else [])
+    cfg = registry.smoke_variant(LM_ARCH) if smoke else registry.get(LM_ARCH)
+    probe = tfm.init_params(seed, cfg, device=device)
+    before = param_sums(torch, probe)
+    del probe
+    if cuda:
+        torch.cuda.empty_cache()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train_launch.main(arch + [
+        "--steps", str(LM_TRAIN_STEPS), "--batch", str(LM_TRAIN_BATCH),
+        "--seq", str(seq), "--microbatch", str(LM_TRAIN_MB), "--seed",
+        str(seed), "--device", device, "--log-every", "1", "--out", ""])
+    run_s = time.perf_counter() - t0
+    cfg, state = res.cfg, res.state
+    if not smoke and (cfg.num_layers, cfg.d_model, cfg.vocab_size, cfg.dtype,
+                      cfg.remat) != (34, 2560, 262_144, "bfloat16", True):
+        raise AssertionError(f"not gemma3-4b's full config: {cfg}")
+    if int(state.opt.step) != LM_TRAIN_STEPS:
+        raise AssertionError(f"{cfg.name}: {int(state.opt.step)} AdamW steps")
+    after = param_sums(torch, state.model)
+    still = [n for n in before if after[n] == before[n]]
+    if still:
+        raise AssertionError(f"{cfg.name}: unchanged parameters {still[:5]}")
+    for n in state.opt.m:
+        if not (float(state.opt.m[n].abs().max()) > 0
+                and float(state.opt.v[n].max()) > 0):
+            raise AssertionError(f"{cfg.name}: the moments of {n} are zero")
+    mem = {}
+    if cuda:
+        mem = {"peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "phase_peak_mem_gb": (torch.cuda.max_memory_allocated()
+                                     - base_mem) / 1e9,
+               "resident_gb": (torch.cuda.memory_allocated() - base_mem)
+               / 1e9, "before_phase_gb": base_mem / 1e9}
+    cell = step_summary(torch, res, LM_TRAIN_BATCH, seq, card, device,
+                        "lm_train_profile.txt")
+    cell.update(mem, run_s=run_s)
+    add_bounds(cell, state.model, LM_TRAIN_BATCH, seq, LM_TRAIN_MB)
+    cell["remat_flops"] = remat_flops(state.model, LM_TRAIN_BATCH, seq)
+    cell["remat_ms_at_peak"] = cell["remat_flops"] / BF16_FLOPS * 1e3
+    if cuda:
+        from repro_torch.data.lm_data import LMDataConfig, MarkovZipfSource
+        args = batch_args(torch, MarkovZipfSource(LMDataConfig(
+            vocab_size=cfg.vocab_size, seq_len=seq,
+            batch_size=LM_TRAIN_BATCH, seed=2)).batch(), device)
+        cell.update(train_step_split(torch, res, args))
+    summary["gemma3_4b"] = cell
+    log(f"[lm_train] {cfg.name}: {cfg.num_layers} layers, loss "
+        f"{cell['loss_first']:.4f} -> {cell['loss_last']:.4f}; step "
+        f"{cell['step_ms_median']:.1f} ms (bound {cell['bound_ms']:.2f}: "
+        f"{cell['flop_bound_ms']:.2f} FLOPs + {cell['byte_bound_ms']:.2f} "
+        f"bytes), {cell['tokens_per_s']:.0f} tokens/s, peak "
+        f"{mem.get('peak_mem_gb', 'not measured')} GB; {card}")
+    del res, state
+    if cuda:
+        torch.cuda.empty_cache()
+
+    summary["card_vs_cpu"] = lm_train_card_vs_cpu(torch, seed, device)
+    if cuda:
+        summary["bmm_bf16_backward"] = bmm_bf16_backward(torch, seed, device)
+    log(json.dumps({"lm_train": summary}))
+    return summary
+
+
 # EM at large K from the Dirichlet(1) init stays near its symmetric fixed
 # point (every γ row uniform), the JAX package's EM and the port's alike
 # (tests/test_torch_baselines.py, K = 400 on 10k tokens).  From that K on,
@@ -4556,6 +5038,7 @@ def main(argv=None) -> int:
     phase("spmd_nccl", spmd_nccl, torch, args.seed, card, train["corpus"])
     phase("spmd_card_vs_cpu", spmd_card_vs_cpu, torch, args.seed, card)
     phase("lm_serve", lm_serve, torch, args.seed, card)
+    phase("lm_train", lm_train, torch, args.seed, card)
     timer = Timer(torch)
     rows, groups = phase("kernel_report", kernel_report, torch, timer, serve,
                          train, card)

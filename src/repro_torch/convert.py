@@ -12,7 +12,9 @@ two Spark-LDA baselines' states (EM's responsibilities and expected
 counts, online VB's λ and step), from which both packages iterate on the
 same state; and an LM's parameters (the JAX ``init_params`` pytree, its
 layer stacks ``[L, ...]``) into the port's ``Transformer``, from which both
-packages compute the same logits.  Carrying the alias tables too matters: the
+packages compute the same logits, and back (``lm_arrays_from_params``), and
+an LM's ``TrainState`` with its AdamW moments, from which both packages
+take the same train steps.  Carrying the alias tables too matters: the
 assignments of an alias table depend on the order its stacks were filled,
 so only identical tables give identical fold-in chains -- which is what lets
 a whole fold-in be compared bitwise between the packages.
@@ -129,6 +131,43 @@ def _from_numpy(a) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t``.  bf16 becomes ``ml_dtypes.bfloat16`` where that
+    package is installed (what jax hands numpy), else a 2-byte void array
+    of the same bits; ``np.savez`` writes either as the JAX package's
+    ``checkpoint.save`` writes a bf16 leaf (``|V2``)."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    bits = t.view(torch.int16).numpy().view(np.uint16)
+    try:
+        import ml_dtypes
+    except ImportError:
+        return bits.view(np.dtype("V2"))
+    return bits.view(ml_dtypes.bfloat16)
+
+
+def _lm_state_from_tree(tree: dict) -> dict:
+    """``{parameter name: tensor}`` (CPU) from a JAX LM pytree of numpy
+    arrays (parameters, gradients or moments): a layer stack's ``[L, ...]``
+    leaves become ``<stack>.<i>.<path>``, the rest ``<path>``."""
+    state = {}
+
+    def walk(path, sub):
+        if isinstance(sub, dict):
+            for name, child in sub.items():
+                walk(path + (name,), child)
+        elif path[0] in LAYER_STACKS:
+            for i in range(sub.shape[0]):
+                state[".".join((path[0], str(i)) + path[1:])] = \
+                    _from_numpy(sub[i])
+        else:
+            state[".".join(path)] = _from_numpy(sub)
+
+    walk((), tree)
+    return state
+
+
 def lm_params_from_arrays(params: dict, cfg, device: Device = None
                           ) -> Transformer:
     """The port's ``Transformer`` holding exactly a JAX LM's parameters:
@@ -138,20 +177,7 @@ def lm_params_from_arrays(params: dict, cfg, device: Device = None
     parameter of the same shape and dtype, and every parameter must get
     one."""
     model = Transformer(cfg, device=device)
-    state = {}
-
-    def walk(path, tree):
-        if isinstance(tree, dict):
-            for name, sub in tree.items():
-                walk(path + (name,), sub)
-        elif path[0] in LAYER_STACKS:
-            for i in range(tree.shape[0]):
-                state[".".join((path[0], str(i)) + path[1:])] = \
-                    _from_numpy(tree[i])
-        else:
-            state[".".join(path)] = _from_numpy(tree)
-
-    walk((), params)
+    state = _lm_state_from_tree(params)
     own = model.state_dict()
     for name, t in state.items():
         if name in own and own[name].dtype != t.dtype:
@@ -159,3 +185,58 @@ def lm_params_from_arrays(params: dict, cfg, device: Device = None
                              f"{own[name].dtype}")
     model.load_state_dict(state, strict=True)
     return model
+
+
+def lm_arrays_from_params(params) -> dict:
+    """The inverse of ``lm_params_from_arrays``: the JAX ``init_params``
+    pytree as nested dicts of numpy arrays, each layer stack's leaves
+    restacked to ``[L, ...]``.  ``params`` is a ``Transformer`` or a dict
+    ``{parameter name: tensor}`` -- its parameters, their gradients or an
+    AdamW moment -- so any of them lands in the JAX package's layout (and
+    ``train.checkpoint.save`` writes its keys)."""
+    items = (params.named_parameters() if isinstance(params, torch.nn.Module)
+             else params.items())
+    tree: dict = {}
+    stacks: dict = {}
+
+    def put(path, leaf):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+
+    for name, t in items:
+        path = tuple(name.split("."))
+        if path[0] in LAYER_STACKS:
+            stacks.setdefault((path[0],) + path[2:], {})[int(path[1])] = \
+                _to_numpy(t)
+        else:
+            put(path, _to_numpy(t))
+    for path, layers in stacks.items():
+        put(path, np.stack([layers[i] for i in range(len(layers))]))
+    return tree
+
+
+def train_state_from_arrays(params: dict, opt_state, cfg,
+                            device: Device = None):
+    """A port ``TrainState`` holding exactly a JAX ``TrainState``'s
+    parameters (``params``, the ``init_params`` pytree) and AdamW state
+    (``opt_state``: its ``m`` and ``v`` pytrees, float32, and its int32
+    ``step``), all as numpy arrays."""
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loop import TrainState
+
+    model = lm_params_from_arrays(params, cfg, device)
+    dev = model.device
+    names = dict(model.named_parameters())
+
+    def moments(tree):
+        flat = _lm_state_from_tree(tree)
+        if set(flat) != set(names):
+            raise ValueError("the moments' leaves are not the model's "
+                             "parameters")
+        return {n: flat[n].to(dev, torch.float32) for n in names}
+
+    step = torch.tensor(int(np.asarray(opt_state.step)), dtype=torch.int32)
+    return TrainState(model, opt.AdamWState(
+        moments(opt_state.m), moments(opt_state.v), step.to(dev)))

@@ -8,4 +8,7 @@ repro_torch.launch.net_smoke`` (the network plane's fault drill) and
 ``python -m repro_torch.launch.obs_report`` (a text summary of an obs
 directory, read on the host).  They orchestrate through
 ``repro_torch.api``, ``repro_torch.serve`` and ``repro_torch.ps.net``
-only, and train on the card unless given ``--device cpu``."""
+only.  The LM's launchers are ``python -m repro_torch.launch.serve``
+(batched generation) and ``python -m repro_torch.launch.train`` (training
+on the Markov-Zipf data).  All of them run on the card unless given
+``--device cpu``."""

@@ -28,15 +28,44 @@ _NEG = -1e30
 _EMPTY = 2 ** 30         # position of a padded kv slot: always masked
 
 
+class _BmmF32(torch.autograd.Function):
+    """The batched product of two bf16/fp16 operands, in float32.
+
+    Forward: on the card the operands stay in their dtype and cuBLAS writes
+    float32 (no float32 copy of a cache); the CPU has no such product, so
+    they are widened first.  ``torch.bmm(..., out_dtype=...)`` has no
+    autograd formula, hence this function.  Backward: the float32
+    ``grad_out`` times the other operand widened to float32 (a tile of the
+    chunked core, never a cache), each gradient rounded to its operand's
+    dtype -- the arithmetic of the reference's ``einsum`` with
+    ``preferred_element_type=float32`` and of the CPU path's widening."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        if a.is_cuda:
+            return torch.bmm(a, b, out_dtype=torch.float32)
+        return torch.bmm(a.to(torch.float32), b.to(torch.float32))
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(grad, b.to(torch.float32).transpose(1, 2)
+                           ).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.bmm(a.to(torch.float32).transpose(1, 2), grad
+                           ).to(b.dtype)
+        return ga, gb
+
+
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` batched, accumulated and returned in float32.  bf16/fp16
-    operands stay in their dtype on the card (cuBLAS writes float32); on
-    the CPU, which has no such product, they are widened first."""
+    """``a @ b`` batched, accumulated and returned in float32, with a
+    backward (``_BmmF32``) for bf16/fp16 operands."""
     if a.dtype == torch.float32:
         return torch.bmm(a, b)
-    if a.is_cuda:
-        return torch.bmm(a, b, out_dtype=torch.float32)
-    return torch.bmm(a.to(torch.float32), b.to(torch.float32))
+    return _BmmF32.apply(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,14 @@ Caches are dicts of [L, B, ...] tensors allocated once
 layer's K/V into the first S_prompt slots and decode writes one slot a
 step, in place.
 
+Training rematerialises each layer (``cfg.remat``): the layer's forward
+runs under ``torch.utils.checkpoint``, which keeps its input alone and runs
+it again in the backward, as the reference's ``jax.checkpoint`` around each
+scanned layer and each cross-attention layer does.
+
 Entry points:
   forward(...)       logits over full sequences (optionally filling a cache)
+  loss_fn(...)       the training loss (cross-entropy + router aux)
   prefill(...)       last-position logits + a populated cache
   decode_step(...)   one token with the cache (the serve path)
 """
@@ -23,13 +29,15 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import registry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import Device, resolve_device
 from repro_torch.models.attention import MLA, Attention, CrossAttention
 from repro_torch.models.layers import (MLP, Embedding, RMSNorm, VocabLayout,
-                                       dtype_of, lm_head_logits, param)
+                                       dtype_of, lm_head_logits, param,
+                                       softmax_xent_physical)
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import SSM
 from repro_torch.sharding.specs import SINGLE, MeshCtx
@@ -268,18 +276,36 @@ class Transformer(nn.Module):
         return scale_embeddings(self.embed(tokens), self.cfg.d_model)
 
     def forward(self, tokens: torch.Tensor, cond: Optional[torch.Tensor] = None,
-                *, caches: Optional[dict] = None,
-                head_at=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                *, caches: Optional[dict] = None, head_at=None,
+                remat: Optional[bool] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence forward.  tokens: [B, S].  Returns
         ``(logits_physical [B, S', Vpad], aux)``, S' the positions
         ``head_at`` selects (all by default).  With ``caches`` (an
         ``allocate_cache`` dict with at least S slots) each layer's K/V and
-        SSM state are written into it."""
+        SSM state are written into it.  ``remat`` (default ``cfg.remat``)
+        checkpoints each layer while gradients are recorded; no cache is
+        written then."""
         b, s = tokens.shape
+        remat = self.cfg.remat if remat is None else remat
+        remat = remat and torch.is_grad_enabled()
+        if remat and caches is not None:
+            raise ValueError("no cache is written under remat: pass "
+                             "remat=False")
+        if cond is not None:
+            # the modality frontend is a stub: no gradient flows to it
+            # (the reference's stop_gradient)
+            cond = cond.detach()
         positions = torch.arange(s, dtype=torch.int64, device=tokens.device)
         x = self._embed(tokens)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for stack, i, blk, win, th in self.schedule():
+            if remat:
+                x, a = checkpoint(_layer_out, blk, x, positions, win, th,
+                                  cond, use_reentrant=False,
+                                  preserve_rng_state=False)
+                aux = aux + a
+                continue
             x, entry, a = blk.full(x, positions=positions, window=win,
                                    theta=th, cond=cond)
             aux = aux + a
@@ -301,6 +327,13 @@ class Transformer(nn.Module):
                     {name: t[i] for name, t in caches[stack].items()})
             x, _ = blk.decode(x, view, pos, window=win, theta=th, cond=cond)
         return lm_head_logits(self.head, self.final_norm(x))[:, 0]
+
+
+def _layer_out(blk: Block, x, positions, window: int, theta: float, cond):
+    """One layer's output and aux loss (what a rematerialised layer keeps)."""
+    x, _, aux = blk.full(x, positions=positions, window=window, theta=theta,
+                         cond=cond)
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -332,13 +365,26 @@ def allocate_cache(cfg: ModelConfig, batch: int, seq_len: int,
 
 
 def forward(model: Transformer, tokens: torch.Tensor,
-            cond: Optional[torch.Tensor] = None, want_cache: bool = False):
+            cond: Optional[torch.Tensor] = None, want_cache: bool = False,
+            remat: Optional[bool] = None):
     """Full-sequence forward.  Returns ``(logits_physical [B, S, Vpad], aux,
     caches or None)``, the caches S slots long."""
     caches = (allocate_cache(model.cfg, tokens.shape[0], tokens.shape[1],
                              model.device) if want_cache else None)
-    logits, aux = model(tokens, cond, caches=caches)
+    logits, aux = model(tokens, cond, caches=caches, remat=remat)
     return logits, aux, caches
+
+
+def loss_fn(model: Transformer, tokens: torch.Tensor, targets: torch.Tensor,
+            mask: torch.Tensor, cond: Optional[torch.Tensor] = None,
+            remat: Optional[bool] = None):
+    """Masked mean cross-entropy over the physical logits plus
+    ``router_aux_weight`` times the MoE load-balance loss.  Returns
+    ``(loss, {"xent", "aux"})``."""
+    logits, aux = model(tokens, cond, remat=remat)
+    xent = softmax_xent_physical(logits, targets, model.layout, mask)
+    loss = xent + model.cfg.router_aux_weight * aux
+    return loss, {"xent": xent, "aux": aux}
 
 
 def prefill(model: Transformer, tokens: torch.Tensor,
@@ -351,7 +397,8 @@ def prefill(model: Transformer, tokens: torch.Tensor,
     if caches is None:
         caches = allocate_cache(model.cfg, tokens.shape[0], tokens.shape[1],
                                 model.device)
-    logits, _ = model(tokens, cond, caches=caches, head_at=slice(-1, None))
+    logits, _ = model(tokens, cond, caches=caches, head_at=slice(-1, None),
+                      remat=False)
     return logits[:, 0], caches
 
 

@@ -674,3 +674,51 @@ def test_bf16_attention_scores_stay_float32_on_card(card):
                                pos.to(card), 290, 128).float().cpu()
     assert got.dtype == want.dtype
     torch.testing.assert_close(got, want, rtol=2 ** -7, atol=2 ** -7)
+
+
+def test_bmm_f32_backward_matches_widened_autograd(card):
+    """bf16 operands through _bmm_f32 (a cuBLAS bf16 product written in
+    float32, then its own backward) against autograd of the float32
+    product of the widened operands: the output within float32 summation
+    order, each gradient bitwise (both are the same float32 product of
+    the float32 grad_out and the widened other operand, rounded to bf16)."""
+    from repro_torch.models.attention import _bmm_f32
+    g = torch.Generator(device=card).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=card)
+
+    a = randn(8, 96, 64).to(torch.bfloat16).requires_grad_(True)
+    b = randn(8, 64, 80).to(torch.bfloat16).requires_grad_(True)
+    w = randn(8, 96, 80)
+    out = _bmm_f32(a, b)
+    (out * w).sum().backward()
+    a32 = a.detach().float().requires_grad_(True)
+    b32 = b.detach().float().requires_grad_(True)
+    out32 = torch.bmm(a32, b32)
+    (out32 * w).sum().backward()
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, out32, rtol=1e-5, atol=1e-5)
+    assert a.grad.dtype == b.grad.dtype == torch.bfloat16
+    assert torch.equal(a.grad, a32.grad.to(torch.bfloat16))
+    assert torch.equal(b.grad, b32.grad.to(torch.bfloat16))
+
+
+def test_bf16_attention_backward_on_card(card):
+    """A bf16 attention step of smoke gemma3-4b on the card against the
+    same step with every product's operands widened (chip_smoke's
+    bmm_bf16_backward, BMM_BF16_TOL)."""
+    cs = _chip_smoke()
+    out = cs.bmm_bf16_backward(torch, 0, "cuda")
+    assert out["max_rel_err"] <= cs.BMM_BF16_TOL
+
+
+def test_lm_train_step_on_card_matches_cpu(card):
+    """One train step of smoke gemma3-4b, and one with microbatch 2, on the
+    card against the CPU from the same weights and batch: loss, gradients,
+    grad norm and the updated parameters within chip_smoke's LM_* bounds."""
+    cs = _chip_smoke()
+    out = cs.lm_train_card_vs_cpu(torch, 0, "cuda", names=("gemma3-4b",))
+    assert set(out) == {"gemma3-4b", "gemma3-4b (microbatch 2)"}
+    for row in out.values():
+        assert row["loss_rel_err"] <= cs.LM_LOSS_RTOL
