@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, network-PS and SPMD paths,
-the LM serving and training paths, the Spark-LDA baselines and the traced
-executor replay on one NVIDIA GPU.
+the LM serving and training paths, LM serving on a device mesh, the
+Spark-LDA baselines and the traced executor replay on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -29,6 +29,29 @@ Phases (any failure raises and the script exits non-zero):
                  visit's slots, with empty and one-token documents and
                  padded slots; the fold-in entry point at serving's
                  [32 x 1024] batch, sweeps 0 and 29;
+  3b. lm_mesh -- LM serving on a device mesh of 4 gloo rank processes
+                 sharing the card (serve.mesh_worker), run first while
+                 the card is empty: deepseek-v2-lite-16b at its full
+                 config (27 layers, MLA, 64 experts top-6, bf16, 15.72 B
+                 parameters from --seed) on data 1 x model 4, batch 4,
+                 prompt 2,048, 64 greedy tokens at capacity factor 1.25:
+                 (a) at capacity factor 16 (no drops, asserted) the
+                 prefill's and 8 teacher-forced decode steps' logits
+                 against the single-device run of the same seed after
+                 the mesh has gone, held within 1/32 of the row's largest
+                 logit in float32, reported in bf16; (b) the first MoE
+                 layer at the cell's shape on every rank against
+                 moe_block_spmd_emulated (routed rows within 2^-7, the
+                 output within 2^-5, drops equal); prefill and decode ms,
+                 tokens/s, each rank's peak memory, the collectives' ms
+                 and bytes by kind and their share, the dropped share by
+                 layer, the byte and FLOP bounds in a {"lm_mesh_serve":
+                 ...} line; then gemma3-4b at full width, 6 layers, on
+                 data 2 x model 2 through repro_torch.launch.serve --mesh
+                 host (the timed loop's tokens equal the launcher's),
+                 its logits against one device within 1/32, and the
+                 eight attention archs' smoke variants against one
+                 device on the card, in a {"lm_mesh_dp": ...} line;
   4. serving  -- the serving slice at full width, V = 100,000 and
                  K = 1,000: TopicModel -> snapshot -> transform of 512
                  documents -> score -> a ConcurrentEngine under 8 client
@@ -2743,6 +2766,415 @@ def lm_serve(torch, seed: int, card: str, device: str = "cuda",
     return summary
 
 
+
+# -- LM serving on a device mesh (deepseek-v2-lite-16b 1 x 4, gemma3-4b 2 x 2)
+
+LM_MESH_ARCH = "deepseek-v2-lite-16b"
+LM_MESH_SHAPE = (1, 4)            # data x model: 4 gloo ranks share the card
+LM_MESH_BATCH, LM_MESH_PROMPT, LM_MESH_GEN = 4, 2048, 64
+LM_MESH_CF = 1.25                 # the config's capacity factor
+LM_MESH_CHECK_PROMPT = 64         # check (a): prompt, then LM_CHECK_STEPS
+# check (a): mesh logits against the single-device run of the same seed on
+# the card, within 1/32 of each row's largest logit (PR 20's bound), held
+# with the config's weights widened to float32.  In bf16 the two differ by
+# a few ulps a layer (another order of the row-parallel sums, other GEMM
+# shapes), which flips near-tied top-6 routing choices, and 26 MoE layers
+# compound the flips: on the CPU a 27-layer deepseek of d_model 512 gave
+# 0.30 of the row's largest logit in bf16 and 2.4e-6 in float32.  The
+# bf16 difference is measured and reported.
+LM_MESH_TOL = 1.0 / 32
+# check (b): the first MoE layer on every rank against its emulation on
+# the same input: the routed rows are the same operations on the same
+# blocks (bitwise where the GEMMs are; a CPU's thread count can move an
+# expert's bf16 output by an ulp, and the combine rounds once more: two
+# bf16 roundings); the whole output adds the shared experts, row-parallel
+# on the mesh and whole in the emulation
+LM_MOE_ROUTED_TOL, LM_MOE_TOL = 2.0 ** -7, 2.0 ** -5
+LM_DP_ARCH, LM_DP_LAYERS, LM_DP_SHAPE = "gemma3-4b", 6, (2, 2)
+LM_DP_BATCH, LM_DP_PROMPT, LM_DP_GEN = 4, 2048, 32
+LM_MESH_SMOKE_STEPS = 4
+
+
+def mesh_logical(torch, logits, cfg, shape):
+    """A mesh's physical logits rows in logical vocab order."""
+    from repro_torch.launch.mesh import MeshLayout, ctx_for
+    from repro_torch.models import transformer as tfm
+    lay = tfm.vocab_layout(cfg, ctx_for(MeshLayout(*shape)))
+    return logits[..., torch.as_tensor(lay.to_physical(
+        torch.arange(cfg.vocab_size)))]
+
+
+def single_logits(torch, cfg, seed: int, tokens, steps: int, device: str,
+                  cond=None, all_positions: bool = False):
+    """The single-device model of ``seed`` on ``device``: the logits the
+    mesh's ``op_logits`` returns (the prompt ``tokens[:, :-steps]``, then
+    ``steps`` teacher-forced decode steps), float32 on the CPU."""
+    from repro_torch.models import transformer as tfm
+    model = tfm.init_params(seed, cfg, device=device)
+    tok = tokens.to(device)
+    c = None if cond is None else cond.to(device)
+    sp = tok.shape[1] - steps
+    caches = tfm.allocate_cache(cfg, tok.shape[0], tok.shape[1], device)
+    with torch.no_grad():
+        full, _ = model(tok[:, :sp], c, caches=caches,
+                        head_at=None if all_positions else slice(-1, None),
+                        remat=False)
+        outs = [full.float()]
+        for i in range(steps):
+            outs.append(model.decode_step(tok[:, sp + i], caches, sp + i,
+                                          c).float()[:, None])
+    out = torch.cat(outs, dim=1).cpu()
+    del model, caches, full, outs
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def row_rel(got, want) -> float:
+    """The largest difference as a share of its row's largest |logit|."""
+    scale = want.abs().amax(-1, keepdim=True).clamp(min=1e-30)
+    return float(((got - want).abs() / scale).max())
+
+
+def coll_summary(coll: dict, per: int = 1) -> dict:
+    """A part's collectives by kind: ms and bytes (per step when ``per``
+    steps ran), calls; all-to-all (with its host staging), all-reduce,
+    all-gather."""
+    kinds = {"all_to_all": ("moe_push", "moe_pull", "moe_push.staging",
+                            "moe_pull.staging"),
+             "all_reduce": ("embed", "attn", "mlp", "moe_aux"),
+             "all_gather": ("logits", "moe_gather", "weights", "kv", "seq",
+                            "experts", "tokens")}
+    out = {}
+    for kind, tags in kinds.items():
+        out[kind] = {k: sum(coll.get(t, {}).get(k, 0) for t in tags) / per
+                     for k in ("ms", "bytes", "calls")}
+    out["ms"] = sum(v.get("ms", 0.0) for v in coll.values()) / per
+    out["by_tag"] = {t: {k: v[k] / per for k in v} for t, v in coll.items()}
+    return out
+
+
+def param_bytes(cfg) -> int:
+    """The single-device model's parameter bytes (the meta device)."""
+    from repro_torch.models import transformer as tfm
+    model = tfm.Transformer(cfg, device="meta")
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def mesh_flops(cfg, batch: int, prompt: int, shape, cf: float) -> dict:
+    """Prefill FLOPs: what the function must do (every non-expert matmul
+    weight once a token, top-k experts a token, attention over the causal
+    pairs, the head on the last position), the expert-parallel path's
+    expert FLOPs at capacity factor ``cf`` (each rank's local experts on
+    their cap2 buffers) and the dense path's (every expert on every
+    token)."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tfm
+    model = tfm.Transformer(cfg, device="meta")
+    fe = cfg.moe_d_ff or cfg.d_ff
+    expert = 6 * cfg.d_model * fe          # gate, up, down: 2 a weight
+    moe_layers = sum(1 for _, _, b, _, _ in model.schedule()
+                     if hasattr(b, "moe"))
+    dense_w = sum(p.numel() for n, p in model.named_parameters()
+                  if p.dim() >= 2 and ".experts." not in n and "table" not in n)
+    toks = batch * prompt
+    if cfg.use_mla:
+        qk, v = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    else:
+        qk = v = cfg.head_dim_
+    attn = sum(2 * batch * cfg.num_heads * (qk + v) * sum(
+        min(q + 1, w) if w else q + 1 for q in range(prompt))
+        for w in cfg.windows())
+    need = (2 * toks * dense_w + toks * cfg.top_k * expert * moe_layers
+            + attn + 2 * batch * cfg.d_model * cfg.vocab_size)
+    data, m = shape
+    t = toks // (data * m)
+    cap1 = moe_mod._cap1(t, cfg, m, cf)
+    cap2 = moe_mod._cap2(cap1, cfg, m, cf)
+    ep = moe_layers * data * m * (cfg.num_experts // m) * cap2 * expert
+    return {"need": need, "ep_expert": ep,
+            "dense_expert": moe_layers * toks * cfg.num_experts * expert,
+            "cap1": cap1, "cap2": cap2}
+
+
+def mesh_cell_summary(cell: dict, stats: list, batch: int, gen: int,
+                      card: str) -> dict:
+    """Prefill ms, decode step ms and tokens/s, per-rank peak memory and the
+    collectives of one timed run (rank 0's clock and collectives)."""
+    steps = cell["step_ms"]
+    decode = float(np.median(steps))
+    pre = coll_summary(cell["prefill_collectives"])
+    dec = coll_summary(cell["decode_collectives"], max(len(steps), 1))
+    return {
+        "prefill_ms": cell["prefill_ms"],
+        "decode_step_ms_median": decode,
+        "decode_step_ms_min": min(steps), "decode_step_ms_max": max(steps),
+        "tokens_per_s": batch * gen / ((cell["prefill_ms"] + sum(steps))
+                                       / 1e3),
+        "decode_tokens_per_s": batch / (decode / 1e3),
+        "prefill_collectives": pre, "decode_collectives_per_step": dec,
+        "prefill_collective_share": pre["ms"] / cell["prefill_ms"],
+        "decode_collective_share": dec["ms"] / decode,
+        "rank_peak_mem_gb": [None if r["max_memory_allocated"] is None
+                             else r["max_memory_allocated"] / 1e9
+                             for r in stats],
+        "rank_param_gb": [r["param_bytes"] / 1e9 for r in stats],
+        "card": card}
+
+
+def lm_mesh_serve(torch, seed: int, card: str, device: str = "cuda",
+                  layers: int = 0, batch: int = LM_MESH_BATCH,
+                  prompt: int = LM_MESH_PROMPT, gen: int = LM_MESH_GEN,
+                  check_prompt: int = LM_MESH_CHECK_PROMPT,
+                  check_steps: int = LM_CHECK_STEPS) -> dict:
+    """deepseek-v2-lite-16b at its full config on a data 1 x model 4 mesh
+    of gloo ranks sharing the card (``layers`` cuts the depth for a CPU
+    rehearsal): (a) at a capacity factor where neither level of the
+    expert-parallel path can drop (max(M, E/M)), the prefill's and 8
+    teacher-forced decode steps' logits against the single-device run of
+    the same seed, run after the mesh has gone: held in float32, measured
+    in bf16 (LM_MESH_TOL); then the cell in bf16 at the config's capacity
+    factor: batch 4, prompt 2,048, 64 greedy tokens, timed, with each MoE
+    layer's dropped share, the collectives and the bounds; (b) the first
+    MoE layer at the cell's shape on every rank against
+    ``moe_block_spmd_emulated``."""
+    from repro_torch import rng as jrng
+    from repro_torch.configs import registry
+    from repro_torch.serve.mesh_worker import LMMeshRun
+
+    cfg = registry.get(LM_MESH_ARCH)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    elif (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.use_mla,
+          cfg.num_experts, cfg.top_k, cfg.num_shared_experts,
+          cfg.vocab_size, cfg.dtype) != (27, 2048, 16, True, 64, 6, 2,
+                                         102_400, "bfloat16"):
+        raise AssertionError(f"not deepseek-v2-lite-16b's full config: {cfg}")
+    data, m = LM_MESH_SHAPE
+    nodrop = float(max(m, cfg.num_experts // m))
+    v = cfg.vocab_size
+    tokens_a = jrng.randint(jrng.PRNGKey(seed), (batch, check_prompt
+                                                  + check_steps), 0, v)
+    prompts = jrng.randint(jrng.PRNGKey(seed + 1), (batch, prompt), 0, v)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with LMMeshRun({"data": data, "model": m}, torch.device(device)) as run:
+        spawn_s = time.perf_counter() - t0
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        load32 = run.call("load", cfg32, seed=seed, capacity_factor=nodrop)
+        a = run.call("logits", tokens_a, check_steps, None, False)
+        load = run.call("load", cfg, seed=seed, capacity_factor=nodrop,
+                        max_seq=prompt + gen + 1)
+        a16 = run.call("logits", tokens_a, check_steps, None, False)
+        run.call("set", capacity_factor=LM_MESH_CF)
+        run.call("reset_peak")
+        cell = run.call("timed", prompts, gen)
+        b = run.call("moe_check", (batch, prompt, cfg.d_model), seed)
+        stats = run.call("stats")
+        transport = run.transport
+    mesh_s = time.perf_counter() - t0
+    if any(d for d, _ in a["drops"] + a16["drops"]):
+        raise AssertionError(f"pairs dropped at capacity factor {nodrop}: "
+                             f"{a['drops']} {a16['drops']}")
+    t1 = time.perf_counter()
+    checks = {}
+    for name, c, res_a in (("float32", cfg32, a), ("bfloat16", cfg, a16)):
+        got = mesh_logical(torch, res_a["logits"], c, LM_MESH_SHAPE)
+        want = single_logits(torch, c, seed, tokens_a, check_steps, device)
+        checks[name] = {
+            "max_rel_err": row_rel(got, want),
+            "max_rel_err_by_position": [row_rel(got[:, i], want[:, i])
+                                        for i in range(got.shape[1])],
+            "argmax_agree": float((got.argmax(-1) == want.argmax(-1))
+                                  .float().mean())}
+        del got, want
+    single_s = time.perf_counter() - t1
+    rel = checks["float32"]["max_rel_err"]
+    if not rel <= LM_MESH_TOL:
+        raise AssertionError(f"mesh logits differ from the single device by "
+                             f"{rel:.4g} of the row's largest (tolerance "
+                             f"{LM_MESH_TOL})")
+    if not (b["routed_max_rel_err"] <= LM_MOE_ROUTED_TOL
+            and b["max_rel_err"] <= LM_MOE_TOL
+            and (b["dropped"], b["pairs"]) == (b["dropped_emulated"],
+                                               b["pairs_emulated"])):
+        raise AssertionError(f"the first MoE layer differs from its "
+                             f"emulation: {b}")
+    out = cell["tokens"]
+    if tuple(out.shape) != (batch, gen) or int(out.min()) < 0 or \
+            int(out.max()) >= v:
+        raise AssertionError(f"mesh tokens {tuple(out.shape)} out of range")
+    drops = [{"layer": i, "dropped": d, "pairs": n, "share": d / n}
+             for i, (d, n) in enumerate(cell["prefill_drops"])]
+    nbytes = param_bytes(cfg)
+    cache = (cfg.num_layers * batch * (cfg.kv_lora_rank + cfg.qk_rope_dim)
+             * 2 * (prompt + gen / 2))
+    fl = mesh_flops(cfg, batch, prompt, LM_MESH_SHAPE, LM_MESH_CF)
+    summary = {
+        "arch": cfg.name, "layers": cfg.num_layers, "mesh": list(
+            LM_MESH_SHAPE), "transport": transport, "device": device,
+        "batch": batch, "prompt": prompt, "gen": gen,
+        "capacity_factor": LM_MESH_CF, "params": cfg.param_count(),
+        "param_bytes": nbytes, "spawn_s": spawn_s, "load_s": load["load_s"],
+        "load_float32_s": load32["load_s"],
+        "mesh_phase_s": mesh_s, "single_device_s": single_s,
+        **mesh_cell_summary(cell, stats, batch, gen, card),
+        "prefill_dropped_share": sum(x["dropped"] for x in drops)
+        / max(sum(x["pairs"] for x in drops), 1),
+        "prefill_drops_by_layer": drops,
+        "decode_bound_bytes": nbytes + cache,
+        "decode_bound_ms": (nbytes + cache) / HBM_BYTES_PER_S * 1e3,
+        "prefill_flops_needed": fl["need"],
+        "prefill_bound_ms": fl["need"] / BF16_FLOPS * 1e3,
+        "prefill_expert_flops_ep": fl["ep_expert"],
+        "prefill_expert_flops_dense": fl["dense_expert"],
+        "cap1": fl["cap1"], "cap2": fl["cap2"],
+        "check_a": {"capacity_factor": nodrop, "prompt": check_prompt,
+                    "steps": check_steps, "held": "float32",
+                    "tolerance": LM_MESH_TOL, "drops": a16["drops"],
+                    **checks},
+        "check_b": dict(b, routed_tolerance=LM_MOE_ROUTED_TOL,
+                        tolerance=LM_MOE_TOL)}
+    log(f"[lm_mesh] {card}: {cfg.name} {data} x {m} ({transport}): prefill "
+        f"{cell['prefill_ms']:.1f} ms (bound {summary['prefill_bound_ms']:.2f}"
+        f" ms, {fl['need'] / 1e12:.1f} TFLOP needed; expert FLOPs "
+        f"{fl['ep_expert'] / 1e12:.1f} TFLOP expert-parallel vs "
+        f"{fl['dense_expert'] / 1e12:.1f} dense)")
+    log(f"[lm_mesh] {card}: decode step {summary['decode_step_ms_median']:.2f}"
+        f" ms median (bound {summary['decode_bound_ms']:.2f} ms: "
+        f"{summary['decode_bound_bytes'] / 1e9:.2f} GB a step), "
+        f"{summary['tokens_per_s']:.1f} tokens/s")
+    for part, key in (("prefill", "prefill_collectives"),
+                      ("decode step", "decode_collectives_per_step")):
+        c = summary[key]
+        log(f"[lm_mesh] {card}: {part} collectives {c['ms']:.1f} ms "
+            f"(all-to-all {c['all_to_all']['ms']:.1f} ms "
+            f"{c['all_to_all']['bytes'] / 1e6:.1f} MB, all-reduce "
+            f"{c['all_reduce']['ms']:.1f} ms "
+            f"{c['all_reduce']['bytes'] / 1e6:.1f} MB, all-gather "
+            f"{c['all_gather']['ms']:.1f} ms "
+            f"{c['all_gather']['bytes'] / 1e6:.1f} MB on rank 0)")
+    log(f"[lm_mesh] {card}: collectives' share: prefill "
+        f"{summary['prefill_collective_share']:.3f}, decode "
+        f"{summary['decode_collective_share']:.3f}; rank peak memory "
+        f"{summary['rank_peak_mem_gb']} GB; dropped share "
+        f"{summary['prefill_dropped_share']:.4f}")
+    log(f"[lm_mesh] {card}: check (a) float32 {rel:.4g} of the row's "
+        f"largest logit (tol {LM_MESH_TOL:.4g}), bf16 "
+        f"{checks['bfloat16']['max_rel_err']:.4g} (argmax agree "
+        f"{checks['bfloat16']['argmax_agree']:.3f}); check (b) routed "
+        f"{b['routed_max_rel_err']:.3g} (bitwise {b['routed_equal']}), "
+        f"whole {b['max_rel_err']:.3g}")
+    log(json.dumps({"lm_mesh_serve": summary}))
+    return summary
+
+
+def lm_mesh_dp(torch, seed: int, card: str, device: str = "cuda",
+               layers: int = LM_DP_LAYERS, batch: int = LM_DP_BATCH,
+               prompt: int = LM_DP_PROMPT, gen: int = LM_DP_GEN,
+               check_prompt: int = LM_MESH_CHECK_PROMPT,
+               check_steps: int = LM_CHECK_STEPS, smoke: bool = True) -> dict:
+    """gemma3-4b at full width, depth cut to one 5 local : 1 global period,
+    on a data 2 x model 2 mesh (the data axis, the sequence-parallel
+    prefill: kv 4 on a model axis of 2, the 262,144-row vocab split):
+    through ``repro_torch.launch.serve``'s main with ``--mesh host
+    --devices 4 --mesh-model 2``; then on a second mesh the timed loop (its
+    tokens equal the launcher's) and the prefill and 8 teacher-forced
+    decode steps against the single-device run; then the eight attention
+    architectures' smoke variants (float32) on the same mesh against the
+    single-device run on the card."""
+    from repro_torch import rng as jrng
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.serve.mesh_worker import LMMeshRun
+
+    cfg = dataclasses.replace(registry.get(LM_DP_ARCH), num_layers=layers)
+    data, m = LM_DP_SHAPE
+    argv = ["--arch", LM_DP_ARCH, "--layers", str(layers), "--batch",
+            str(batch), "--prompt-len", str(prompt), "--gen", str(gen),
+            "--seed", str(seed), "--device", device, "--mesh", "host",
+            "--devices", str(data * m), "--mesh-model", str(m)]
+    t0 = time.perf_counter()
+    res = serve_launch.main(argv)
+    launcher_s = time.perf_counter() - t0
+    prompts = res.prompts.cpu()
+    tokens_a = jrng.randint(jrng.PRNGKey(seed), (batch, check_prompt
+                                                  + check_steps), 0,
+                            cfg.vocab_size)
+    names = [n for n in registry.all_arch_names()
+             if registry.get(n).has_attention
+             and registry.get(n).ssm_state == 0]
+    smoke_cases = {}
+    with LMMeshRun({"data": data, "model": m}, torch.device(device)) as run:
+        run.call("load", cfg, seed=seed, max_seq=prompt + gen + 1)
+        a = run.call("logits", tokens_a, check_steps, None, False)
+        run.call("reset_peak")
+        cell = run.call("timed", prompts, gen)
+        stats = run.call("stats")
+        for name in names if smoke else []:
+            scfg = registry.smoke_variant(name)
+            cf = 16.0 if scfg.num_experts else None
+            toks = jrng.randint(jrng.PRNGKey(seed), (4, 24 +
+                                                     LM_MESH_SMOKE_STEPS),
+                                0, scfg.vocab_size)
+            cond = None
+            if scfg.cross_attn_mode:
+                cond = torch.randn((4, scfg.cond_len, scfg.cond_dim_),
+                                   generator=torch.Generator().manual_seed(
+                                       seed))
+            run.call("load", scfg, seed=seed, capacity_factor=cf)
+            got = run.call("logits", toks, LM_MESH_SMOKE_STEPS, cond, True)
+            smoke_cases[name] = (scfg, toks, cond, got)
+        transport = run.transport
+    if not torch.equal(cell["tokens"], res.out.cpu()):
+        raise AssertionError("the mesh's timed loop differs from the "
+                             "launcher's generate")
+    got = mesh_logical(torch, a["logits"], cfg, LM_DP_SHAPE)
+    want = single_logits(torch, cfg, seed, tokens_a, check_steps, device)
+    rel = row_rel(got, want)
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    if not rel <= LM_MESH_TOL:
+        raise AssertionError(f"{cfg.name} mesh logits differ from the single "
+                             f"device by {rel:.4g} of the row's largest")
+    smoke_out = {}
+    for name, (scfg, toks, cond, res_s) in smoke_cases.items():
+        if any(d for d, _ in res_s["drops"]):
+            raise AssertionError(f"{name}: pairs dropped at factor 16")
+        g = mesh_logical(torch, res_s["logits"], scfg, LM_DP_SHAPE)
+        w = single_logits(torch, scfg, seed, toks, LM_MESH_SMOKE_STEPS,
+                          device, cond, all_positions=True)
+        err = row_rel(g, w)
+        scale = w.abs().amax(-1, keepdim=True)
+        if not bool(((g - w).abs() <= LM_RTOL * w.abs()
+                     + LM_ATOL * scale).all()):
+            raise AssertionError(f"{name}: mesh logits differ from the "
+                                 f"single device by {err:.3g} of the row's "
+                                 f"largest (rtol {LM_RTOL}, atol {LM_ATOL} "
+                                 f"of it)")
+        smoke_out[name] = {"max_rel_err": err}
+    summary = {
+        "arch": cfg.name, "layers": layers, "mesh": list(LM_DP_SHAPE),
+        "transport": transport, "device": device, "batch": batch,
+        "prompt": prompt, "gen": gen, "launcher_s": launcher_s,
+        "launcher_generate_s": res.seconds,
+        "param_bytes": param_bytes(cfg),
+        **mesh_cell_summary(cell, stats, batch, gen, card),
+        "check": {"prompt": check_prompt, "steps": check_steps,
+                  "max_rel_err": rel, "tolerance": LM_MESH_TOL,
+                  "argmax_agree": agree},
+        "smoke_vs_single": smoke_out}
+    log(f"[lm_mesh_dp] {card}: {cfg.name} ({layers} layers) {data} x {m} "
+        f"({transport}): prefill {cell['prefill_ms']:.1f} ms, decode step "
+        f"{summary['decode_step_ms_median']:.2f} ms median, "
+        f"{summary['tokens_per_s']:.1f} tokens/s; collectives' share "
+        f"prefill {summary['prefill_collective_share']:.3f}, decode "
+        f"{summary['decode_collective_share']:.3f}; rank peak memory "
+        f"{summary['rank_peak_mem_gb']} GB; logits vs one device {rel:.4g}")
+    log(json.dumps({"lm_mesh_dp": summary}))
+    return summary
+
+
 # -- the LM training path (lm100m, gemma3-4b at full width) ------------------
 
 LM100M_STEPS, LM100M_BATCH, LM100M_SEQ = 300, 8, 256
@@ -5014,6 +5446,9 @@ def main(argv=None) -> int:
     phase("check_kernels", check_kernels, torch)
     phase("check_delta_kernels", check_delta_kernels, torch)
     phase("check_draws", check_draws, torch)
+    # the mesh phases first: the float32 check holds 63 GB on the card
+    phase("lm_mesh_serve", lm_mesh_serve, torch, args.seed, card)
+    phase("lm_mesh_dp", lm_mesh_dp, torch, args.seed, card)
     serve = phase("serve", serve_slice, torch, args.seed, card)
     train = phase("train", train_slice, torch, args.seed, card)
     phase("card_vs_cpu", card_vs_cpu, torch, args.seed)

@@ -14,7 +14,9 @@ same state; and an LM's parameters (the JAX ``init_params`` pytree, its
 layer stacks ``[L, ...]``) into the port's ``Transformer``, from which both
 packages compute the same logits, and back (``lm_arrays_from_params``), and
 an LM's ``TrainState`` with its AdamW moments, from which both packages
-take the same train steps.  Carrying the alias tables too matters: the
+take the same train steps; and an LM's parameters into one mesh rank's
+blocks (``lm_shard_from_arrays``) and every rank's blocks back
+(``lm_arrays_from_shards``).  Carrying the alias tables too matters: the
 assignments of an alias table depend on the order its stacks were filled,
 so only identical tables give identical fold-in chains -- which is what lets
 a whole fold-in be compared bitwise between the packages.
@@ -30,6 +32,7 @@ from repro_torch import ps
 from repro_torch.core.lda_em import EMState
 from repro_torch.core.lda_online import OnlineState
 from repro_torch.core.lightlda import FrozenModel, SamplerState
+from repro_torch.models import transformer as tfm
 from repro_torch.models.transformer import Transformer
 
 LAYER_STACKS = ("blocks", "dense_blocks", "cross_blocks")
@@ -215,6 +218,47 @@ def lm_arrays_from_params(params) -> dict:
     for path, layers in stacks.items():
         put(path, np.stack([layers[i] for i in range(len(layers))]))
     return tree
+
+
+def lm_shard_from_arrays(params: dict, cfg, ctx, rank: int,
+                         device: Device = None,
+                         layout_shards: int = 1) -> Transformer:
+    """Mesh rank ``rank``'s ``Transformer`` (``ctx`` gives the mesh's
+    shape) holding its blocks of a JAX LM's parameters.  ``params`` is the
+    JAX ``init_params`` pytree of numpy arrays, made for a model axis of
+    ``layout_shards`` (its vocab tables' and expert stacks' rows in that
+    cyclic order: on a JAX mesh of that model size these rows are what
+    each logical token and expert reads); the rows are permuted to the
+    logical order and then to the mesh's."""
+    model = Transformer(cfg, ctx, device, rank=rank)
+    state = _lm_state_from_tree(params)
+    own = dict(model.named_parameters())
+    if set(state) != set(own):
+        raise ValueError(f"leaves {sorted(set(state) ^ set(own))} are not "
+                         "on both sides")
+    with torch.no_grad():
+        for name, t in state.items():
+            if own[name].dtype != t.dtype:
+                raise ValueError(f"{name}: {t.dtype} where the model has "
+                                 f"{own[name].dtype}")
+            logical = tfm.from_cyclic_rows(name, t, cfg, layout_shards)
+            own[name].copy_(tfm.shard_leaf(name, logical, cfg, ctx, rank))
+    return model
+
+
+def lm_arrays_from_shards(shards, cfg, ctx, layout_shards: int = 1) -> dict:
+    """The inverse of ``lm_shard_from_arrays``: every rank's parameters
+    (models or ``{name: tensor}`` dicts, in rank order) gathered into the
+    JAX ``init_params`` pytree for a model axis of ``layout_shards`` (its
+    padding rows zero)."""
+    states = [dict(s.named_parameters()) if isinstance(s, torch.nn.Module)
+              else s for s in shards]
+    full = {}
+    for name in states[0]:
+        blocks = [st[name].detach().cpu() for st in states]
+        logical = tfm.unshard_leaf(name, blocks, cfg, ctx)
+        full[name] = tfm.to_cyclic_rows(name, logical, cfg, layout_shards)
+    return lm_arrays_from_params(full)
 
 
 def train_state_from_arrays(params: dict, opt_state, cfg,

@@ -29,16 +29,30 @@ Every rank creates the same groups, in the same order:
     moves them through host memory itself.
 
 Each collective's host milliseconds are added to ``Mesh.stats`` under the
-caller's tag.  Under gloo on the card the mesh synchronises the device
-before and after each call, so the time is the collective's own; NCCL's
-are the host's enqueue times.
+caller's tag, its bytes (what this rank sends) to ``Mesh.bytes`` and its
+count to ``Mesh.calls``.  Under gloo on the card the mesh synchronises the
+device before and after each call, so the time is the collective's own;
+NCCL's are the host's enqueue times.
+
+**Host staging.**  ``all_to_all`` under gloo on card tensors copies the
+send buffer into pinned host memory, exchanges it there and copies the
+result back: the transport, not a failure, decides it.  Data moves as
+bytes (``uint8`` views), so any dtype crosses unchanged; sums
+(``all_reduce``) run in the tensor's own dtype.
+
+The LM's mesh (``ctx_for``, ``make_host_mesh``) is the same ``Mesh``: the
+JAX package's ``launch/mesh.py`` builds ``jax.make_mesh((data, model),
+("data", "model"))`` over the local devices; here ``make_host_mesh``
+returns the ``MeshLayout`` and each rank joins it with ``Mesh.init``.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import time
 from typing import Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -47,6 +61,55 @@ from repro_torch import obs as _obs
 TRANSPORTS = ("nccl", "gloo")
 WORLD = ("data", "model")
 AxisName = Union[str, Tuple[str, ...]]
+
+@dataclasses.dataclass(frozen=True)
+class MeshLayout:
+    """The shape of a ``data x model`` mesh without its ranks: what the
+    rules (``sharding.specs``) read, like a ``jax.sharding.Mesh``'s
+    ``axis_names`` and ``devices.shape``."""
+
+    data: int
+    model: int
+    axis_names: Tuple[str, ...] = WORLD
+
+    @property
+    def devices(self) -> np.ndarray:
+        return np.arange(self.data * self.model).reshape(self.data,
+                                                         self.model)
+
+
+def make_host_mesh(model: int = 1, data: Optional[int] = None,
+                   devices: Optional[int] = None) -> MeshLayout:
+    """A small mesh over the cards that exist (``devices`` ranks when
+    given: ranks may share a card, or run on the CPU); ``data`` defaults
+    to ``devices // model``, as the reference's does."""
+    n = int(devices) if devices else max(torch.cuda.device_count(), 1)
+    d, m = resolve_mesh(n, model)
+    if data is not None and int(data) != d:
+        raise ValueError(f"data={data} x model={model} is not the {n} "
+                         f"devices")
+    return MeshLayout(d, m)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production pods, (data=16, model=16) = 256 chips or
+    (pod=2, data=16, model=16) = 512: the port has no such mesh (ROADMAP
+    A.8.3 serves on the host's cards)."""
+    shape = "2 x 16 x 16 (512 chips)" if multi_pod else "16 x 16 (256 chips)"
+    raise NotImplementedError(
+        f"the production mesh {shape} is the JAX package's TPU pod layout; "
+        "the port serves on a host mesh of the local cards "
+        "(make_host_mesh; ROADMAP A.8.3)")
+
+
+def ctx_for(mesh):
+    """``MeshCtx`` with dp = every non-model axis."""
+    from repro_torch.sharding.specs import MeshCtx
+    axes = tuple(mesh.axis_names)
+    dp = tuple(a for a in axes if a != "model")
+    model = "model" if "model" in axes else None
+    return MeshCtx(mesh, dp, model)
+
 
 def resolve_mesh(devices: int, mesh_model: int) -> Tuple[int, int]:
     """``(data, model)`` for ``devices`` ranks with ``mesh_model`` servers;
@@ -101,6 +164,9 @@ class Mesh:
         self.device = device
         self._groups = groups
         self.stats: Dict[str, float] = {}
+        self.bytes: Dict[str, int] = {}
+        self.calls: Dict[str, int] = {}
+        self._pinned: Dict[str, torch.Tensor] = {}
 
     # -- construction ------------------------------------------------------
     @classmethod
@@ -152,6 +218,13 @@ class Mesh:
     def world(self) -> int:
         return self.data * self.model
 
+    axis_names = WORLD
+
+    @property
+    def devices(self) -> np.ndarray:
+        """Rank ids shaped ``(data, model)``, row-major."""
+        return np.arange(self.world).reshape(self.data, self.model)
+
     @property
     def data_idx(self) -> int:
         return self.rank // self.model
@@ -188,17 +261,83 @@ class Mesh:
                 torch.cuda.synchronize(inp.device)
         self.stats[tag] = (self.stats.get(tag, 0.0)
                            + (time.perf_counter() - t0) * 1e3)
+        self.bytes[tag] = (self.bytes.get(tag, 0)
+                           + inp.numel() * inp.element_size())
+        self.calls[tag] = self.calls.get(tag, 0) + 1
         return out
+
+    def reset_stats(self) -> None:
+        self.stats.clear()
+        self.bytes.clear()
+        self.calls.clear()
 
     def all_gather(self, x: torch.Tensor, axis: AxisName,
                    tag: str = "all_gather") -> torch.Tensor:
         """Tiled all-gather along dim 0 over ``axis``: every rank's ``x``
-        concatenated in the axis's index order."""
+        concatenated in the axis's index order (2-byte and bool dtypes
+        move as bytes)."""
+        if x.dtype in (torch.bfloat16, torch.float16, torch.bool):
+            return self.all_gather_dim(x, axis, 0, tag)
         x = x.contiguous()
         out = x.new_empty((self.axis_size(axis) * x.shape[0],
                            *x.shape[1:]))
         return self._run(lambda o, i, g: _all_gather(o, i, g), out, x, axis,
                          tag)
+
+    def all_gather_dim(self, x: torch.Tensor, axis: AxisName, dim: int,
+                       tag: str = "all_gather") -> torch.Tensor:
+        """Tiled all-gather along ``dim``: the blocks of ``axis``'s ranks
+        concatenated there in index order; moved as bytes."""
+        if self.axis_size(axis) == 1:
+            return x
+        x = x.movedim(dim, 0).contiguous()
+        raw = _as_bytes(x)
+        out = raw.new_empty((self.axis_size(axis) * raw.shape[0],
+                             raw.shape[1]))
+        self._run(lambda o, i, g: _all_gather(o, i, g), out, raw, axis, tag)
+        out = out.view(x.dtype).view(-1, *x.shape[1:])
+        return out.movedim(0, dim)
+
+    def all_to_all(self, x: torch.Tensor, axis: AxisName = "model",
+                   tag: str = "all_to_all") -> torch.Tensor:
+        """Block ``j`` of ``x``'s dim 0 (``n`` equal blocks, ``n`` the
+        axis size) goes to the axis's rank ``j``; the result holds the
+        blocks received, in rank order (``jax.lax.all_to_all`` with
+        ``split_axis = concat_axis = 0``).  Moved as bytes; under gloo a
+        card tensor is staged through pinned host memory."""
+        n = self.axis_size(axis)
+        if x.shape[0] % n:
+            raise ValueError(f"all_to_all: {x.shape[0]} rows do not split "
+                             f"over {n} ranks")
+        if n == 1:
+            return x
+        x = x.contiguous()
+        raw = _as_bytes(x)
+        stage = self.transport == "gloo" and raw.is_cuda
+        t0 = time.perf_counter()
+        send = self._host(f"{tag}.send", raw) if stage else raw
+        recv = torch.empty_like(send)
+        t1 = time.perf_counter()
+        self._run(lambda o, i, g: dist.all_to_all_single(o, i, group=g),
+                  recv, send, axis, tag)
+        if stage:
+            t2 = time.perf_counter()
+            recv = raw.new_empty(raw.shape).copy_(recv)
+            torch.cuda.synchronize(recv.device)
+            key = f"{tag}.staging"
+            self.stats[key] = self.stats.get(key, 0.0) + (
+                t1 - t0 + time.perf_counter() - t2) * 1e3
+        return recv.view(x.dtype).view(x.shape)
+
+    def _host(self, key: str, raw: torch.Tensor) -> torch.Tensor:
+        """``raw`` copied into a pinned host buffer kept for ``key``."""
+        buf = self._pinned.get(key)
+        if buf is None or buf.shape != raw.shape:
+            buf = torch.empty(raw.shape, dtype=raw.dtype, pin_memory=True)
+            self._pinned[key] = buf
+        buf.copy_(raw)
+        torch.cuda.synchronize(raw.device)
+        return buf
 
     def all_reduce(self, x: torch.Tensor, axis: AxisName,
                    tag: str = "all_reduce") -> torch.Tensor:
@@ -243,6 +382,12 @@ class Mesh:
         dist.broadcast(msg, 0, group=self._groups["control"])
         return tuple(msg.tolist())
 
+    def broadcast_object(self, obj=None):
+        """Rank 0's picklable ``obj`` on every rank (control group)."""
+        box = [obj]
+        dist.broadcast_object_list(box, 0, group=self._groups["control"])
+        return box[0]
+
     def gather_object(self, obj) -> Optional[list]:
         """Every rank's ``obj`` in rank order on rank 0 (None elsewhere)."""
         out = [None] * self.world if self.rank == 0 else None
@@ -253,6 +398,12 @@ class Mesh:
         return (f"Mesh(data={self.data}, model={self.model}, "
                 f"rank={self.rank}, transport={self.transport!r}, "
                 f"device={self.device})")
+
+
+def _as_bytes(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's bytes, ``[rows, row bytes]`` (uint8)."""
+    rows = x.shape[0] if x.dim() else 1
+    return x.contiguous().view(-1).view(torch.uint8).view(rows, -1)
 
 
 def _axis(axis: AxisName):

@@ -8,8 +8,17 @@ The same argv as the JAX package's ``repro.launch.serve``, plus
 path), ``--seed`` (the weights, drawn on the device, and the prompts,
 which are ``jax.random.randint``'s for that seed bitwise) and ``--layers``
 (cut the depth; the widths stay the config's).  ``main``
-returns the engine and its output to an in-process caller.  One device
-only: ``--mesh host|pod|multipod`` is ROADMAP A.8.3.
+returns the engine and its output to an in-process caller.
+
+``--mesh host`` serves on a mesh of ranks over the host's cards, as the
+reference's ``make_host_mesh``: by default data = the cards, model = 1
+(on one card a mesh of 1, which prints the same tokens as ``--mesh
+none``); ``--devices N --mesh-model M`` runs N rank processes in an
+``N/M x M`` mesh that share the cards (or the CPU), as ``launch.lda``'s
+do: NCCL when each rank has a card of its own, else gloo.  Rank 0 is
+this process (``serve.mesh_worker``).  ``--mesh pod|multipod`` (the
+reference's TPU pods) and the SSM families on a model axis above 1 are
+ROADMAP A.8.3.
 """
 from __future__ import annotations
 
@@ -24,13 +33,14 @@ import torch
 from repro_torch import rng
 from repro_torch.configs import registry
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.serve.engine import Engine, ServeConfig
 
 
 @dataclasses.dataclass
 class ServeResult:
-    engine: Engine
+    engine: Optional[Engine]     # None on a mesh: the ranks hold the model
     prompts: torch.Tensor
     cond: Optional[torch.Tensor]
     out: torch.Tensor
@@ -51,11 +61,15 @@ def main(argv=None) -> ServeResult:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to N layers (0: the config's)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="--mesh host: rank processes (default: the cards)")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="--mesh host: the model axis")
     args = ap.parse_args(argv)
 
-    if args.mesh != "none":
-        ap.error(f"--mesh {args.mesh}: the LM on a device mesh is ROADMAP "
-                 "A.8.3, not ported yet; the port serves on one device")
+    if args.mesh in ("pod", "multipod"):
+        ap.error(f"--mesh {args.mesh}: the reference's TPU pod mesh is "
+                 "ROADMAP A.8.3; the port serves on --mesh host")
     try:
         device = resolve_device(args.device)
     except RuntimeError:
@@ -65,11 +79,19 @@ def main(argv=None) -> ServeResult:
         else registry.get(args.arch)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    layout = None
+    if args.mesh == "host":
+        try:
+            layout = mesh_mod.make_host_mesh(
+                args.mesh_model,
+                devices=args.devices or (None if device.type == "cuda"
+                                         else 1))
+        except ValueError as e:
+            ap.error(str(e))
+        if cfg.ssm_state > 0 and layout.model > 1:
+            ap.error(f"{cfg.name} on a model axis of {layout.model}: the SSM "
+                     "families' tensor-parallel in_proj is ROADMAP A.8.3")
 
-    model = tfm.init_params(args.seed, cfg, device=device)
-    engine = Engine(model, ServeConfig(
-        max_seq=args.prompt_len + args.gen + 1,
-        temperature=args.temperature, seed=args.seed))
     prompts = rng.randint(rng.PRNGKey(args.seed),
                           (args.batch, args.prompt_len), 0,
                           cfg.vocab_size).to(device)
@@ -78,19 +100,45 @@ def main(argv=None) -> ServeResult:
         g = torch.Generator(device=device).manual_seed(args.seed)
         cond = torch.randn((args.batch, cfg.cond_len, cfg.cond_dim_),
                            generator=g, device=device)
-
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    out = engine.generate(prompts, args.gen, cond=cond)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    dt = time.perf_counter() - t0
+    max_seq = args.prompt_len + args.gen + 1
+    if layout is not None:
+        out, dt = _serve_on_mesh(layout, cfg, args, device, prompts, cond,
+                                 max_seq)
+        engine = None
+    else:
+        model = tfm.init_params(args.seed, cfg, device=device)
+        engine = Engine(model, ServeConfig(
+            max_seq=max_seq, temperature=args.temperature, seed=args.seed))
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = engine.generate(prompts, args.gen, cond=cond)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
     tps = args.batch * args.gen / dt
     print(f"[serve] {cfg.name}: generated {tuple(out.shape)} tokens in "
           f"{dt:.2f}s ({tps:.1f} tok/s, batch={args.batch})")
     print("[serve] sample:", out[0, :16].tolist())
     return ServeResult(engine, prompts, cond, out, dt)
+
+
+def _serve_on_mesh(layout, cfg, args, device, prompts, cond, max_seq):
+    """``generate`` on every rank of the mesh; returns rank 0's tokens (on
+    ``device``) and the seconds it took."""
+    from repro_torch.serve.mesh_worker import LMMeshRun
+
+    spec = {"data": layout.data, "model": layout.model}
+    with LMMeshRun(spec, device) as run:
+        print(f"[serve] mesh {layout.data} x {layout.model} over "
+              f"{run.transport} ({run.world} ranks)")
+        run.call("load", cfg, seed=args.seed, max_seq=max_seq,
+                 temperature=args.temperature)
+        t0 = time.perf_counter()
+        out = run.call("generate", prompts.cpu(), args.gen,
+                       None if cond is None else cond.cpu())
+        dt = time.perf_counter() - t0
+    return out.to(device), dt
 
 
 if __name__ == "__main__":

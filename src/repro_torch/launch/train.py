@@ -17,7 +17,8 @@ the npz in the JAX package's layout (stacked ``[L, ...]`` layers,
 weights are drawn from ``--seed`` on the device (the JAX package's
 distributions, not its bits); the batches equal the JAX launcher's bitwise.
 ``main`` returns the state and history to an in-process caller.  One
-device only: ``--mesh host|pod|multipod`` is ROADMAP A.8.3.
+device only: ``--mesh host|pod|multipod`` is ROADMAP A.8.3's training
+half (the port serves on a mesh: ``launch.serve --mesh host``).
 """
 from __future__ import annotations
 
@@ -81,8 +82,9 @@ def main(argv=None) -> TrainResult:
     args = ap.parse_args(argv)
 
     if args.mesh != "none":
-        ap.error(f"--mesh {args.mesh}: the LM on a device mesh is ROADMAP "
-                 "A.8.3, not ported yet; the port trains on one device")
+        ap.error(f"--mesh {args.mesh}: training on a device mesh is ROADMAP "
+                 "A.8.3's training half, not ported yet; the port trains on "
+                 "one device")
     try:
         device = resolve_device(args.device)
     except RuntimeError:

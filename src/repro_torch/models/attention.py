@@ -12,6 +12,24 @@ Scores and softmax are float32 whatever the operands' dtype (the
 reference's ``preferred_element_type=jnp.float32``): on the card a bf16
 product is a cuBLAS ``bmm`` with a float32 output, so no float32 copy of
 the cache is made.
+
+**On a mesh** the split is chosen from ``cfg`` and the mesh alone
+(``attn_split``):
+
+  * ``"heads"`` -- the column blocks of ``wq``/``wk``/``wv`` hold whole
+    heads (KV heads tile the model axis; MLA: query heads do): each rank
+    attends with its own heads, its cache holds their K/V, and the
+    row-parallel ``wo`` is followed by a model all-reduce;
+  * ``"gather"`` -- they do not: each rank all-gathers the weight blocks
+    per use and attends with every head, its cache holding all KV heads.
+
+The **sequence-parallel prefill** runs under the reference's own
+condition (``seq_parallel_attn``, by default ``model_size % kv != 0``,
+with ``t % model_size == 0``): each rank computes its ``t / M`` query
+positions with every head, against K/V all-gathered over the model axis,
+and the outputs are all-gathered along the sequence.  MLA keeps ``w_dkv``
+replicated, so every model rank holds the whole latent cache of its batch
+slice, and decodes with the absorbed product per local head.
 """
 from __future__ import annotations
 
@@ -21,8 +39,10 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import (RMSNorm, apply_rope, dtype_of,
-                                       normal_, param)
+from repro_torch.models.layers import (RMSNorm, apply_rope, block, dtype_of,
+                                       full_shape, model_gather, normal_,
+                                       param, row_parallel)
+from repro_torch.sharding.specs import SINGLE, MeshCtx
 
 _NEG = -1e30
 _EMPTY = 2 ** 30         # position of a padded kv slot: always masked
@@ -73,32 +93,37 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def kv_chunk_ranges(n_q: int, n_k: int, qc: int, kc: int, *, causal: bool,
-                    window: int):
+                    window: int, q_offset: int = 0):
     """The kv chunks each q chunk visits (the reference's static bounds):
     a band of ``(qc + window - 2) // kc + 2`` chunks for a causal window
     layer (its rows reach back ``window - 1`` slots); for a
     global causal layer with at least 8 q chunks, up to 4 groups of q
-    chunks each bounded by its last row's causal end; else all."""
+    chunks each bounded by its last row's causal end; else all.  The
+    queries sit at positions ``q_offset + i`` (a sequence-parallel rank's
+    block); a tile the mask empties adds exactly nothing, so bounds that
+    cover every live tile give the same rows."""
     if causal and window > 0:
         band = min(n_k, (qc + window - 2) // kc + 2)
         return [range(s, s + band) for s in
-                (min(max((qi * qc - window + 1) // kc, 0), n_k - band)
-                 for qi in range(n_q))]
+                (min(max((q_offset + qi * qc - window + 1) // kc, 0),
+                     n_k - band) for qi in range(n_q))]
     if causal and n_q >= 8:
         group = -(-n_q // 4)
         out = []
         for lo in range(0, n_q, group):
             hi = min(lo + group, n_q)
-            end = min(n_k, (hi * qc - 1) // kc + 1)
+            end = min(n_k, (q_offset + hi * qc - 1) // kc + 1)
             out += [range(end)] * (hi - lo)
         return out
     return [range(n_k)] * n_q
 
 
 def _attend_chunked(q, k, v, q_pos, kv_pos, *, causal: bool, window: int,
-                    q_chunk: int, kv_chunk: int) -> torch.Tensor:
+                    q_chunk: int, kv_chunk: int,
+                    q_offset: int = 0) -> torch.Tensor:
     """q: [B, Tq, KV, G, hd]; k, v: [B, Tk, KV, hd].
-    Positions are int [Tq] / [Tk] (aligned aranges for self-attention).
+    Positions are int [Tq] / [Tk] (aligned aranges for self-attention;
+    the queries' start at ``q_offset``).
     Returns [B, Tq, KV, G, hd] in q's dtype."""
     b, tq, nkv, g, hd = q.shape
     tk = k.shape[1]
@@ -120,7 +145,8 @@ def _attend_chunked(q, k, v, q_pos, kv_pos, *, causal: bool, window: int,
     outs = []
     for qi, kv_range in enumerate(kv_chunk_ranges(n_q, n_k, qc, kc,
                                                   causal=causal,
-                                                  window=window)):
+                                                  window=window,
+                                                  q_offset=q_offset)):
         qs = q[:, qi * qc:(qi + 1) * qc]
         qp = q_pos[qi * qc:(qi + 1) * qc]
         qm = qs.permute(0, 2, 3, 1, 4).reshape(b * nkv, g * qc, hd)
@@ -195,83 +221,178 @@ def _write_slot(cache: torch.Tensor, new: torch.Tensor, pos: int) -> None:
 # GQA self-attention (prefill / decode)
 # ---------------------------------------------------------------------------
 
+def attn_split(cfg: ModelConfig, m: int) -> str:
+    """``"heads"`` where the model axis's column blocks hold whole heads
+    (KV heads for GQA, query heads for MLA), else ``"gather"``."""
+    n = cfg.num_heads if cfg.use_mla else cfg.num_kv_heads
+    return "heads" if m == 1 or n % m == 0 else "gather"
+
+
+def cache_kv_heads(cfg: ModelConfig, m: int) -> int:
+    """KV heads a rank's cache holds on a model axis of ``m``."""
+    return cfg.num_kv_heads // m if attn_split(cfg, m) == "heads" \
+        else cfg.num_kv_heads
+
+
+def seq_parallel(cfg: ModelConfig, ctx: MeshCtx, t: int) -> bool:
+    """The reference's condition for the sequence-parallel prefill
+    (``attention.py:244-252``): ``seq_parallel_attn``, by default
+    ``model_size % kv != 0``, on a model axis above 1, with ``t > 1``
+    positions that split over it."""
+    m = ctx.model_size
+    use = cfg.seq_parallel_attn
+    if use is None:
+        use = m % max(cfg.num_kv_heads, 1) != 0
+    return bool(use) and ctx.comm is not None and m > 1 and t > 1 \
+        and t % m == 0
+
+
 class Attention(nn.Module):
     """Standard (non-MLA) attention weights.  ``kv_input_dim`` overrides the
-    K/V input dimension for cross-attention (conditioning stream)."""
+    K/V input dimension for cross-attention (conditioning stream).  On a
+    mesh each weight is this rank's block (columns of ``wq``/``wk``/``wv``,
+    rows of ``wo``)."""
 
     def __init__(self, cfg: ModelConfig, *, kv_input_dim: int = 0,
-                 device=None):
+                 device=None, ctx: MeshCtx = SINGLE):
         super().__init__()
         d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
             cfg.head_dim_
         dkv = kv_input_dim or d
         dt = dtype_of(cfg)
-        self.cfg = cfg
-        self.wq = param((d, h * hd), dt, device)
-        self.wk = param((dkv, kv * hd), dt, device)
-        self.wv = param((dkv, kv * hd), dt, device)
-        self.wo = param((h * hd, d), dt, device)
+        m = ctx.model_size
+        self.cfg, self.ctx = cfg, ctx
+        # this rank attends with its own heads; in "gather" mode with all
+        self.tp = m > 1 and attn_split(cfg, m) == "heads"
+        self.wq = param((d, block(h * hd, m, "wq")), dt, device,
+                        full=(d, h * hd))
+        self.wk = param((dkv, block(kv * hd, m, "wk")), dt, device,
+                        full=(dkv, kv * hd))
+        self.wv = param((dkv, block(kv * hd, m, "wv")), dt, device,
+                        full=(dkv, kv * hd))
+        self.wo = param((block(h * hd, m, "wo"), d), dt, device,
+                        full=(h * hd, d))
         if cfg.use_qk_norm:
             self.q_norm = RMSNorm(hd, cfg.norm_eps, device)
             self.k_norm = RMSNorm(hd, cfg.norm_eps, device)
 
     def reset_parameters(self, g: torch.Generator) -> None:
         for w in (self.wq, self.wk, self.wv, self.wo):
-            normal_(w, w.shape[0] ** -0.5, g)
+            normal_(w, full_shape(w)[0] ** -0.5, g)
         if self.cfg.use_qk_norm:
             self.q_norm.reset_parameters(g)
             self.k_norm.reset_parameters(g)
 
-    def _split(self, x: torch.Tensor, n: int) -> torch.Tensor:
-        return x.reshape(*x.shape[:-1], n, self.cfg.head_dim_)
+    def weights(self, full: bool = False):
+        """``(wq, wk, wv, wo)`` as this rank computes with them: its
+        blocks in ``"heads"`` mode, all-gathered over the model axis in
+        ``"gather"`` mode or when ``full``."""
+        w = (self.wq, self.wk, self.wv, self.wo)
+        if self.tp and not full:
+            return w
+        return (model_gather(w[0], self.ctx, 1, "weights"),
+                model_gather(w[1], self.ctx, 1, "weights"),
+                model_gather(w[2], self.ctx, 1, "weights"),
+                model_gather(w[3], self.ctx, 0, "weights"))
+
+    def _split(self, x: torch.Tensor) -> torch.Tensor:
+        return x.reshape(*x.shape[:-1], -1, self.cfg.head_dim_)
+
+    def _norm_rope(self, t, norm: str, positions, theta: float):
+        """qk-norm (``norm`` names it), then RoPE when ``positions`` is
+        given."""
+        if self.cfg.use_qk_norm:
+            t = getattr(self, norm)(t)
+        return t if positions is None else apply_rope(t, positions, theta)
 
     def qkv(self, x, kv_in, positions: Optional[torch.Tensor],
-            theta: float):
-        """Projections (+ qk-norm, + RoPE when ``positions`` is given)."""
-        cfg = self.cfg
-        q = self._split(x @ self.wq, cfg.num_heads)
-        k = self._split(kv_in @ self.wk, cfg.num_kv_heads)
-        v = self._split(kv_in @ self.wv, cfg.num_kv_heads)
-        if cfg.use_qk_norm:
-            q = self.q_norm(q)
-            k = self.k_norm(k)
-        if positions is not None:
-            q = apply_rope(q, positions, theta)
-            k = apply_rope(k, positions, theta)
-        return q, k, v
+            theta: float, w=None):
+        """Projections (+ qk-norm, + RoPE when ``positions`` is given),
+        with this rank's heads (``weights()``) unless ``w`` is given."""
+        wq, wk, wv, _ = self.weights() if w is None else w
+        q = self._norm_rope(self._split(x @ wq), "q_norm", positions, theta)
+        k = self._norm_rope(self._split(kv_in @ wk), "k_norm", positions,
+                            theta)
+        return q, k, self._split(kv_in @ wv)
+
+    def _out(self, out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+        """Heads -> d_model; row-parallel in ``"heads"`` mode."""
+        out = out.reshape(*out.shape[:2], -1)
+        return row_parallel(out, wo, self.ctx, "attn") if self.tp \
+            else out @ wo
 
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor,
                 window: int, theta: float):
         """Causal self-attention over a full sequence.  Returns
-        ``(out, (k, v))`` so prefill can seed the cache."""
+        ``(out, (k, v))`` so prefill can seed the cache (this rank's KV
+        heads)."""
         cfg = self.cfg
         b, t, _ = x.shape
-        kv, hd = cfg.num_kv_heads, cfg.head_dim_
-        q, k, v = self.qkv(x, x, positions, theta)
-        qg = q.reshape(b, t, kv, cfg.num_heads // kv, hd)
+        if seq_parallel(cfg, self.ctx, t):
+            return self._forward_seq_parallel(x, positions, window, theta)
+        w = self.weights()
+        q, k, v = self.qkv(x, x, positions, theta, w)
+        nkv = k.shape[2]
+        qg = q.reshape(b, t, nkv, q.shape[2] // nkv, cfg.head_dim_)
         out = _attend_chunked(qg, k, v, positions, positions, causal=True,
                               window=window, q_chunk=cfg.attn_chunk_q,
                               kv_chunk=cfg.attn_chunk_kv)
-        return out.reshape(b, t, cfg.num_heads * hd) @ self.wo, (k, v)
+        return self._out(out, w[3]), (k, v)
+
+    def _forward_seq_parallel(self, x, positions, window: int, theta: float):
+        """This rank's ``t / M`` query positions with every head, against
+        every position's K/V (all-gathered over the model axis); the
+        outputs all-gathered along the sequence.  The cache entry is this
+        rank's KV heads, as in the head-parallel path."""
+        cfg, ctx = self.cfg, self.ctx
+        b, t, _ = x.shape
+        m, i = ctx.model_size, ctx.comm.model_idx
+        c = t // m
+        if self.tp:
+            wq = model_gather(self.wq, ctx, 1, "weights")
+            wo = model_gather(self.wo, ctx, 0, "weights")
+            wk, wv = self.wk, self.wv
+        else:
+            wq, wk, wv, wo = self.weights()
+        k = self._norm_rope(self._split(x @ wk), "k_norm", positions, theta)
+        v = self._split(x @ wv)
+        k_all, v_all = k, v
+        if self.tp:
+            k_all = model_gather(k, ctx, 2, "kv")
+            v_all = model_gather(v, ctx, 2, "kv")
+        pos_q = positions[i * c:(i + 1) * c]
+        q = self._norm_rope(self._split(x[:, i * c:(i + 1) * c] @ wq),
+                            "q_norm", pos_q, theta)
+        kv = cfg.num_kv_heads
+        qg = q.reshape(b, c, kv, cfg.num_heads // kv, cfg.head_dim_)
+        out = _attend_chunked(qg, k_all, v_all, pos_q, positions,
+                              causal=True, window=window,
+                              q_chunk=cfg.attn_chunk_q,
+                              kv_chunk=cfg.attn_chunk_kv, q_offset=i * c)
+        out = out.reshape(b, c, -1) @ wo
+        return model_gather(out, ctx, 1, "seq"), (k, v)
 
     def decode(self, x: torch.Tensor, cache_k: torch.Tensor,
                cache_v: torch.Tensor, pos: int, *, window: int,
                theta: float) -> torch.Tensor:
-        """One decode step.  x: [B, 1, D]; cache k/v: [B, S, KV, hd],
-        written at ``pos`` in place; attends over the live slots only."""
+        """One decode step.  x: [B, 1, D]; cache k/v: [B, S, KV, hd] (this
+        rank's KV heads), written at ``pos`` in place; attends over the
+        live slots only."""
         cfg = self.cfg
         b = x.shape[0]
-        kv, hd = cfg.num_kv_heads, cfg.head_dim_
+        hd = cfg.head_dim_
         positions = torch.tensor([pos], dtype=torch.int64, device=x.device)
-        q, k_new, v_new = self.qkv(x, x, positions, theta)
+        w = self.weights()
+        q, k_new, v_new = self.qkv(x, x, positions, theta, w)
         _write_slot(cache_k, k_new, pos)
         _write_slot(cache_v, v_new, pos)
         lo, hi = live_range(pos, window)
         kv_pos = torch.arange(lo, hi, device=x.device)
-        qg = q.reshape(b, 1, kv, cfg.num_heads // kv, hd)
+        nkv = k_new.shape[2]
+        qg = q.reshape(b, 1, nkv, q.shape[2] // nkv, hd)
         out = _attend_decode(qg, cache_k[:, lo:hi], cache_v[:, lo:hi],
                              kv_pos, pos, window)
-        return out.reshape(b, 1, cfg.num_heads * hd) @ self.wo
+        return self._out(out, w[3])
 
 
 # ---------------------------------------------------------------------------
@@ -279,29 +400,49 @@ class Attention(nn.Module):
 # ---------------------------------------------------------------------------
 
 class MLA(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None):
+    """On a mesh: ``wq``, ``w_uk``, ``w_uv`` column blocks and ``wo`` row
+    blocks of this rank's query heads; ``w_dkv`` and the latent it makes
+    are whole on every rank."""
+
+    def __init__(self, cfg: ModelConfig, device=None, *,
+                 ctx: MeshCtx = SINGLE):
         super().__init__()
         d, h = cfg.d_model, cfg.num_heads
         r, dr, dn, dv = (cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.qk_nope_dim,
                          cfg.v_head_dim)
         dt = dtype_of(cfg)
-        self.cfg = cfg
-        self.wq = param((d, h * (dn + dr)), dt, device)
+        m = ctx.model_size
+        self.cfg, self.ctx = cfg, ctx
+        self.tp = m > 1 and attn_split(cfg, m) == "heads"
+        self.wq = param((d, block(h * (dn + dr), m, "wq")), dt, device,
+                        full=(d, h * (dn + dr)))
         self.w_dkv = param((d, r + dr), dt, device)
         self.kv_norm = RMSNorm(r, cfg.norm_eps, device)
-        self.w_uk = param((r, h * dn), dt, device)
-        self.w_uv = param((r, h * dv), dt, device)
-        self.wo = param((h * dv, d), dt, device)
+        self.w_uk = param((r, block(h * dn, m, "w_uk")), dt, device,
+                          full=(r, h * dn))
+        self.w_uv = param((r, block(h * dv, m, "w_uv")), dt, device,
+                          full=(r, h * dv))
+        self.wo = param((block(h * dv, m, "wo"), d), dt, device,
+                        full=(h * dv, d))
 
     def reset_parameters(self, g: torch.Generator) -> None:
         for w in (self.wq, self.w_dkv, self.w_uk, self.w_uv, self.wo):
-            normal_(w, w.shape[0] ** -0.5, g)
+            normal_(w, full_shape(w)[0] ** -0.5, g)
         self.kv_norm.reset_parameters(g)
 
-    def _q(self, x, positions):
+    def weights(self):
+        """``(wq, w_uk, w_uv, wo)``: this rank's blocks where they hold
+        whole heads, else all-gathered over the model axis."""
+        w = (self.wq, self.w_uk, self.w_uv, self.wo)
+        if self.tp:
+            return w
+        return tuple(model_gather(t, self.ctx, 0 if i == 3 else 1, "weights")
+                     for i, t in enumerate(w))
+
+    def _q(self, x, positions, wq):
         cfg = self.cfg
-        h, dn, dr = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
-        q = (x @ self.wq).reshape(*x.shape[:-1], h, dn + dr)
+        dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+        q = (x @ wq).reshape(*x.shape[:-1], -1, dn + dr)
         qn, qr = q[..., :dn], q[..., dn:]
         return qn, apply_rope(qr, positions, cfg.rope_theta)
 
@@ -314,18 +455,23 @@ class MLA(nn.Module):
                            cfg.rope_theta)[..., 0, :]
         return ckv, krope
 
+    def _out(self, out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+        return row_parallel(out, wo, self.ctx, "attn") if self.tp \
+            else out @ wo
+
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor):
         """Prefill MLA: expand the latent into per-head K/V and run the
         chunked core.  Returns ``(out, (ckv, krope))``: the cache stores only
         the (r + dr)-dim latent per token."""
         cfg = self.cfg
         b, t, _ = x.shape
-        h = cfg.num_heads
         dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-        qn, qr = self._q(x, positions)
+        wq, w_uk, w_uv, wo = self.weights()
+        qn, qr = self._q(x, positions, wq)
+        h = qn.shape[2]
         ckv, krope = self._compress(x, positions)
-        k_nope = (ckv @ self.w_uk).reshape(b, t, h, dn)
-        val = (ckv @ self.w_uv).reshape(b, t, h, dv)
+        k_nope = (ckv @ w_uk).reshape(b, t, h, dn)
+        val = (ckv @ w_uv).reshape(b, t, h, dv)
         q = torch.cat([qn, qr], dim=-1)                      # [B,T,H,dn+dr]
         k = torch.cat([k_nope, krope[:, :, None, :].expand(b, t, h, dr)],
                       dim=-1)
@@ -335,7 +481,7 @@ class MLA(nn.Module):
                               positions, causal=True, window=0,
                               q_chunk=cfg.attn_chunk_q,
                               kv_chunk=cfg.attn_chunk_kv)
-        out = out[..., 0, :dv].reshape(b, t, h * dv) @ self.wo
+        out = self._out(out[..., 0, :dv].reshape(b, t, h * dv), wo)
         return out, (ckv, krope)
 
     def decode(self, x: torch.Tensor, cache_ckv: torch.Tensor,
@@ -348,25 +494,27 @@ class MLA(nn.Module):
         """
         cfg = self.cfg
         b = x.shape[0]
-        h, r = cfg.num_heads, cfg.kv_lora_rank
+        r = cfg.kv_lora_rank
         dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
         positions = torch.tensor([pos], dtype=torch.int64, device=x.device)
-        qn, qr = self._q(x, positions)
+        wq, w_uk, w_uv, wo = self.weights()
+        qn, qr = self._q(x, positions, wq)
+        h = qn.shape[2]
         ckv_new, krope_new = self._compress(x, positions)
         _write_slot(cache_ckv, ckv_new, pos)
         _write_slot(cache_krope, krope_new, pos)
         f32 = torch.float32
         ckv = cache_ckv[:, :pos + 1].to(f32)
         krope = cache_krope[:, :pos + 1].to(f32)
-        w_uk = self.w_uk.reshape(r, h, dn).to(f32)
-        w_uv = self.w_uv.reshape(r, h, dv).to(f32)
+        w_uk = w_uk.reshape(r, h, dn).to(f32)
+        w_uv = w_uv.reshape(r, h, dv).to(f32)
         q_eff = torch.einsum("bqhd,rhd->bhr", qn.to(f32), w_uk)  # absorb W_uk
         scores = (torch.einsum("bhr,bsr->bhs", q_eff, ckv)
                   + torch.einsum("bqhd,bsd->bhs", qr.to(f32), krope))
         p = torch.softmax(scores * (dn + dr) ** -0.5, dim=-1)
         ctx_lat = torch.einsum("bhs,bsr->bhr", p, ckv)
         ctx = torch.einsum("bhr,rhd->bhd", ctx_lat, w_uv)
-        return ctx.reshape(b, 1, h * dv).to(x.dtype) @ self.wo
+        return self._out(ctx.reshape(b, 1, h * dv).to(x.dtype), wo)
 
 
 # ---------------------------------------------------------------------------
@@ -375,10 +523,13 @@ class MLA(nn.Module):
 
 class CrossAttention(Attention):
     """Queries from the text stream, K/V from the (stubbed) frontend
-    embeddings; no causality, no RoPE; tanh-gated (llama-vision style)."""
+    embeddings; no causality, no RoPE; tanh-gated (llama-vision style).
+    On a mesh its heads split as self-attention's do."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
-        super().__init__(cfg, kv_input_dim=cfg.cond_dim_, device=device)
+    def __init__(self, cfg: ModelConfig, device=None, *,
+                 ctx: MeshCtx = SINGLE):
+        super().__init__(cfg, kv_input_dim=cfg.cond_dim_, device=device,
+                         ctx=ctx)
         self.gate = param((), torch.float32, device)
 
     def reset_parameters(self, g: torch.Generator) -> None:
@@ -388,13 +539,13 @@ class CrossAttention(Attention):
     def forward(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         b, t, _ = x.shape
-        kv, hd = cfg.num_kv_heads, cfg.head_dim_
-        q, k, v = self.qkv(x, cond.to(x.dtype), None, 0.0)
-        qg = q.reshape(b, t, kv, cfg.num_heads // kv, hd)
+        w = self.weights()
+        q, k, v = self.qkv(x, cond.to(x.dtype), None, 0.0, w)
+        nkv = k.shape[2]
+        qg = q.reshape(b, t, nkv, q.shape[2] // nkv, cfg.head_dim_)
         qpos = torch.arange(t, device=x.device)
         kpos = torch.arange(cond.shape[1], device=x.device)
         out = _attend_chunked(qg, k, v, qpos, kpos, causal=False, window=0,
                               q_chunk=cfg.attn_chunk_q,
                               kv_chunk=cfg.attn_chunk_kv)
-        out = out.reshape(b, t, cfg.num_heads * hd) @ self.wo
-        return torch.tanh(self.gate).to(x.dtype) * out
+        return torch.tanh(self.gate).to(x.dtype) * self._out(out, w[3])

@@ -9,6 +9,20 @@ at run time.
 
 Weights keep the JAX package's ``[d_in, d_out]`` layout (``x @ w``), so
 parameters carry across from it unchanged (``convert.lm_params_from_arrays``).
+
+**On a mesh** (a ``MeshCtx`` whose mesh is a rank's ``launch.mesh.Mesh``)
+each module holds this rank's block of every weight, as the rules of
+``sharding.specs`` place it, and issues the collectives the reference's
+GSPMD inserts: the vocab-parallel ``Embedding`` (rank ``m`` holds the
+logical rows ``v = m (mod M)``, its contiguous physical shard; a lookup is
+a masked local gather and a model all-reduce), the per-shard LM head
+(``gather_vocab`` assembles the physical row), and the MLP as
+column-parallel ``w_gate``/``w_up`` and row-parallel ``w_down`` followed
+by a model all-reduce.  A row-parallel product keeps each rank's partial
+in float32, the ranks' sum is added in float32 and rounded once to the
+activation dtype (``row_parallel``), so it is the single device's product
+up to float32 order; the hidden between layers is replicated over the
+model axis and split over the data axis by batch.
 """
 from __future__ import annotations
 
@@ -23,6 +37,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import torch_dtype
 from repro_torch.core.pserver import CyclicLayout
+from repro_torch.sharding.specs import SINGLE, MeshCtx
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -31,15 +46,97 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 def normal_(t: torch.Tensor, std: float, g: torch.Generator) -> torch.Tensor:
     """Fill ``t`` with N(0, std^2) drawn in float32, then cast (the JAX
-    package draws in float32 and casts to the parameter dtype)."""
+    package draws in float32 and casts to the parameter dtype).  A mesh
+    rank's block draws the whole single-device leaf (``full_shape``) and
+    keeps its block (``_mesh_fill``), so every rank holds slices of the
+    same logical weights the single-device model draws from the seed."""
     with torch.no_grad():
-        t.copy_(torch.randn(t.shape, generator=g, device=t.device,
-                            dtype=torch.float32) * std)
+        full = torch.randn(full_shape(t), generator=g, device=t.device,
+                           dtype=torch.float32)
+        full.mul_(std)
+        fill = getattr(t, "_mesh_fill", None)
+        t.copy_(full if fill is None else fill(full))
     return t
 
 
-def param(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+def param(shape, dtype, device, full=None) -> nn.Parameter:
+    """An uninitialised parameter of ``shape``; ``full`` is the
+    single-device leaf's shape where ``shape`` is a mesh rank's block."""
+    p = nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+    p._full_shape = tuple(full if full is not None else shape)
+    return p
+
+
+def full_shape(t: torch.Tensor) -> tuple:
+    """The single-device shape of a parameter (its own on one device)."""
+    return tuple(getattr(t, "_full_shape", t.shape))
+
+
+def block(n: int, m: int, what: str) -> int:
+    """``n // m``, raising where ``m`` model ranks do not split ``n``."""
+    if n % m:
+        raise ValueError(f"{what}: {n} does not split over {m} model ranks")
+    return n // m
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel collectives (identity on one device)
+# ---------------------------------------------------------------------------
+
+def _model_comm(ctx: MeshCtx):
+    comm = ctx.comm if ctx is not None else None
+    return comm if comm is not None and comm.model > 1 else None
+
+
+def model_sum(x: torch.Tensor, ctx: MeshCtx, tag: str = "all_reduce",
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The sum over the model ranks of their partial results, added in
+    float32 and rounded once to ``dtype`` (``x``'s by default)."""
+    comm = _model_comm(ctx)
+    dtype = dtype or x.dtype
+    if comm is None:
+        return x.to(dtype)
+    return comm.all_reduce(x.to(torch.float32), "model", tag).to(dtype)
+
+
+def mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` accumulated and returned in float32: a row-parallel
+    rank's partial product, kept unrounded until the ranks' sum (on the
+    card a bf16 ``bmm`` with a float32 output; the CPU widens first)."""
+    if x.dtype == torch.float32:
+        return x @ w
+    x3 = x.reshape(1, -1, x.shape[-1])
+    if x.is_cuda:
+        out = torch.bmm(x3, w[None], out_dtype=torch.float32)
+    else:
+        out = torch.bmm(x3.to(torch.float32), w.to(torch.float32)[None])
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def row_parallel(h: torch.Tensor, w: torch.Tensor, ctx: MeshCtx,
+                 tag: str) -> torch.Tensor:
+    """``h @ w`` of a row-parallel weight: on one device the plain
+    product; on a model axis each rank's float32 partial product, summed
+    over the ranks in float32 and rounded once, so the result is the
+    single device's product up to float32 order."""
+    if _model_comm(ctx) is None:
+        return h @ w
+    return model_sum(mm_f32(h, w), ctx, tag, dtype=h.dtype)
+
+
+def model_gather(x: torch.Tensor, ctx: MeshCtx, dim: int,
+                 tag: str = "all_gather") -> torch.Tensor:
+    """The model ranks' blocks of ``x`` concatenated along ``dim``."""
+    comm = _model_comm(ctx)
+    if comm is None:
+        return x
+    return comm.all_gather_dim(x, "model", dim % x.dim(), tag)
+
+
+def gather_vocab(logits: torch.Tensor, ctx: MeshCtx) -> torch.Tensor:
+    """A shard's logits ``[..., pad_rows / M]`` -> the physical row
+    ``[..., pad_rows]`` (an all-gather over the model group)."""
+    return model_gather(logits, ctx, -1, tag="logits")
 
 
 # ---------------------------------------------------------------------------
@@ -102,19 +199,24 @@ def activation(h: torch.Tensor, act: str) -> torch.Tensor:
 
 
 def apply_mlp(mlp: "MLP", x: torch.Tensor, act: str) -> torch.Tensor:
+    """On a mesh: column-parallel gate/up, row-parallel down, then the
+    model all-reduce."""
     h = activation(x @ mlp.w_gate, act) * (x @ mlp.w_up)
-    return h @ mlp.w_down
+    return row_parallel(h, mlp.w_down, mlp.ctx, "mlp")
 
 
 class MLP(nn.Module):
-    def __init__(self, d: int, f: int, dtype, device=None):
+    def __init__(self, d: int, f: int, dtype, device=None, *,
+                 ctx: MeshCtx = SINGLE):
         super().__init__()
-        self.w_gate = param((d, f), dtype, device)
-        self.w_up = param((d, f), dtype, device)
-        self.w_down = param((f, d), dtype, device)
+        fl = block(f, ctx.model_size, "mlp d_ff")
+        self.ctx = ctx
+        self.w_gate = param((d, fl), dtype, device, full=(d, f))
+        self.w_up = param((d, fl), dtype, device, full=(d, f))
+        self.w_down = param((fl, d), dtype, device, full=(f, d))
 
     def reset_parameters(self, g: torch.Generator) -> None:
-        d, f = self.w_gate.shape
+        d, f = full_shape(self.w_gate)
         normal_(self.w_gate, d ** -0.5, g)
         normal_(self.w_up, d ** -0.5, g)
         normal_(self.w_down, f ** -0.5, g)
@@ -159,12 +261,19 @@ class VocabLayout:
 
 
 class Embedding(nn.Module):
-    """The ``[pad_rows, d_model]`` table in physical (cyclic) row order."""
+    """The ``[pad_rows, d_model]`` table in physical (cyclic) row order;
+    on a mesh of ``M`` model ranks, rank ``shard`` holds physical rows
+    ``[shard * pad_rows / M, (shard + 1) * pad_rows / M)``: the logical
+    rows ``v = shard (mod M)`` of the cyclic layout.  Its single-device
+    leaf is the ``[vocab, d_model]`` table of the one-shard layout."""
 
-    def __init__(self, layout: VocabLayout, d: int, dtype, device=None):
+    def __init__(self, layout: VocabLayout, d: int, dtype, device=None, *,
+                 ctx: MeshCtx = SINGLE, shard: int = 0):
         super().__init__()
-        self.layout = layout
-        self.table = param((layout.pad_rows, d), dtype, device)
+        self.layout, self.ctx, self.shard = layout, ctx, int(shard)
+        rows = block(layout.pad_rows, ctx.model_size, "vocab rows")
+        single = VocabLayout(layout.vocab_size, 1, layout.mode).pad_rows
+        self.table = param((rows, d), dtype, device, full=(single, d))
 
     def reset_parameters(self, g: torch.Generator) -> None:
         normal_(self.table, self.table.shape[1] ** -0.5, g)
@@ -175,15 +284,28 @@ class Embedding(nn.Module):
 
 def embed_lookup(embed: Embedding, tokens: torch.Tensor,
                  layout: VocabLayout) -> torch.Tensor:
-    """Token ids -> embeddings via the physical (cyclic) index formula."""
+    """Token ids -> embeddings via the physical (cyclic) index formula; on
+    a mesh the rows another rank holds read as zero here and the model
+    all-reduce adds the one rank's row that holds each token (exact in
+    any dtype: every other addend is zero)."""
     phys = layout.to_physical(tokens.to(torch.int64))
-    return embed.table[phys]
+    if _model_comm(embed.ctx) is None:
+        return embed.table[phys]
+    rows = embed.table.shape[0]
+    local = phys - embed.shard * rows
+    mine = (local >= 0) & (local < rows)
+    out = embed.table[local.clamp(0, rows - 1)]
+    out = torch.where(mine[..., None], out, torch.zeros((), dtype=out.dtype,
+                                                        device=out.device))
+    return model_sum(out, embed.ctx, "embed")
 
 
 def lm_head_logits(head: Embedding, x: torch.Tensor) -> torch.Tensor:
-    """Logits *in physical vocab order* [.., pad_rows].  Cross-entropy only
-    needs logsumexp plus the label's logit, so they are never permuted
-    back; labels map with the same integer formula."""
+    """Logits *in physical vocab order* [.., pad_rows] (a mesh rank's
+    shard of them: [.., pad_rows / M]; ``gather_vocab`` assembles the
+    row).  Cross-entropy only needs logsumexp plus the label's logit, so
+    they are never permuted back; labels map with the same integer
+    formula."""
     return x @ head.table.T
 
 

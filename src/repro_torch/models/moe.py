@@ -1,52 +1,88 @@
-"""Mixture-of-Experts, the dense single-device path.
+"""Mixture-of-Experts with expert-parallel all-to-all dispatch.
 
-The twin of the JAX package's ``models/moe.py`` on one device: top-k
-routing (``_route``) and the exact dense block (``moe_block_dense``: every
-expert on every token, gate-masked, no capacity drops), which is what the
-JAX package's ``moe_block`` runs without a mesh.  The expert-parallel
-shard_map path (``moe_block_spmd``, ``_moe_local``, ``_group_by``: experts
-on model shards cyclically, tokens pushed to their owners through
-fixed-capacity all-to-all buffers) is ROADMAP A.8.3.
+The twin of the JAX package's ``models/moe.py``.  This block is the
+paper's parameter-server pattern moved onto experts: experts are placed on
+model-axis shards **cyclically** (expert ``e`` lives on shard ``e mod M``
+at local index ``e div M`` -- paper section 2.2), tokens are *pushed* to
+their experts through fixed-capacity buffers (the paper's bounded message
+buffers, section 3.3: overflow is dropped), and results are *pulled* back
+by the symmetric all-to-all.
+
+Paths:
+  * ``moe_block_dense`` -- every expert on every token, gate-masked: exact,
+    no drops; the single-device path;
+  * ``moe_block_spmd`` -- one rank's part on a mesh: two-level grouping
+    (destination-shard buckets, then local-expert buckets) and a pair of
+    model-group all-to-alls, every buffer capacity-bounded;
+  * ``moe_block_spmd_emulated`` -- the whole mesh's function, drops
+    included, in one process (the tests' and the card check's reference).
+
+On a mesh the stored expert stack is this rank's block of the cyclic
+physical order, ``[E/M, D/dp, F]`` (``w_down``: ``[E/M, F/dp, D]``; the
+rules' ``P(model, dp, None)``); dim 1 is all-gathered over the data group
+per use.  The shared
+experts are a tensor-parallel MLP on the replicated hidden.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import MLP, dtype_of, normal_, param
+from repro_torch.models.layers import (MLP, apply_mlp, block, dtype_of,
+                                       full_shape, normal_, param)
+from repro_torch.sharding.specs import SINGLE, MeshCtx
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
 class Experts(nn.Module):
-    """Per-expert SwiGLU weights, stacked over the expert axis."""
+    """Per-expert SwiGLU weights, stacked over the expert axis (on a mesh:
+    this rank's ``[E/M, D/dp, F]`` block of the cyclic order)."""
 
-    def __init__(self, e: int, d: int, fe: int, dtype, device=None):
+    def __init__(self, e: int, d: int, fe: int, dtype, device=None, *,
+                 ctx: MeshCtx = SINGLE):
         super().__init__()
-        self.w_gate = param((e, d, fe), dtype, device)
-        self.w_up = param((e, d, fe), dtype, device)
-        self.w_down = param((e, fe, d), dtype, device)
+        el = block(e, ctx.model_size, "experts")
+        dp = ctx.dp_size
+        self.w_gate = param((el, block(d, dp, "expert d_model"), fe), dtype,
+                            device, full=(e, d, fe))
+        self.w_up = param((el, block(d, dp, "expert d_model"), fe), dtype,
+                          device, full=(e, d, fe))
+        self.w_down = param((el, block(fe, dp, "expert d_ff"), d), dtype,
+                            device, full=(e, fe, d))
 
     def reset_parameters(self, g: torch.Generator) -> None:
-        _, d, fe = self.w_gate.shape
+        _, d, fe = full_shape(self.w_gate)
         normal_(self.w_gate, d ** -0.5, g)
         normal_(self.w_up, d ** -0.5, g)
         normal_(self.w_down, fe ** -0.5, g)
 
 
 class MoE(nn.Module):
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, *,
+                 ctx: MeshCtx = SINGLE):
         super().__init__()
         d, e = cfg.d_model, cfg.num_experts
         fe = cfg.moe_d_ff or cfg.d_ff
         dt = dtype_of(cfg)
-        self.cfg = cfg
+        self.cfg, self.ctx = cfg, ctx
+        # the capacity factor of the expert-parallel path (the config's,
+        # unless a caller sets another); ``drops`` adds up the (dropped,
+        # routed) (token, expert) pairs of this rank's calls
+        self.capacity_factor = cfg.capacity_factor
+        self.drops = (0, 0)
+        self.last_routed = None
         self.router = param((d, e), torch.float32, device)
-        self.experts = Experts(e, d, fe, dt, device)
+        self.experts = Experts(e, d, fe, dt, device, ctx=ctx)
         if cfg.num_shared_experts > 0:
-            self.shared = MLP(d, fe * cfg.num_shared_experts, dt, device)
+            self.shared = MLP(d, fe * cfg.num_shared_experts, dt, device,
+                              ctx=ctx)
 
     def reset_parameters(self, g: torch.Generator) -> None:
         normal_(self.router, self.router.shape[0] ** -0.5, g)
@@ -55,14 +91,18 @@ class MoE(nn.Module):
             self.shared.reset_parameters(g)
 
     def forward(self, x: torch.Tensor):
-        return moe_block(self, x, self.cfg)
+        return moe_block(self, x, self.cfg, self.ctx)
 
 
 def _route(moe: MoE, x: torch.Tensor, cfg: ModelConfig):
-    """Top-k routing.  x: [T, D] -> (gates [T,k], experts [T,k], aux-loss)."""
+    """Top-k routing.  x: [T, D] -> (gates [T,k], experts [T,k], aux-loss).
+    Ties go to the lower expert id, as XLA's ``top_k`` breaks them (the
+    expert-parallel path's padding rows are zeros, whose probabilities
+    all tie, and they take buffer slots)."""
     logits = x.to(torch.float32) @ moe.router
     probs = torch.softmax(logits, dim=-1)
-    vals, ids = torch.topk(probs, cfg.top_k, dim=-1)
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    vals, ids = vals[:, :cfg.top_k], ids[:, :cfg.top_k]
     gates = vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9)
     # Switch-style load-balance loss: E * sum_e f_e * p_e
     e = cfg.num_experts
@@ -93,10 +133,252 @@ def moe_block_dense(moe: MoE, x: torch.Tensor, cfg: ModelConfig
     return out, aux
 
 
-def moe_block(moe: MoE, x: torch.Tensor, cfg: ModelConfig
+# ---------------------------------------------------------------------------
+# Expert-parallel path: one rank's three phases
+# ---------------------------------------------------------------------------
+
+def _group_by(dst: torch.Tensor, num_groups: int, capacity: int):
+    """Each row's slot within its destination group: the count of earlier
+    rows with the same destination (token order).  Returns (pos [R],
+    keep [R] bool); rows past a group's capacity are dropped -- the bounded
+    buffer of paper section 3.3."""
+    oh = F.one_hot(dst.to(torch.int64), num_groups).to(torch.int32)
+    pos = torch.gather(torch.cumsum(oh, dim=0) - 1, 1,
+                       dst.to(torch.int64)[:, None])[:, 0]
+    return pos, pos < capacity
+
+
+class _Sent(NamedTuple):
+    """What a rank keeps from its push for the combine."""
+    gates: torch.Tensor        # [t, k] float32
+    tok_idx: torch.Tensor      # [t*k] token of each (token, expert) pair
+    slot: torch.Tensor         # [t*k] its row in the send buffer
+    keep: torch.Tensor         # [t*k] it fit its destination's capacity
+    cap1: int
+    aux: torch.Tensor
+
+
+def _cap1(t: int, cfg: ModelConfig, m: int, cf: float) -> int:
+    """The reference's capacity per destination shard."""
+    return _round_up(int(t * cfg.top_k / m * cf) + 1, 8)
+
+
+def _cap2(cap1: int, cfg: ModelConfig, m: int, cf: float) -> int:
+    """The reference's capacity per local expert."""
+    return _round_up(int(m * cap1 / max(cfg.num_experts // m, 1) * cf) + 1,
+                     8)
+
+
+def moe_dispatch(moe: MoE, x_loc: torch.Tensor, cfg: ModelConfig, m: int,
+                 cf: float):
+    """Level 1: route this rank's ``t`` tokens and bucket the (token,
+    expert) pairs by destination shard ``e mod m``.  Returns the send
+    buffer ``[m * cap1, d + 1]`` (the activations plus the local-expert id
+    ``e div m`` in channel ``d``, in the activation dtype; -1 marks an
+    empty slot) and what the combine needs."""
+    t, d = x_loc.shape
+    k = cfg.top_k
+    gates, ids, aux = _route(moe, x_loc, cfg)
+    flat_e = ids.reshape(t * k)
+    tok_idx = torch.arange(t, device=x_loc.device).repeat_interleave(k)
+    dst = flat_e % m                       # cyclic placement (paper 2.2)
+    le = flat_e // m                       # local expert id at dst
+    cap1 = _cap1(t, cfg, m, cf)
+    pos1, keep1 = _group_by(dst, m, cap1)
+    slot = dst * cap1 + torch.where(keep1, pos1, m * cap1)  # overflow: drop
+    payload = torch.cat([x_loc[tok_idx], le.to(x_loc.dtype)[:, None]], -1)
+    send = x_loc.new_zeros((m * cap1 + 1, d + 1))
+    send[slot[keep1]] = payload[keep1]
+    filled = torch.zeros(m * cap1 + 1, dtype=torch.bool, device=x_loc.device)
+    filled[slot[keep1]] = True
+    send = send[:m * cap1]
+    send[:, d] = torch.where(filled[:m * cap1], send[:, d],
+                             torch.full((), -1.0, dtype=send.dtype,
+                                        device=send.device))
+    return send, _Sent(gates, tok_idx, slot, keep1, cap1, aux)
+
+
+def _expert_ffn(w_gate, w_up, w_down, xg: torch.Tensor) -> torch.Tensor:
+    """xg: [E_local, C, D] -> [E_local, C, D] (per-expert SwiGLU)."""
+    return torch.bmm(F.silu(torch.bmm(xg, w_gate)) * torch.bmm(xg, w_up),
+                     w_down)
+
+
+def moe_experts(recv: torch.Tensor, we, cfg: ModelConfig, m: int,
+                cf: float):
+    """Level 2: bucket the received rows by local expert, run each local
+    expert on its bucket, and return the rows in the order received
+    (dropped and empty rows zero) and the count of rows this level drops.
+    ``we``: this rank's ``(w_gate, w_up, w_down)``, ``[E/m, D, F]``."""
+    d = recv.shape[1] - 1
+    e_local = cfg.num_experts // m
+    cap2 = _cap2(recv.shape[0] // m, cfg, m, cf)
+    rx, rle = recv[:, :d], recv[:, d].to(torch.int32)
+    valid = rle >= 0
+    le2 = torch.where(valid, rle, 0)
+    pos2, keep2 = _group_by(le2, e_local, cap2)
+    keep2 = keep2 & valid
+    slot2 = le2 * cap2 + torch.where(keep2, pos2, e_local * cap2)
+    xg = recv.new_zeros((e_local * cap2 + 1, d))
+    xg[slot2[keep2].to(torch.int64)] = rx[keep2]
+    yg = _expert_ffn(*we, xg[:-1].view(e_local, cap2, d)).reshape(
+        e_local * cap2, d)
+    rows = yg[slot2.clamp(max=e_local * cap2 - 1).to(torch.int64)]
+    zero = torch.zeros((), dtype=rows.dtype, device=rows.device)
+    return torch.where(keep2[:, None], rows, zero), \
+        int((valid & ~keep2).sum())
+
+
+def moe_combine(back: torch.Tensor, sent: _Sent, x_loc: torch.Tensor,
+                k: int) -> torch.Tensor:
+    """The pulled rows times their gates (the gates rounded to the
+    activation dtype, as the dense path's), added into each token in
+    expert order in float32 and rounded once: the dense path's gate-
+    weighted sum up to float32 order (the reference adds the products
+    into the activation dtype; in float32 the two are the same)."""
+    m_cap = back.shape[0]
+    rows = back[sent.slot.clamp(max=m_cap - 1)]
+    zero = torch.zeros((), dtype=rows.dtype, device=rows.device)
+    rows = torch.where(sent.keep[:, None], rows, zero)
+    gates = sent.gates.to(x_loc.dtype).to(torch.float32).reshape(-1, 1)
+    vals = (rows.to(torch.float32) * gates).view(x_loc.shape[0], k, -1)
+    out = torch.zeros(x_loc.shape, dtype=torch.float32, device=x_loc.device)
+    for j in range(k):
+        out = out + vals[:, j]
+    return out.to(x_loc.dtype)
+
+
+def _expert_weights(moe: MoE) -> tuple:
+    """This rank's expert stack, dim 1 all-gathered over the data group
+    (ZeRO storage, gathered per use)."""
+    we = moe.experts
+    comm = moe.ctx.comm
+    w = (we.w_gate, we.w_up, we.w_down)
+    if comm is None or comm.data == 1:
+        return w
+    return tuple(comm.all_gather_dim(t, "data", 1, "experts") for t in w)
+
+
+def moe_block_spmd(moe: MoE, x_loc: torch.Tensor, cfg: ModelConfig,
+                   ctx: MeshCtx) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One rank's routed experts on its ``t`` tokens ``x_loc [t, D]``:
+    push to the owners (model all-to-all), the local experts, pull back
+    (the reverse all-to-all), combine.  Returns ``(y [t, D], aux)``, the
+    aux loss averaged over every rank; the shared experts are not in
+    ``y`` (``moe_block`` adds them)."""
+    comm = ctx.comm
+    m, cf = ctx.model_size, moe.capacity_factor
+    send, sent = moe_dispatch(moe, x_loc, cfg, m, cf)
+    recv = comm.all_to_all(send, "model", tag="moe_push")
+    rows, drop2 = moe_experts(recv, _expert_weights(moe), cfg, m, cf)
+    back = comm.all_to_all(rows, "model", tag="moe_pull")
+    y = moe_combine(back, sent, x_loc, cfg.top_k)
+    moe.drops = (moe.drops[0] + int((~sent.keep).sum()) + drop2,
+                 moe.drops[1] + sent.keep.numel())
+    aux = comm.all_reduce(sent.aux.reshape(1), ("data", "model"),
+                          tag="moe_aux")[0] / comm.world
+    return y, aux
+
+
+def moe_block(moe: MoE, x: torch.Tensor, cfg: ModelConfig,
+              ctx: Optional[MeshCtx] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[B, S, D] in/out.  On one device (the JAX package's ``SINGLE``, the
-    only context the port has) this is the dense path."""
+    """[B, S, D] in/out (on a mesh: this rank's batch slice, replicated
+    over the model axis).  Without a mesh the dense path.  On a mesh, the
+    reference's dispatch: the flat tokens of the whole batch padded to a
+    multiple of the world size, rank ``r`` taking rows ``[r t, (r+1) t)``;
+    after the pull an all-gather over the model group rebuilds the
+    replicated hidden.  Where this data row's tokens do not split over the
+    model ranks (a decode batch smaller than the model axis), the rank's
+    rows cross data rows: the tokens are all-gathered over the data axis
+    first and the output over the world after."""
     b, s, d = x.shape
-    y, aux = moe_block_dense(moe, x.reshape(b * s, d), cfg)
+    ctx = ctx if ctx is not None else moe.ctx
+    comm = ctx.comm if ctx is not None else None
+    if comm is None:
+        y, aux = moe_block_dense(moe, x.reshape(b * s, d), cfg)
+        return y.reshape(b, s, d), aux
+    flat = x.reshape(b * s, d)
+    m = comm.model
+    if (b * s) % m == 0:
+        t = b * s // m
+        i = comm.model_idx
+        y_loc, aux = moe_block_spmd(moe, flat[i * t:(i + 1) * t], cfg, ctx)
+        y = comm.all_gather(y_loc, "model", tag="moe_gather")
+    else:
+        glob = comm.all_gather(flat, "data", tag="moe_gather")
+        total = glob.shape[0]
+        tpad = _round_up(total, comm.world)
+        glob = F.pad(glob, (0, 0, 0, tpad - total))
+        t = tpad // comm.world
+        r = comm.rank
+        y_loc, aux = moe_block_spmd(moe, glob[r * t:(r + 1) * t], cfg, ctx)
+        y_all = comm.all_gather(y_loc, ("data", "model"),
+                                tag="moe_gather")[:total]
+        j = comm.data_idx
+        y = y_all[j * b * s:(j + 1) * b * s]
+    moe.last_routed = y                # the routed part, for the checks
+    if cfg.num_shared_experts > 0:
+        y = y + apply_mlp(moe.shared, flat, cfg.act)
     return y.reshape(b, s, d), aux
+
+
+# ---------------------------------------------------------------------------
+# The whole mesh in one process
+# ---------------------------------------------------------------------------
+
+class EmulatedMoE(NamedTuple):
+    y: torch.Tensor            # [B, S, D]: routed (+ shared) output
+    aux: torch.Tensor
+    routed: List[torch.Tensor]  # each rank's routed rows [t, D]
+    dropped: int               # (token, expert) pairs dropped, both levels
+    pairs: int                 # (token, expert) pairs routed
+
+
+def moe_block_spmd_emulated(moe: MoE, x: torch.Tensor, cfg: ModelConfig,
+                            dp: int, m: int,
+                            capacity_factor: Optional[float] = None,
+                            shared: bool = True) -> EmulatedMoE:
+    """The function a ``dp x m`` mesh computes, drops included, in one
+    process: ``moe`` holds the single-device (logical) weights, ``x`` the
+    whole batch ``[B, S, D]``.  Every rank's phases run in turn with the
+    same operations as ``moe_block_spmd``; the all-to-alls become
+    re-slicings, the aux loss the mean of the ranks'."""
+    b, s, d = x.shape
+    world = dp * m
+    cf = moe.capacity_factor if capacity_factor is None else capacity_factor
+    flat = x.reshape(b * s, d)
+    total = b * s
+    tpad = _round_up(total, world)
+    glob = F.pad(flat, (0, 0, 0, tpad - total))
+    t = tpad // world
+    sends, sents = [], []
+    for r in range(world):
+        send, sent = moe_dispatch(moe, glob[r * t:(r + 1) * t], cfg, m, cf)
+        sends.append(send)
+        sents.append(sent)
+    cap1 = sents[0].cap1
+    we = moe.experts
+    rows, dropped = [], 0
+    for r in range(world):
+        row, j = divmod(r, m)
+        recv = torch.cat([sends[row * m + i][j * cap1:(j + 1) * cap1]
+                          for i in range(m)])
+        mine = (we.w_gate[j::m], we.w_up[j::m], we.w_down[j::m])
+        out, drop2 = moe_experts(recv, mine, cfg, m, cf)
+        rows.append(out)
+        dropped += drop2
+    routed = []
+    for r in range(world):
+        row, i = divmod(r, m)
+        back = torch.cat([rows[row * m + j][i * cap1:(i + 1) * cap1]
+                          for j in range(m)])
+        routed.append(moe_combine(back, sents[r], glob[r * t:(r + 1) * t],
+                                  cfg.top_k))
+        dropped += int((~sents[r].keep).sum())
+    y = torch.cat(routed)[:total]
+    if shared and cfg.num_shared_experts > 0:
+        y = y + apply_mlp(moe.shared, flat, cfg.act)
+    aux = torch.stack([st.aux for st in sents]).sum() / world
+    return EmulatedMoE(y.reshape(b, s, d), aux, routed, dropped,
+                       sum(st.keep.numel() for st in sents))

@@ -17,6 +17,15 @@ runs under ``torch.utils.checkpoint``, which keeps its input alone and runs
 it again in the backward, as the reference's ``jax.checkpoint`` around each
 scanned layer and each cross-attention layer does.
 
+On a mesh (a ``MeshCtx`` over a rank's ``launch.mesh.Mesh``) the model
+holds this rank's block of every parameter (``sharding.specs`` rules, the
+vocab tables and expert stacks in the mesh's cyclic order), its batch
+slice of the hidden, and its cache (``allocate_cache(..., ctx)``); the
+logits it returns are its vocab shard (``layers.gather_vocab`` makes the
+row).  ``init_params`` draws each leaf whole in the single-device order
+and keeps the rank's block, so a mesh of any shape holds the same logical
+weights as the single-device model of that seed.
+
 Entry points:
   forward(...)       logits over full sequences (optionally filling a cache)
   loss_fn(...)       the training loss (cross-entropy + router aux)
@@ -34,12 +43,15 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs import registry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import Device, resolve_device
-from repro_torch.models.attention import MLA, Attention, CrossAttention
+from repro_torch.core.pserver import CyclicLayout
+from repro_torch.models.attention import (MLA, Attention, CrossAttention,
+                                          cache_kv_heads)
 from repro_torch.models.layers import (MLP, Embedding, RMSNorm, VocabLayout,
                                        dtype_of, lm_head_logits, param,
                                        softmax_xent_physical)
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import SSM
+from repro_torch.sharding import specs
 from repro_torch.sharding.specs import SINGLE, MeshCtx
 
 SEQ_LEAVES = ("k", "v", "ckv", "krope")     # cache leaves with a seq axis
@@ -91,15 +103,16 @@ class Block(nn.Module):
     """One layer.  kind: "main" (the uniform stack), "dense_ffn" (deepseek
     leading layers), "cross" (vlm gated cross-attention)."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, device=None):
+    def __init__(self, cfg: ModelConfig, kind: str, device=None, *,
+                 ctx: MeshCtx = SINGLE):
         super().__init__()
         d, eps, dt = cfg.d_model, cfg.norm_eps, dtype_of(cfg)
         self.cfg, self.kind = cfg, kind
         self.ln1 = RMSNorm(d, eps, device)
         if kind == "cross":
-            self.attn_x = CrossAttention(cfg, device)
+            self.attn_x = CrossAttention(cfg, device, ctx=ctx)
             self.ln2 = RMSNorm(d, eps, device)
-            self.mlp = MLP(d, cfg.d_ff, dt, device)
+            self.mlp = MLP(d, cfg.d_ff, dt, device, ctx=ctx)
             self.mlp_gate = param((), torch.float32, device)
             return
         self.ssm_only = cfg.ssm_state > 0 and not cfg.hybrid
@@ -107,8 +120,8 @@ class Block(nn.Module):
             self.ssm = SSM(cfg, device)
             return                  # mamba2 block: norm + mixer only
         if cfg.has_attention:
-            self.attn = (MLA(cfg, device) if cfg.use_mla
-                         else Attention(cfg, device=device))
+            self.attn = (MLA(cfg, device, ctx=ctx) if cfg.use_mla
+                         else Attention(cfg, device=device, ctx=ctx))
         if cfg.hybrid:
             self.ssm = SSM(cfg, device)
             self.attn_out_norm = RMSNorm(d, eps, device)
@@ -117,12 +130,12 @@ class Block(nn.Module):
             self.mix_ssm = param((), torch.float32, device)
         if cfg.cross_attn_mode == "every":
             self.ln_x = RMSNorm(d, eps, device)
-            self.attn_x = CrossAttention(cfg, device)
+            self.attn_x = CrossAttention(cfg, device, ctx=ctx)
         self.ln2 = RMSNorm(d, eps, device)
         if cfg.is_moe and kind != "dense_ffn":
-            self.moe = MoE(cfg, device)
+            self.moe = MoE(cfg, device, ctx=ctx)
         else:
-            self.mlp = MLP(d, cfg.d_ff, dt, device)
+            self.mlp = MLP(d, cfg.d_ff, dt, device, ctx=ctx)
 
     def reset_parameters(self, g: torch.Generator) -> None:
         for child in self.children():
@@ -220,27 +233,61 @@ class Transformer(nn.Module):
     ``convert.lm_params_from_arrays`` carries a JAX model's in."""
 
     def __init__(self, cfg: ModelConfig, ctx: MeshCtx = SINGLE,
-                 device: Device = None):
+                 device: Device = None, rank: Optional[int] = None):
         super().__init__()
+        if cfg.ssm_state > 0 and ctx.model_size > 1:
+            raise NotImplementedError(
+                f"{cfg.name} on a model axis of {ctx.model_size}: the SSM "
+                "families' tensor-parallel in_proj is ROADMAP A.8.3")
         dev = resolve_device(device)
         plan = layer_plan(cfg)
-        self.cfg, self.plan = cfg, plan
+        self.cfg, self.plan, self.ctx = cfg, plan, ctx
+        # this rank's place on the mesh (``rank`` where ``ctx`` has no
+        # live ranks, as the converters build any rank's blocks)
+        rank = ctx.rank if rank is None else int(rank)
+        shard = (specs.axis_coords(ctx.mesh, rank)[ctx.model]
+                 if ctx.mesh is not None and ctx.model else 0)
         self.layout = vocab_layout(cfg, ctx)
         dt = dtype_of(cfg)
-        self.embed = Embedding(self.layout, cfg.d_model, dt, dev)
-        self.blocks = nn.ModuleList(Block(cfg, "main", dev)
+        self.embed = Embedding(self.layout, cfg.d_model, dt, dev, ctx=ctx,
+                               shard=shard)
+        self.blocks = nn.ModuleList(Block(cfg, "main", dev, ctx=ctx)
                                     for _ in range(plan["main"]))
         if plan["dense"]:
             self.dense_blocks = nn.ModuleList(
-                Block(cfg, "dense_ffn", dev) for _ in range(plan["dense"]))
+                Block(cfg, "dense_ffn", dev, ctx=ctx)
+                for _ in range(plan["dense"]))
         if plan["cross"]:
             self.cross_blocks = nn.ModuleList(
-                Block(cfg, "cross", dev) for _ in range(plan["cross"]))
+                Block(cfg, "cross", dev, ctx=ctx)
+                for _ in range(plan["cross"]))
         self.final_norm = RMSNorm(cfg.d_model, cfg.norm_eps, dev)
         if not cfg.tie_embeddings:
-            self.lm_head = Embedding(self.layout, cfg.d_model, dt, dev)
+            self.lm_head = Embedding(self.layout, cfg.d_model, dt, dev,
+                                     ctx=ctx, shard=shard)
         self._dense_meta = layer_meta(cfg, plan["dense"], 0)
         self._main_meta = layer_meta(cfg, plan["main"], plan["dense"])
+        if ctx.mesh is not None:
+            for name, p in self.named_parameters():
+                _attach_fill(name, p, cfg, ctx, rank)
+
+    def set_capacity_factor(self, factor: float) -> None:
+        """The expert-parallel path's capacity factor, in every MoE layer
+        (the config's until set)."""
+        for mod in self.modules():
+            if isinstance(mod, MoE):
+                mod.capacity_factor = float(factor)
+
+    def moe_drops(self, reset: bool = False) -> List[Tuple[int, int]]:
+        """Each MoE layer's (dropped, routed) (token, expert) pairs on this
+        rank since the last reset, in run order."""
+        out = [blk.moe.drops for _, _, blk, _, _ in self.schedule()
+               if hasattr(blk, "moe")]
+        if reset:
+            for _, _, blk, _, _ in self.schedule():
+                if hasattr(blk, "moe"):
+                    blk.moe.drops = (0, 0)
+        return out
 
     @property
     def head(self) -> Embedding:
@@ -329,6 +376,112 @@ class Transformer(nn.Module):
         return lm_head_logits(self.head, self.final_norm(x))[:, 0]
 
 
+# ---------------------------------------------------------------------------
+# Mesh layouts of the parameters
+# ---------------------------------------------------------------------------
+
+def _cyclic_kind(name: str) -> Optional[str]:
+    """Which leaves the mesh stores in its cyclic row order: the vocab
+    tables (rows = tokens) and the expert stacks (rows = experts)."""
+    path = specs.path_str(name)
+    if path.endswith(("embed/table", "lm_head/table")):
+        return "vocab"
+    if "/experts/" in path:
+        return "experts"
+    return None
+
+
+def shard_leaf(name: str, full: torch.Tensor, cfg: ModelConfig,
+               ctx: MeshCtx, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s block of parameter ``name`` from its single-device
+    (logical) value ``full``: the rules' block, the vocab table's rows and
+    the expert stack's experts taken in the mesh's cyclic order (logical
+    row ``v`` of ``M`` shards lives on shard ``v mod M``; a vocab shard's
+    rows past the vocabulary are zero)."""
+    m = ctx.model_size
+    spec = specs.spec_for(specs.path_str(name), full.dim(), ctx)
+    kind = _cyclic_kind(name)
+    if kind is None:
+        return specs.local_shard(full, spec, ctx.mesh, rank)
+    i = specs.axis_coords(ctx.mesh, rank)[ctx.model]
+    if kind == "vocab":
+        lay = VocabLayout(cfg.vocab_size, m, cfg.vocab_layout)
+        rows = lay.pad_rows // m
+        if lay.mode == "blocked":
+            out = full[i * rows:(i + 1) * rows]
+        else:
+            out = full[i::m]
+        if out.shape[0] < rows:
+            out = torch.cat([out, out.new_zeros((rows - out.shape[0],
+                                                 *out.shape[1:]))])
+        return out
+    rest = specs.P(None, *spec[1:])
+    return specs.local_shard(full[i::m], rest, ctx.mesh, rank)
+
+
+def unshard_leaf(name: str, blocks: List[torch.Tensor], cfg: ModelConfig,
+                 ctx: MeshCtx) -> torch.Tensor:
+    """The inverse of ``shard_leaf``: the single-device (logical) value of
+    parameter ``name`` from every rank's block, in rank order."""
+    mesh = ctx.mesh
+    spec = specs.spec_for(specs.path_str(name), blocks[0].dim(), ctx)
+    kind = _cyclic_kind(name)
+    shape = list(blocks[0].shape)
+    grid = [specs.shard_grid(spec, mesh, r) for r in range(len(blocks))]
+    for dim, (n, _) in enumerate(grid[0]):
+        shape[dim] *= n
+    phys = blocks[0].new_empty(shape)
+    for r, blk in enumerate(blocks):
+        index = tuple(slice(i * blk.shape[d], (i + 1) * blk.shape[d])
+                      for d, (_, i) in enumerate(grid[r]))
+        phys[index] = blk
+    return phys if kind is None else \
+        from_cyclic_rows(name, phys, cfg, ctx.model_size)
+
+
+def _row_map(name: str, rows: int, cfg: ModelConfig, m: int):
+    """(physical rows of the ``m``-shard layout, physical index of each
+    logical row) of a vocab table or expert stack."""
+    if _cyclic_kind(name) == "vocab":
+        lay = VocabLayout(cfg.vocab_size, m, cfg.vocab_layout)
+        return lay.pad_rows, torch.as_tensor(lay.to_physical(
+            torch.arange(cfg.vocab_size)))
+    return rows, torch.as_tensor(CyclicLayout(rows, m).to_physical(
+        torch.arange(rows)))
+
+
+def from_cyclic_rows(name: str, phys: torch.Tensor, cfg: ModelConfig,
+                     m: int) -> torch.Tensor:
+    """A vocab table's or expert stack's logical rows from the
+    ``m``-shard cyclic layout (other leaves unchanged)."""
+    if _cyclic_kind(name) is None:
+        return phys
+    return phys[_row_map(name, phys.shape[0], cfg, m)[1]]
+
+
+def to_cyclic_rows(name: str, logical: torch.Tensor, cfg: ModelConfig,
+                   m: int) -> torch.Tensor:
+    """The inverse of ``from_cyclic_rows``; padding rows are zero."""
+    if _cyclic_kind(name) is None:
+        return logical
+    rows, idx = _row_map(name, logical.shape[0], cfg, m)
+    out = logical.new_zeros((rows, *logical.shape[1:]))
+    out[idx] = logical
+    return out
+
+
+def _attach_fill(name: str, p: torch.Tensor, cfg: ModelConfig,
+                 ctx: MeshCtx, rank: int) -> None:
+    """Check that ``p`` is the rules' block of its single-device leaf, and
+    let ``layers.normal_`` fill it from a whole draw."""
+    probe = torch.empty(p._full_shape, device="meta")
+    want = tuple(shard_leaf(name, probe, cfg, ctx, rank).shape)
+    if want != tuple(p.shape):
+        raise AssertionError(f"{name}: block {tuple(p.shape)}, the rules "
+                             f"give {want}")
+    p._mesh_fill = lambda full: shard_leaf(name, full, cfg, ctx, rank)
+
+
 def _layer_out(blk: Block, x, positions, window: int, theta: float, cond):
     """One layer's output and aux loss (what a rematerialised layer keeps)."""
     x, _, aux = blk.full(x, positions=positions, window=window, theta=theta,
@@ -345,7 +498,10 @@ def init_params(seed, cfg: ModelConfig, ctx: MeshCtx = SINGLE,
     """A model with random weights drawn from ``seed`` (an int or a
     ``torch.Generator`` on the model's device), on the card unless
     ``device`` says otherwise.  The draws follow the JAX package's
-    distributions, not its bits: parity starts from carried weights."""
+    distributions, not its bits: parity starts from carried weights.  On
+    a mesh each leaf is drawn whole, in the single-device order, and this
+    rank keeps its block: the logical weights are the single-device
+    model's of the same seed on the same device type."""
     model = Transformer(cfg, ctx, device)
     g = seed if isinstance(seed, torch.Generator) else \
         torch.Generator(device=model.device).manual_seed(int(seed))
@@ -353,15 +509,31 @@ def init_params(seed, cfg: ModelConfig, ctx: MeshCtx = SINGLE,
     return model
 
 
+def cache_shapes(cfg: ModelConfig, batch: int, seq_len: int,
+                 ctx: MeshCtx = SINGLE) -> dict:
+    """``registry.cache_shapes`` of one rank: on a mesh ``batch`` is its
+    data slice and the KV leaves hold its KV heads
+    (``attention.cache_kv_heads``); the MLA latent and the SSM state stay
+    whole."""
+    out = registry.cache_shapes(cfg, batch, seq_len)
+    heads = cache_kv_heads(cfg, ctx.model_size)
+    for leaves in out.values():
+        for name in ("k", "v"):
+            if name in leaves:
+                shape, dt = leaves[name]
+                leaves[name] = (shape[:3] + (heads,) + shape[4:], dt)
+    return out
+
+
 def allocate_cache(cfg: ModelConfig, batch: int, seq_len: int,
-                   device: Device = None) -> dict:
+                   device: Device = None, ctx: MeshCtx = SINGLE) -> dict:
     """Zeroed decode caches of ``seq_len`` slots, shaped by
-    ``registry.cache_shapes``."""
+    ``cache_shapes``."""
     dev = resolve_device(device)
     return {stack: {name: torch.zeros(shape, dtype=dt, device=dev)
                     for name, (shape, dt) in leaves.items()}
-            for stack, leaves in registry.cache_shapes(cfg, batch,
-                                                       seq_len).items()}
+            for stack, leaves in cache_shapes(cfg, batch, seq_len,
+                                              ctx).items()}
 
 
 def forward(model: Transformer, tokens: torch.Tensor,
@@ -370,7 +542,7 @@ def forward(model: Transformer, tokens: torch.Tensor,
     """Full-sequence forward.  Returns ``(logits_physical [B, S, Vpad], aux,
     caches or None)``, the caches S slots long."""
     caches = (allocate_cache(model.cfg, tokens.shape[0], tokens.shape[1],
-                             model.device) if want_cache else None)
+                             model.device, model.ctx) if want_cache else None)
     logits, aux = model(tokens, cond, caches=caches, remat=remat)
     return logits, aux, caches
 
@@ -396,7 +568,7 @@ def prefill(model: Transformer, tokens: torch.Tensor,
     new one of S_prompt slots; the engine passes its ``max_seq`` one."""
     if caches is None:
         caches = allocate_cache(model.cfg, tokens.shape[0], tokens.shape[1],
-                                model.device)
+                                model.device, model.ctx)
     logits, _ = model(tokens, cond, caches=caches, head_at=slice(-1, None),
                       remat=False)
     return logits[:, 0], caches

@@ -307,6 +307,9 @@ class SpmdRun:
     (``launch.mesh.transport_for``) unless ``transport`` names one (a
     caller that compares two transports on one layout)."""
 
+    worker_module = "repro_torch.ps.spmd_worker"   # the helpers' program
+    build_kernels = True         # build csrc/ before the helpers start
+
     def __init__(self, spec: dict, device: torch.device, *, log_fn=None,
                  timeout_s: float = 600.0, transport: Optional[str] = None):
         self.spec = dict(spec)
@@ -337,7 +340,7 @@ class SpmdRun:
                     device=str(self.device), timeout_s=self.timeout_s)
         with open(os.path.join(self.dir, "spec.pkl"), "wb") as f:
             pickle.dump(spec, f)
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and self.build_kernels:
             from repro_torch.kernels import _build
             _build.build(_build.SOURCES)     # once, before the helpers
         path = os.pathsep.join(p for p in (_SRC, os.environ.get(
@@ -347,7 +350,7 @@ class SpmdRun:
             log = os.path.join(self.dir, f"rank{r}.log")
             with open(log, "w") as out:
                 self.procs.append(subprocess.Popen(
-                    [sys.executable, "-m", "repro_torch.ps.spmd_worker",
+                    [sys.executable, "-m", self.worker_module,
                      self.dir, str(r), str(os.getpid())],
                     env=env, cwd=os.getcwd(), stdin=subprocess.DEVNULL,
                     stdout=out, stderr=subprocess.STDOUT))
@@ -355,11 +358,15 @@ class SpmdRun:
         self.mesh = Mesh.init(0, spec["data"], spec["model"], self.transport,
                               self.device, os.path.join(self.dir, "store"),
                               self.timeout_s)
-        self.program = RankProgram(self.mesh, spec)
+        self.program = self.make_program(self.mesh, spec)
         self.program.setup(init)
         self.log_fn(f"[spmd] {self.world} ranks over {self.transport} "
                     f"(helper logs in {self.dir})")
         return self
+
+    @staticmethod
+    def make_program(mesh: Mesh, spec: dict):
+        return RankProgram(mesh, spec)
 
     def _await_ready(self) -> None:
         """Wait (bounded) until every helper has imported its modules and
@@ -453,6 +460,12 @@ def _die_with_parent(parent: int) -> None:
 def main(argv=None) -> int:
     """A helper rank: ``python -m repro_torch.ps.spmd_worker <run_dir>
     <rank> <parent pid>``."""
+    return run_helper(argv, RankProgram)
+
+
+def run_helper(argv, program_cls) -> int:
+    """A helper rank's life: join the mesh, build ``program_cls(mesh,
+    spec)``, run rank 0's ops until the finish op."""
     run_dir, rank, parent = (argv or sys.argv[1:])[:3]
     rank = int(rank)
     _die_with_parent(int(parent))
@@ -466,7 +479,7 @@ def main(argv=None) -> int:
                      device, os.path.join(run_dir, "store"),
                      spec["timeout_s"])
     try:
-        program = RankProgram(mesh, spec)
+        program = program_cls(mesh, spec)
         program.setup()
         while True:
             op, arg = mesh.recv_op()

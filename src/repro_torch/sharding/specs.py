@@ -1,34 +1,349 @@
-"""Mesh context for the LM scaffold.
+"""Partition rules: parameters, optimizer state, activations, caches.
 
-The JAX package's ``sharding/specs.py`` also holds the PartitionSpec rules
-for parameters, caches and activations on a (pod, data, model) mesh; those
-are ROADMAP A.8.3.  The port runs the LM on one device, so this module
-keeps ``MeshCtx`` with no mesh and ``SINGLE``, which the model and the
-engine take where their twins do.
+The twin of the JAX package's ``sharding/specs.py``.  Rules are keyed on
+parameter *path suffixes* (the module path joined by ``/``, spelled as the
+JAX tree's: ``blocks/0/attn/wq``), so every architecture flows through one
+table.  The mesh has axes ``(pod?, data, model)``; ``MeshCtx`` carries the
+axis names so the same model code runs on one device (``SINGLE``) and on a
+mesh of ranks (``launch.mesh.Mesh``).
+
+Layout summary (the reference's DESIGN.md section 5):
+  embed/lm_head tables   : P(model, None)   -- vocab rows, cyclic physical order
+  attn wq/wk/wv          : P(None, model)   -- shard heads
+  attn wo                : P(model, None)
+  mlp w_gate/w_up        : P(None, model)   -- shard d_ff
+  mlp w_down             : P(model, None)
+  MoE experts            : P(model, dp, None) -- expert-parallel (cyclic owners)
+  MLA w_dkv (latent)     : replicated       (latent dim is small and shared)
+  MLA w_uk/w_uv          : P(None, model)
+  ssm in_proj/out_proj   : P(None, model) / P(model, None)  -- shard d_inner
+  norms / scalars / router: replicated
+
+The reference hands these specs to GSPMD, which inserts the collectives.
+The port places each rank's block itself (``local_shard``) and its layers
+issue the collectives explicitly (``models/layers.py``), so
+``MeshCtx.constrain`` only asserts that a spec names the mesh's axes.
 """
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Optional, Tuple
+
+import numpy as np
+
+from repro_torch.configs.base import InputShape, ModelConfig
+
+
+class P(tuple):
+    """A partition spec: one entry per leading dim, each ``None``
+    (replicated), an axis name, or a tuple of axis names (the reference's
+    ``jax.sharding.PartitionSpec``, whose ``tuple()`` equals this one's:
+    a one-axis tuple reads as the axis)."""
+
+    def __new__(cls, *parts):
+        return super().__new__(cls, tuple(
+            p[0] if isinstance(p, tuple) and len(p) == 1 else p
+            for p in parts))
+
+    def __repr__(self):
+        return f"P{tuple.__repr__(self)}"
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshCtx:
-    """Mesh + axis roles.  ``mesh is None`` means single-device semantics,
-    the only kind the port has."""
+    """Mesh + axis roles.  ``mesh is None`` means single-device semantics.
+    ``mesh`` is anything with ``axis_names`` and ``devices`` (an array
+    shaped by the axes): a rank's ``launch.mesh.Mesh``, whose collectives
+    the layers call, or a ``launch.mesh.MeshLayout`` for the rules alone."""
 
     mesh: Optional[object]
-    dp: Tuple[str, ...]          # data-parallel axes
+    dp: Tuple[str, ...]          # data-parallel axes, e.g. ("pod", "data")
     model: Optional[str]         # tensor/expert-parallel axis
 
-    def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "a device mesh for the LM is ROADMAP A.8.3, not ported yet")
+    def _sizes(self) -> dict:
+        return dict(zip(self.mesh.axis_names, self.mesh.devices.shape))
+
+    @property
+    def num_devices(self) -> int:
+        return 1 if self.mesh is None else int(self.mesh.devices.size)
+
+    @property
+    def dp_size(self) -> int:
+        if self.mesh is None:
+            return 1
+        sizes = self._sizes()
+        out = 1
+        for ax in self.dp:
+            out *= sizes[ax]
+        return out
 
     @property
     def model_size(self) -> int:
-        return 1
+        if self.mesh is None or self.model is None:
+            return 1
+        return self._sizes()[self.model]
+
+    @property
+    def comm(self):
+        """The rank's ``Mesh`` whose collectives the layers call, or None
+        (one device, or a layout without ranks)."""
+        return self.mesh if hasattr(self.mesh, "all_reduce") else None
+
+    @property
+    def rank(self) -> int:
+        return int(getattr(self.mesh, "rank", 0))
+
+    def constrain(self, x, spec: P):
+        """The reference's ``with_sharding_constraint``.  The port's layers
+        hold each rank's block explicitly, so this only asserts that
+        ``spec`` fits ``x`` and names axes of the mesh."""
+        if self.mesh is None:
+            return x
+        names = set(self.mesh.axis_names)
+        assert len(spec) <= x.ndim, (spec, tuple(x.shape))
+        for part in spec:
+            for ax in (part if isinstance(part, tuple) else (part,)):
+                assert ax is None or ax in names, (ax, names)
+        return x
 
 
 SINGLE = MeshCtx(None, (), None)
+
+
+# ---------------------------------------------------------------------------
+# Parameter rules
+# ---------------------------------------------------------------------------
+
+def _param_rules(model_axis: str):
+    """(regex on '/'-joined path, spec builder taking leaf ndim)."""
+    m = model_axis
+
+    def two(a, b):
+        # spec for the *trailing two* dims; leading (stacked layer) dims None
+        return lambda nd: P(*([None] * (nd - 2) + [a, b]))
+
+    def three(a, b, c):
+        return lambda nd: P(*([None] * (nd - 3) + [a, b, c]))
+
+    def repl(nd):
+        return P()
+
+    return [
+        (r"embed/table$", two(m, None)),
+        (r"lm_head/table$", two(m, None)),
+        # Experts: expert dim over the model axis (cyclic owners), and the
+        # d_model dim ZeRO-sharded over the dp axes for storage -- gathered
+        # per use inside the MoE (models/moe.py)
+        (r"experts/w_gate$", three(m, "__dp__", None)),
+        (r"experts/w_up$", three(m, "__dp__", None)),
+        (r"experts/w_down$", three(m, "__dp__", None)),
+        (r"router$", repl),
+        (r"attn.*/wq$", two(None, m)),
+        (r"attn.*/wk$", two(None, m)),
+        (r"attn.*/wv$", two(None, m)),
+        (r"attn.*/wo$", two(m, None)),
+        (r"attn.*/w_dkv$", repl),          # MLA latent down-proj: small, replicated
+        (r"attn.*/w_uk$", two(None, m)),
+        (r"attn.*/w_uv$", two(None, m)),
+        (r"(mlp|shared)/w_gate$", two(None, m)),
+        (r"(mlp|shared)/w_up$", two(None, m)),
+        (r"(mlp|shared)/w_down$", two(m, None)),
+        (r"ssm/in_proj$", two(None, m)),
+        (r"ssm/out_proj$", two(m, None)),
+        (r"ssm/conv_w$", two(None, m)),
+        (r"ssm/conv_b$", lambda nd: P(*([None] * (nd - 1) + [m]))),
+        (r".*", repl),                     # norms, scalars, biases, gates
+    ]
+
+
+def path_str(name: str) -> str:
+    """A module's parameter name (``blocks.0.attn.wq``) as a rule path."""
+    return name.replace(".", "/")
+
+
+def spec_for(path: str, ndim: int, ctx: MeshCtx) -> P:
+    """The spec of the leaf at ``path`` ('/'-joined) with ``ndim`` dims."""
+    if ctx.mesh is None or ctx.model is None:
+        return P()
+    for pat, builder in _param_rules(ctx.model):
+        if re.search(pat, path):
+            spec = builder(ndim)
+            # resolve the "__dp__" placeholder to this mesh's dp axes
+            return P(*(tuple(ctx.dp) if p == "__dp__" else p for p in spec))
+    return P()
+
+
+def _tree_map(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, path + (str(k),)) for k, v in tree.items()}
+    return fn("/".join(path), tree)
+
+
+def _leaves(params):
+    """``params`` as a nested dict (the JAX tree's layout) or a module,
+    whose parameters become ``{'/'-path: tensor}``."""
+    if hasattr(params, "named_parameters"):
+        return {path_str(n): p for n, p in params.named_parameters()}
+    return params
+
+
+def param_specs(params, ctx: MeshCtx):
+    """Spec tree matching ``params``: a nested dict of leaves with
+    ``.ndim`` (numpy arrays, tensors, ``jax.ShapeDtypeStruct``), or a
+    module (then ``{path: spec}``)."""
+    return _tree_map(lambda p, leaf: spec_for(p, len(leaf.shape), ctx),
+                     _leaves(params))
+
+
+def opt_state_specs(params, ctx: MeshCtx):
+    """ZeRO-style specs for optimizer moments / gradient accumulators:
+    the parameter's spec, additionally sharded over the dp axes on the
+    first dp-divisible dim the parameter spec leaves None (dims 1.., then
+    0), unless it already uses a dp axis."""
+    if ctx.mesh is None:
+        return param_specs(params, ctx)
+    dp = tuple(ctx.dp)
+    dpsz = ctx.dp_size
+
+    def widen(path, leaf):
+        shape = tuple(leaf.shape)
+        spec = spec_for(path, len(shape), ctx)
+        parts = list(spec) + [None] * (len(shape) - len(spec))
+        used = set()
+        for p in parts:
+            for ax in (p if isinstance(p, tuple) else (p,)):
+                used.add(ax)
+        if any(a in used for a in dp):
+            return P(*parts)
+        for i in list(range(1, len(shape))) + [0]:
+            if parts[i] is None and shape[i] and shape[i] % dpsz == 0:
+                parts[i] = dp
+                return P(*parts)
+        return P(*parts)
+
+    return _tree_map(widen, _leaves(params))
+
+
+# ---------------------------------------------------------------------------
+# This rank's block
+# ---------------------------------------------------------------------------
+
+def axis_coords(mesh, rank: int) -> dict:
+    """``{axis name: index}`` of ``rank`` in a row-major mesh."""
+    shape = tuple(mesh.devices.shape)
+    return dict(zip(mesh.axis_names,
+                    (int(i) for i in np.unravel_index(rank, shape))))
+
+
+def _part_axes(part) -> tuple:
+    if part is None:
+        return ()
+    return part if isinstance(part, tuple) else (part,)
+
+
+def shard_grid(spec: P, mesh, rank: int) -> list:
+    """Per leading dim: ``(number of shards, this rank's index)``."""
+    sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+    coords = axis_coords(mesh, rank)
+    out = []
+    for part in spec:
+        n, idx = 1, 0
+        for ax in _part_axes(part):
+            idx = idx * sizes[ax] + coords[ax]
+            n *= sizes[ax]
+        out.append((n, idx))
+    return out
+
+
+def local_shape(shape, spec: P, mesh, what: str = "leaf") -> tuple:
+    """The block shape of a ``shape`` leaf under ``spec``; raises when a
+    split dim does not divide."""
+    if mesh is None:
+        return tuple(shape)
+    out = list(shape)
+    for dim, (n, _) in enumerate(shard_grid(spec, mesh, 0)):
+        if out[dim] % n:
+            raise ValueError(f"{what}: dim {dim} of {tuple(shape)} does not "
+                             f"split into {n} shards ({spec})")
+        out[dim] //= n
+    return tuple(out)
+
+
+def local_shard(leaf, spec: P, mesh, rank: int):
+    """This rank's block of a full array (a tensor or numpy array): each
+    split dim cut into equal contiguous blocks in the row-major order of
+    the spec's axes (a view where the array allows one)."""
+    if mesh is None:
+        return leaf
+    local_shape(tuple(leaf.shape), spec, mesh)
+    index = []
+    for dim, (n, i) in enumerate(shard_grid(spec, mesh, rank)):
+        step = leaf.shape[dim] // n
+        index.append(slice(i * step, (i + 1) * step))
+    return leaf[tuple(index)]
+
+
+# ---------------------------------------------------------------------------
+# Activation / cache / batch rules
+# ---------------------------------------------------------------------------
+
+def batch_spec(ctx: MeshCtx) -> P:
+    return P(tuple(ctx.dp)) if ctx.dp else P()
+
+
+# Residual-stream sharding between blocks in the reference ("dp_model":
+# d_model over the model axis).  The port keeps the hidden replicated over
+# the model axis (each rank holds its data slice whole); the constant is
+# kept for ``hidden_spec``'s callers.
+ACTIVATION_SHARDING = "dp_model"
+
+
+def hidden_spec(ctx: MeshCtx, cfg=None) -> P:
+    if not ctx.dp:
+        return P()
+    mode = (cfg.activation_sharding if cfg is not None
+            and getattr(cfg, "activation_sharding", "") else
+            ACTIVATION_SHARDING)
+    if mode == "dp_seq" and ctx.model is not None:
+        return P(tuple(ctx.dp), ctx.model, None)
+    if mode == "dp_model" and ctx.model is not None:
+        return P(tuple(ctx.dp), None, ctx.model)
+    return P(tuple(ctx.dp), None, None)
+
+
+def tokens_spec(ctx: MeshCtx) -> P:
+    return P(tuple(ctx.dp), None) if ctx.dp else P()
+
+
+def cache_specs(cfg: ModelConfig, shape: InputShape, ctx: MeshCtx):
+    """The reference's specs of the decode caches, keyed by cache kind.
+
+    For a batch smaller than the dp size (long_500k) the attention caches
+    are sequence-sharded over the data axes, else batch-sharded; the
+    reference splits ``head_dim`` (KV), the latent (MLA) and the SSM head
+    dim over the model axis.  The port's engine holds the same per-rank
+    bytes by another split: whole KV heads over the model axis where they
+    tile it (``models/attention.py``); the MLA latent and, where KV heads
+    do not tile the axis, the KV heads are kept whole on every model rank
+    (their absorbed decode reads all of the latent per local head).  The
+    sequence-sharded case is not served by the port (ROADMAP A.8.3)."""
+    if ctx.mesh is None:
+        none = P()
+        return {"kv": none, "mla": none, "ssm_state": none, "conv": none,
+                "seq_axis_sharded": False}
+    dp = tuple(ctx.dp)
+    m = ctx.model
+    seq_shard = shape.global_batch < ctx.dp_size
+    if seq_shard:
+        kv = P(None, None, dp, None, m)
+        mla = P(None, None, dp, m)
+        ssm_state = P(None, None, None, m, None)
+        conv = P(None, None, None, m)
+    else:
+        kv = P(None, dp, None, None, m)
+        mla = P(None, dp, None, m)
+        ssm_state = P(None, dp, None, m, None)
+        conv = P(None, dp, None, m)
+    return {"kv": kv, "mla": mla, "ssm_state": ssm_state, "conv": conv,
+            "seq_axis_sharded": seq_shard}

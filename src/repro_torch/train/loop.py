@@ -59,8 +59,8 @@ def init_state(seed, cfg: ModelConfig, ctx: MeshCtx = SINGLE,
 
 def state_specs(state: TrainState, ctx: MeshCtx = SINGLE) -> dict:
     """Every parameter and moment replicated (``()``, the reference's
-    ``P()``): on one device nothing is sharded (a ``MeshCtx`` with a mesh
-    cannot be built: ROADMAP A.8.3)."""
+    ``P()``): on one device nothing is sharded (training on a mesh is
+    ROADMAP A.8.3's training half)."""
     ps = {n: () for n in state.params}
     return {"params": ps, "opt": opt.AdamWState(ps, dict(ps), ())}
 
@@ -82,7 +82,14 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, ctx: MeshCtx = SINGLE
     """Returns ``train_step(state, tokens, targets, mask, cond=None) ->
     (state, metrics)``; the parameters and moments are updated in place and
     the metrics are 0-d tensors (``loss``, ``xent``, ``aux``, ``lr``,
-    ``grad_norm``) left on the device."""
+    ``grad_norm``) left on the device.  One device only: a mesh (the
+    sharded moments, gradients through the all-to-all) is ROADMAP A.8.3's
+    training half."""
+    if ctx.mesh is not None:
+        raise NotImplementedError(
+            "a train step on a device mesh is ROADMAP A.8.3's training "
+            "half, not ported yet; the port serves on a mesh and trains on "
+            "one device")
     mb = max(tc.microbatch, 1)
 
     def train_step(state: TrainState, tokens, targets, mask, cond=None):

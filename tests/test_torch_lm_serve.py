@@ -199,7 +199,44 @@ def test_launcher_exits_2_without_a_card():
     assert "--device cpu" in out.stderr and out.stdout == ""
 
 
-def test_launcher_refuses_a_mesh():
-    out = _run(["--smoke", "--device", "cpu", "--mesh", "host"])
+def _tokens(out) -> list:
+    assert out.returncode == 0, out.stderr[-3000:]
+    return [l for l in out.stdout.splitlines()
+            if l.startswith("[serve] sample:")]
+
+
+SERVE = ["--smoke", "--device", "cpu", "--batch", "4", "--prompt-len", "12",
+         "--gen", "8"]
+
+
+def test_launcher_mesh_host_prints_the_single_device_tokens():
+    """``--mesh host`` on the CPU is a mesh of one rank: the same tokens
+    as ``--mesh none``."""
+    want = _tokens(_run(SERVE))
+    out = _run(SERVE + ["--mesh", "host"])
+    assert _tokens(out) == want and want
+    assert "[serve] mesh 1 x 1 over gloo (1 ranks)" in out.stdout
+
+
+def test_launcher_mesh_of_four_ranks_prints_the_same_tokens():
+    """``--devices 4 --mesh-model 2``: 4 rank processes (data 2 x model 2,
+    gloo) serve the same greedy tokens as one device."""
+    want = _tokens(_run(SERVE))
+    out = _run(SERVE + ["--mesh", "host", "--devices", "4", "--mesh-model",
+                        "2"])
+    assert _tokens(out) == want
+    assert "[serve] mesh 2 x 2 over gloo (4 ranks)" in out.stdout
+
+
+@pytest.mark.parametrize("args", [
+    ["--mesh", "pod"], ["--mesh", "multipod"],
+    ["--arch", "mamba2-370m", "--mesh", "host", "--devices", "2",
+     "--mesh-model", "2"],
+    ["--arch", "hymba-1.5b", "--mesh", "host", "--devices", "4",
+     "--mesh-model", "2"]])
+def test_launcher_refuses_what_the_port_does_not_serve_on_a_mesh(args):
+    """The reference's TPU pods, and the SSM families on a model axis
+    above 1, exit 2 naming ROADMAP A.8.3."""
+    out = _run(["--smoke", "--device", "cpu", *args])
     assert out.returncode == 2
-    assert "ROADMAP A.8.3" in out.stderr
+    assert "ROADMAP A.8.3" in out.stderr and out.stdout == ""

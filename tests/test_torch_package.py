@@ -51,7 +51,7 @@ def test_source_has_no_jax_or_repro_import():
     # the training slice's modules are among them, and the stream,
     # checkpoint, serving facade, launchers, tiered storage, autotuner,
     # timer, the Spark-LDA baselines, the trace replay and the report, the
-    # LM serving path and the LM training path
+    # LM serving path, the LM training path and LM serving on a mesh
     for mod in ("core/pserver.py", "ps/client.py", "ps/routes.py",
                 "train/async_exec.py", "api/session.py", "api/job.py",
                 "kernels/delta_push.py", "core/coherence.py",
@@ -66,7 +66,8 @@ def test_source_has_no_jax_or_repro_import():
                 "models/attention.py", "models/moe.py", "models/ssm.py",
                 "models/transformer.py", "serve/engine.py",
                 "launch/serve.py", "data/lm_data.py", "train/optimizer.py",
-                "train/loop.py", "launch/train.py"):
+                "train/loop.py", "launch/train.py", "launch/mesh.py",
+                "serve/mesh_worker.py", "launch/dryrun.py"):
         assert PKG / mod in files, mod
     for f in files:
         assert not pattern.search(f.read_text()), f
@@ -95,8 +96,9 @@ TRAINER_CALL = re.compile(
 def test_launchers_orchestrate_only_through_api():
     offenders = []
     files = sorted((PKG / "launch").rglob("*.py"))
-    assert len(files) == 9      # __init__, lda, topic_serve, ps_server,
-    #                             net_smoke, mesh, obs_report, serve, train
+    assert len(files) == 10     # __init__, lda, topic_serve, ps_server,
+    #                             net_smoke, mesh, obs_report, serve, train,
+    #                             dryrun
     for path in files:
         for lineno, line in enumerate(path.read_text().splitlines(), 1):
             if TRAINER_CALL.search(line):
