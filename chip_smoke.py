@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, network-PS and SPMD paths,
-the LM serving and training paths, LM serving on a device mesh, the
-Spark-LDA baselines and the traced executor replay on one NVIDIA GPU.
+the LM serving and training paths, LM serving and training on a device
+mesh, the Spark-LDA baselines and the traced executor replay on one
+NVIDIA GPU.
 
     python3 chip_smoke.py [--seed N]
 
@@ -52,6 +53,23 @@ Phases (any failure raises and the script exits non-zero):
                  its logits against one device within 1/32, and the
                  eight attention archs' smoke variants against one
                  device on the card, in a {"lm_mesh_dp": ...} line;
+  3c. lm_mesh_train -- LM training on a data 2 x model 2 mesh of 4 gloo
+                 ranks sharing the card (train.mesh_worker): (a)
+                 deepseek-v2-lite-16b at full width, 3 layers, float32,
+                 4 x 128, microbatch 2, capacity factor 16 (no pair
+                 dropped, asserted): one step's loss, gradient (ZeRO
+                 slices gathered), moments and parameters against the
+                 single device's step of the same seed after the mesh
+                 has gone; then bf16 cells from the seed, 4 x 2,048,
+                 microbatch 2, remat: deepseek 3 layers (capacity factor
+                 1.25, 3 steps) and gemma3-4b 6 layers (2 steps): (b)
+                 finite losses and grad norms, every rank's parameter
+                 and moment blocks moved; step ms, tokens/s, peak memory
+                 a rank, the collectives by tag and their share, the
+                 dropped share and the FLOP-plus-AdamW-bytes bound; (c)
+                 the eight attention archs' smoke variants' step on the
+                 mesh against one device on the card; a
+                 {"lm_mesh_train": ...} line;
   4. serving  -- the serving slice at full width, V = 100,000 and
                  K = 1,000: TopicModel -> snapshot -> transform of 512
                  documents -> score -> a ConcurrentEngine under 8 client
@@ -3175,6 +3193,426 @@ def lm_mesh_dp(torch, seed: int, card: str, device: str = "cuda",
     return summary
 
 
+# -- LM training on a device mesh ---------------------------------------------
+
+LM_MT_SHAPE = (2, 2)              # data x model: 4 gloo ranks share the card
+LM_MT_ARCH, LM_MT_LAYERS, LM_MT_STEPS = "deepseek-v2-lite-16b", 3, 3
+LM_MT_DP_ARCH, LM_MT_DP_LAYERS, LM_MT_DP_STEPS = "gemma3-4b", 6, 2
+LM_MT_BATCH, LM_MT_SEQ, LM_MT_MB = 4, 2048, 2
+# check (a): float32, a capacity factor at which no pair drops (asserted:
+# the single device's MoE drops none), a short sequence.  Level 2 of the
+# expert-parallel path counts a source's empty buffer slots against local
+# expert 0 (the reference's grouping), so with m = 2 model ranks a rank's
+# second source reaches that expert only past cap1 - (its pairs) empty
+# rows: the factor must be about E / m^2 = 16 for nothing to drop (at 4,
+# 170 of 6,144 pairs dropped on the card; PERF.md).  At 16 the level-2
+# buffers are [32, cap2, 2,048] float32 with cap2 = 6,160 at 256
+# positions, and there a rank ran out of card memory in the backward
+# (16.40 GiB allocated, 1.04 GiB more asked, the four ranks holding the
+# whole card; PERF.md); at 128 positions cap2 is 3,088.
+# (a) and (c) hold the CPU tests' tolerances (LM_LOSS_RTOL, LM_GRAD_RTOL,
+# LM_GRAD_ATOL), and a parameter may also differ by as much as its
+# gradient's tolerance can move AdamW's first step
+# (``optimizer.first_step_band``: up to 2 lr where the tolerance spans
+# 0), on at most LM_MT_FLIP_SHARE of a leaf
+LM_MT_CHECK_SEQ, LM_MT_CHECK_CF = 128, 16.0
+LM_MT_FLIP_SHARE = 0.02
+LM_MT_LR = 3e-4
+
+
+def stacked_tree(torch, named: dict) -> dict:
+    """A model's ``{name: tensor}`` (its parameters, gradients or moments)
+    as the JAX layout's flat tree, ``{'/'-path: tensor}``: a layer stack's
+    leaves stacked to ``[L, ...]``, on their device."""
+    from repro_torch.convert import LAYER_STACKS
+    out, stacks = {}, {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] in LAYER_STACKS:
+            stacks.setdefault("/".join([parts[0]] + parts[2:]), {})[
+                int(parts[1])] = t.detach()
+        else:
+            out["/".join(parts)] = t.detach()
+    for path, layers in stacks.items():
+        out[path] = torch.stack([layers[i] for i in range(len(layers))])
+    return out
+
+
+def tree_check(torch, got: dict, want: dict, what: str, band=None) -> dict:
+    """Leaf by leaf, on ``want``'s device: ``got`` (flat numpy trees)
+    within LM_GRAD_RTOL and LM_GRAD_ATOL of ``want``'s (flat tensor
+    trees) largest; with ``band`` (the parameters'
+    ``optimizer.first_step_band``) an element may also differ by its
+    band, on at most LM_MT_FLIP_SHARE of a leaf.  Raises on a failure; returns the largest error over the
+    leaf's largest and the elements that took their band."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: leaves {sorted(set(got) ^ set(want))}")
+    worst, flips = 0.0, 0
+    for path, w in want.items():
+        w = w.float()
+        g = torch.from_numpy(np.asarray(got[path], np.float32)).to(w.device)
+        if g.shape != w.shape:
+            raise AssertionError(f"{what} {path}: {tuple(g.shape)} against "
+                                 f"{tuple(w.shape)}")
+        scale = float(w.abs().max()) or 1.0
+        diff = (g - w).abs()
+        worst = max(worst, float(diff.max()) / scale)
+        tol = LM_GRAD_ATOL * scale + LM_GRAD_RTOL * w.abs()
+        bad = diff > tol
+        if not bool(bad.any()):
+            continue
+        out = bad if band is None else diff > tol + band[path]
+        share = float(bad.float().mean())
+        if bool(out.any()) or share > LM_MT_FLIP_SHARE:
+            i = int(torch.argmax(diff - tol))
+            raise AssertionError(
+                f"{what} {path}: {int(bad.sum())} of {bad.numel()} elements "
+                f"off, {int(out.sum())} past their band; the worst: "
+                f"{float(g.reshape(-1)[i])} against {float(w.reshape(-1)[i])}"
+                + ("" if band is None else
+                   f", band {float(band[path].reshape(-1)[i])}"))
+        flips += int(bad.sum())
+    return {"max_rel_err": worst, "band_elements": flips}
+
+
+def single_train_arrays(torch, model, tc, batch: dict, device: str):
+    """The single device's step on ``batch`` in its two halves
+    (``loop.step_grads``, ``loop.apply_grads``), kind by kind as flat JAX
+    trees of tensors on the card, each made when asked (``next``): first
+    the gradient the step applies (the microbatches' float32
+    accumulation) and the loss, then the metrics, then the parameters and
+    moments after the step."""
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train import optimizer as opt
+    args = batch_args(torch, batch, device)
+    params = dict(model.named_parameters())
+    state = train_loop.TrainState(model, opt.init(params))
+    grads, metrics = train_loop.step_grads(state, max(tc.microbatch, 1),
+                                           *args)
+    yield {"grads": stacked_tree(torch, grads),
+           "loss": float(metrics["loss"])}
+    state, om = train_loop.apply_grads(state, grads, tc)
+    del grads
+    yield {"metrics": {k: float(v) for k, v in om.items()}}
+    for kind, tree in (("params", params), ("m", state.opt.m),
+                       ("v", state.opt.v)):
+        yield {kind: stacked_tree(torch, tree)}
+
+
+def mesh_step_arrays(run, cfg, tc, batch: dict, **init) -> dict:
+    """One mesh step on ``batch`` from ``init`` (``train_init``'s
+    arguments), in its two halves (``train_grads``: ``loop.step_grads``;
+    ``train_apply``: ``loop.apply_grads``): the
+    gradient it applies, its metrics, the parameters and moments after
+    it, as flat JAX trees (numpy, logical), and each call's seconds."""
+    secs = {}
+
+    def timed(name, *args, **kw):
+        t = time.perf_counter()
+        out = run.call(name, *args, **kw)
+        secs[name] = secs.get(name, 0.0) + time.perf_counter() - t
+        return out
+
+    from repro_torch import convert
+    timed("train_init", cfg, tc, **init)
+    out = {"grad_metrics": timed("train_grads", batch)}
+    t = time.perf_counter()
+    out["grads"] = convert.flat_tree(run.arrays(cfg, "grads")["grads"])
+    secs["gather_grads"] = time.perf_counter() - t
+    if out["grad_metrics"].get("dropped"):
+        raise AssertionError(f"{cfg.name}: {out['grad_metrics']['dropped']} "
+                             f"(token, expert) pairs dropped at capacity "
+                             f"factor {cfg.capacity_factor}")
+    out["metrics"] = dict(timed("train_apply"),
+                          loss=out["grad_metrics"]["loss"])
+    out["rank_peak_mem_gb"] = [
+        None if r["max_memory_allocated"] is None
+        else r["max_memory_allocated"] / 1e9 for r in run.call("stats")]
+    t = time.perf_counter()
+    out.update({k: convert.flat_tree(v) for k, v in
+                run.arrays(cfg, "params", "m", "v").items()})
+    secs["gather_state"] = time.perf_counter() - t
+    run.call("release")
+    out["seconds"] = secs
+    return out
+
+
+def mesh_vs_single(torch, mesh: dict, model, tc, batch: dict, device: str,
+                   what: str) -> dict:
+    """Check a mesh step (``mesh_step_arrays``) against the single
+    device's (``single_train_arrays``) on the same logical weights: the
+    loss (LM_LOSS_RTOL), the grad norm, the gradient, both moments and
+    the parameters (``tree_check``); kinds freed as they are held."""
+    from repro_torch.train import optimizer as opt
+    steps = single_train_arrays(torch, model, tc, batch, device)
+    first = next(steps)
+    out = {"loss": mesh["grad_metrics"]["loss"], "loss_single": first["loss"],
+           "pairs": mesh["grad_metrics"].get("pairs"),
+           "rank_peak_mem_gb": mesh["rank_peak_mem_gb"],
+           "mesh_call_s": mesh["seconds"]}
+    got = mesh["grad_metrics"]["loss"]
+    if not abs(got - first["loss"]) <= LM_LOSS_RTOL * abs(first["loss"]):
+        raise AssertionError(f"{what}: mesh loss {got} against one "
+                             f"device's {first['loss']}")
+    grads = first["grads"]
+    out["grads"] = tree_check(torch, mesh.pop("grads"), grads,
+                              f"{what} gradient")
+    met = next(steps)["metrics"]
+    gn, want_gn = mesh["metrics"]["grad_norm"], met["grad_norm"]
+    if not abs(gn - want_gn) <= LM_GRAD_RTOL * want_gn:
+        raise AssertionError(f"{what}: grad norm {gn} against {want_gn}")
+    out["grad_norm"], out["grad_norm_single"] = gn, want_gn
+    clip = min(1.0, tc.grad_clip / max(want_gn, 1e-9))
+    band = {n: opt.first_step_band(g, clip, met["lr"], tc.eps,
+                                   LM_GRAD_RTOL, LM_GRAD_ATOL)
+            for n, g in grads.items()}
+    del grads, first
+    for kinds in steps:
+        (kind, want), = kinds.items()
+        out[kind] = tree_check(torch, mesh.pop(kind), want, f"{what} {kind}",
+                               band if kind == "params" else None)
+        del want, kinds
+    return out
+
+
+def mesh_train_flops(cfg, batch: int, seq: int) -> int:
+    """FLOPs a training step must do: forward and backward (6 a weight and
+    token) of every non-expert matmul weight, of the top-k routed experts
+    a token and of the head over every position, and of attention over
+    the causal pairs (4 a pair and head dim forward, 12 in all).  Remat's
+    second forward and the expert-parallel path's capacity padding are
+    not counted: work the bound need not do."""
+    from repro_torch.models import transformer as tfm
+    model = tfm.Transformer(cfg, device="meta")
+    fe = cfg.moe_d_ff or cfg.d_ff
+    moe_layers = sum(1 for _, _, b, _, _ in model.schedule()
+                     if hasattr(b, "moe"))
+    dense_w = sum(p.numel() for n, p in model.named_parameters()
+                  if p.dim() >= 2 and ".experts." not in n
+                  and "table" not in n)
+    active = (dense_w + moe_layers * cfg.top_k * 3 * cfg.d_model * fe
+              + cfg.d_model * cfg.vocab_size)
+    if cfg.use_mla:
+        qk, v = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    else:
+        qk = v = cfg.head_dim_
+    attn = sum(6 * batch * cfg.num_heads * (qk + v) * sum(
+        min(q + 1, w) if w else q + 1 for q in range(seq))
+        for w in cfg.windows())
+    return 6 * batch * seq * active + attn
+
+
+def mesh_train_cell(torch, run, cfg, tc, batches, card: str) -> dict:
+    """One training cell on the mesh: ``fit`` from the seed's weights over
+    ``batches`` (check (b): finite losses and grad norms, every rank's
+    parameter and moment blocks moved), then step ms (the median over
+    the steps after the first), tokens/s, each rank's peak memory, the
+    collectives by tag (rank 0's ms, bytes and calls a step) and their
+    share of the steps' time, the dropped share, and the bound: the
+    step's FLOPs at 989 TFLOP/s plus the optimizer's bytes at 3.35 TB/s
+    (the card does every rank's work)."""
+    from repro_torch.models import transformer as tfm
+    init = run.call("train_init", cfg, tc, seed=tc.seed)
+    res = run.call("train_fit", batches, 1)
+    run.call("release")
+    hist, ranks = res["history"], res["ranks"]
+    for h in hist:
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+            raise AssertionError(f"{cfg.name}: step {h['step']} loss "
+                                 f"{h['loss']} grad norm {h['grad_norm']}")
+    for r, rk in enumerate(ranks):
+        if rk["unmoved_params"] or rk["unmoved_moments"]:
+            raise AssertionError(
+                f"{cfg.name}: rank {r} blocks that did not move: "
+                f"{rk['unmoved_params'][:4]} {rk['unmoved_moments'][:4]}")
+    ends = [h["elapsed_s"] * 1e3 for h in hist]
+    step_ms = [b - a for a, b in zip(ends, ends[1:])]
+    ms = float(np.median(step_ms))
+    batch, seq = batches[0]["tokens"].shape
+    steps = len(hist)
+    coll = ranks[0]["collectives"]
+    coll_ms = sum(c["ms"] for c in coll.values())
+    kinds = {}
+    for tag, c in coll.items():
+        kind = tag.split(".")[0] + (".grad" if ".grad" in tag else "")
+        k = kinds.setdefault(kind, {"ms": 0.0, "bytes": 0, "calls": 0})
+        for f in k:
+            k[f] += c[f] / steps
+    drops = [sum(r["drops"][i][0] for r in ranks) for i in
+             range(len(ranks[0]["drops"]))]
+    pairs = [sum(r["drops"][i][1] for r in ranks) for i in
+             range(len(ranks[0]["drops"]))]
+    flops = mesh_train_flops(cfg, batch, seq)
+    model = tfm.Transformer(cfg, device="meta")
+    nbytes = lm_train_bytes(model, max(tc.microbatch, 1))
+    bound = flops / BF16_FLOPS * 1e3 + nbytes / HBM_BYTES_PER_S * 1e3
+    return {
+        "arch": cfg.name, "layers": cfg.num_layers, "mesh": list(LM_MT_SHAPE),
+        "dtype": cfg.dtype, "remat": cfg.remat, "batch": batch, "seq": seq,
+        "microbatch": tc.microbatch, "steps": steps,
+        "capacity_factor": cfg.capacity_factor if cfg.num_experts else None,
+        "params": sum(p.numel() for p in model.parameters()),
+        "rank_param_gb": init["param_bytes"] / 1e9,
+        "rank_moment_gb": init["moment_bytes"] / 1e9,
+        "init_s": init["load_s"],
+        "loss": [h["loss"] for h in hist],
+        "grad_norm": [h["grad_norm"] for h in hist],
+        "step_ms": step_ms, "step_ms_median": ms,
+        "first_step_ms": ends[0], "tokens_per_s": batch * seq / ms * 1e3,
+        "rank_peak_mem_gb": [None if r["max_memory_allocated"] is None
+                             else r["max_memory_allocated"] / 1e9
+                             for r in ranks],
+        "collectives_ms_per_step": coll_ms / steps,
+        "collectives_gb_per_step": sum(c["bytes"] for c in coll.values())
+        / steps / 1e9,
+        "collectives_share": coll_ms / ends[-1],
+        "collectives_by_kind": kinds,
+        "collectives_by_tag": coll,
+        "dropped_share": sum(drops) / max(sum(pairs), 1),
+        "flops": flops, "optimizer_bytes": nbytes, "bound_ms": bound,
+        "bound_share": bound / ms, "card": card}
+
+
+def lm_mesh_train(torch, seed: int, card: str, device: str = "cuda",
+                  smoke: bool = False, seq: int = LM_MT_SEQ,
+                  check_seq: int = LM_MT_CHECK_SEQ,
+                  names: Optional[list] = None) -> dict:
+    """LM training on a data 2 x model 2 mesh of gloo ranks sharing the
+    card (``train.mesh_worker``), right after the serving mesh phases.
+    (a) deepseek-v2-lite-16b at full width, depth 3 (the dense layer and
+    two MoE layers), float32, batch 4 x ``check_seq``, microbatch 2,
+    capacity factor 16 (no pair dropped, asserted): one mesh step's loss, gradient (each rank's ZeRO
+    slices gathered to logical), moments and parameters against the
+    single-device step of the same seed on the card, run after the mesh
+    has gone.  Then the cells in bf16 from the seed: deepseek (3 layers,
+    capacity factor 1.25, 3 steps) and gemma3-4b (full width, 6 layers,
+    2 steps), batch 4 x ``seq``, microbatch 2, remat on; (b) finite
+    losses and grad norms, every block moved; step ms, tokens/s, peak
+    memory a rank, the collectives and the bound.  (c) the eight
+    attention archs' smoke variants (float32, remat, capacity factor 16)
+    on the mesh against one device on the card.  One mesh serves (a), the
+    cells and (c); the single device's halves of (a) and (c) run after
+    it.  ``smoke`` (a CPU rehearsal) runs the cells at the smoke
+    variants' widths."""
+    from repro_torch import convert
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.lm_data import LMDataConfig, MarkovZipfSource
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.mesh_worker import LMTrainRun
+
+    def get(name, layers):
+        c = registry.smoke_variant(name) if smoke else registry.get(name)
+        return dataclasses.replace(c, num_layers=layers, remat=True)
+
+    def batches(cfg, n, s, sd):
+        return list(MarkovZipfSource(LMDataConfig(
+            vocab_size=cfg.vocab_size, seq_len=s, batch_size=LM_MT_BATCH,
+            seed=sd)).batches(n))
+
+    ds = get(LM_MT_ARCH, LM_MT_LAYERS)
+    if not smoke and (ds.d_model, ds.num_heads, ds.use_mla, ds.num_experts,
+                      ds.top_k, ds.num_shared_experts, ds.vocab_size,
+                      ds.dtype, ds.first_dense_layers) != (
+            2048, 16, True, 64, 6, 2, 102_400, "bfloat16", 1):
+        raise AssertionError(f"not deepseek-v2-lite-16b's widths: {ds}")
+    gemma = get(LM_MT_DP_ARCH, LM_MT_DP_LAYERS)
+    spec = {"data": LM_MT_SHAPE[0], "model": LM_MT_SHAPE[1]}
+    dev = torch.device(device)
+    summary = {"card": card, "mesh": list(LM_MT_SHAPE)}
+
+    # one mesh for (a)'s mesh half, the cells (b) and (c)'s mesh halves;
+    # then, the mesh gone, the single device's halves on the emptied card
+    ds32 = dataclasses.replace(ds, dtype="float32",
+                               capacity_factor=LM_MT_CHECK_CF)
+    tc_a = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10,
+                       microbatch=LM_MT_MB, seed=seed)
+    batch_a = batches(ds32, 1, check_seq, seed + 1)[0]
+    tc = {n: TrainConfig(learning_rate=LM_MT_LR, warmup_steps=1,
+                         total_steps=s, microbatch=LM_MT_MB, seed=seed)
+          for n, s in ((ds.name, LM_MT_STEPS), (gemma.name, LM_MT_DP_STEPS))}
+    archs = names if names is not None else [
+        n for n in registry.all_arch_names()
+        if registry.get(n).has_attention and registry.get(n).ssm_state == 0]
+    smoke_cases = {}
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with LMTrainRun(spec, dev) as run:
+        transport = run.transport
+        t = time.perf_counter()
+        mesh_a = mesh_step_arrays(run, ds32, tc_a, batch_a, seed=seed)
+        mesh_a_s = time.perf_counter() - t
+        cells = {}
+        for cfg, steps in ((ds, LM_MT_STEPS), (gemma, LM_MT_DP_STEPS)):
+            t = time.perf_counter()
+            cells[cfg.name] = mesh_train_cell(
+                torch, run, cfg, tc[cfg.name],
+                batches(cfg, steps, seq, seed + 2), card)
+            cells[cfg.name]["cell_s"] = time.perf_counter() - t
+        for name in archs:
+            scfg = dataclasses.replace(registry.smoke_variant(name),
+                                       remat=True)
+            if scfg.num_experts:
+                scfg = dataclasses.replace(scfg,
+                                           capacity_factor=LM_MT_CHECK_CF)
+            ref = tfm.init_params(seed, scfg, device="cpu")
+            perturb_constants(torch, ref, seed)
+            params = convert.lm_arrays_from_params(ref)
+            del ref
+            b = smoke_batch(scfg, seed, batch=4, seq=24)
+            smoke_cases[name] = (scfg, params, b, mesh_step_arrays(
+                run, scfg, tc_a, b, params=params))
+    mesh_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    single = tfm.init_params(seed, ds32, device=device)
+    check_a = mesh_vs_single(torch, mesh_a, single, tc_a, batch_a, device,
+                             f"{ds.name} float32")
+    del single, mesh_a
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    summary["check_a"] = dict(check_a, arch=ds.name, layers=ds.num_layers,
+                              seq=check_seq, capacity_factor=LM_MT_CHECK_CF,
+                              mesh_s=mesh_a_s,
+                              single_s=time.perf_counter() - t1)
+    log(f"[lm_mesh_train] {card}: check (a) {ds.name} float32 mesh = one "
+        f"device: loss {check_a['loss']:.6f} / {check_a['loss_single']:.6f}"
+        f", gradient {check_a['grads']['max_rel_err']:.3g}, m "
+        f"{check_a['m']['max_rel_err']:.3g}, v "
+        f"{check_a['v']['max_rel_err']:.3g}, params "
+        f"{check_a['params']['max_rel_err']:.3g} of the leaf's largest "
+        f"({check_a['params']['band_elements']} elements in their first-"
+        f"step band)")
+    smoke_out = {}
+    for name, (scfg, params, b, mesh) in smoke_cases.items():
+        model = convert.lm_params_from_arrays(params, scfg, device=device)
+        smoke_out[name] = mesh_vs_single(torch, mesh, model, tc_a, b,
+                                         device, name)
+    summary.update({
+        "transport": transport, "device": device,
+        "deepseek": cells[ds.name], "gemma3_4b": cells[gemma.name],
+        "check_c": smoke_out, "mesh_s": mesh_s})
+    for key in ("deepseek", "gemma3_4b"):
+        c = summary[key]
+        log(f"[lm_mesh_train] {card}: {c['arch']} {c['layers']} layers "
+            f"{LM_MT_SHAPE[0]} x {LM_MT_SHAPE[1]} ({transport}): step "
+            f"{c['step_ms_median']:.1f} ms median ({c['step_ms']}), first "
+            f"{c['first_step_ms']:.1f} ms, {c['tokens_per_s']:.1f} tokens/s "
+            f"(bound {c['bound_ms']:.2f} ms); collectives "
+            f"{c['collectives_ms_per_step']:.1f} ms and "
+            f"{c['collectives_gb_per_step']:.2f} GB a step on rank 0, share "
+            f"{c['collectives_share']:.3f}; peak {c['rank_peak_mem_gb']} GB"
+            f"; loss {c['loss']}; dropped share {c['dropped_share']:.4f}")
+    log(f"[lm_mesh_train] {card}: check (c) the smoke archs' mesh step = one "
+        f"device: worst gradient "
+        f"{max(v['grads']['max_rel_err'] for v in smoke_out.values()):.3g}"
+        f", params "
+        f"{max(v['params']['max_rel_err'] for v in smoke_out.values()):.3g}"
+        f" of the leaf's largest")
+    log(json.dumps({"lm_mesh_train": summary}))
+    return summary
+
+
 # -- the LM training path (lm100m, gemma3-4b at full width) ------------------
 
 LM100M_STEPS, LM100M_BATCH, LM100M_SEQ = 300, 8, 256
@@ -5449,6 +5887,7 @@ def main(argv=None) -> int:
     # the mesh phases first: the float32 check holds 63 GB on the card
     phase("lm_mesh_serve", lm_mesh_serve, torch, args.seed, card)
     phase("lm_mesh_dp", lm_mesh_dp, torch, args.seed, card)
+    phase("lm_mesh_train", lm_mesh_train, torch, args.seed, card)
     serve = phase("serve", serve_slice, torch, args.seed, card)
     train = phase("train", train_slice, torch, args.seed, card)
     phase("card_vs_cpu", card_vs_cpu, torch, args.seed)

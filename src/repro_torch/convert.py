@@ -15,13 +15,17 @@ layer stacks ``[L, ...]``) into the port's ``Transformer``, from which both
 packages compute the same logits, and back (``lm_arrays_from_params``), and
 an LM's ``TrainState`` with its AdamW moments, from which both packages
 take the same train steps; and an LM's parameters into one mesh rank's
-blocks (``lm_shard_from_arrays``) and every rank's blocks back
-(``lm_arrays_from_shards``).  Carrying the alias tables too matters: the
+blocks (``lm_shard_from_arrays``, and with its ZeRO moment blocks
+``train_state_from_arrays``) and every rank's blocks back
+(``lm_arrays_from_shards``; from the files a training mesh's ranks write,
+``lm_arrays_from_dumps``).  Carrying the alias tables too matters: the
 assignments of an alias table depend on the order its stacks were filled,
 so only identical tables give identical fold-in chains -- which is what lets
 a whole fold-in be compared bitwise between the packages.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -34,6 +38,7 @@ from repro_torch.core.lda_online import OnlineState
 from repro_torch.core.lightlda import FrozenModel, SamplerState
 from repro_torch.models import transformer as tfm
 from repro_torch.models.transformer import Transformer
+from repro_torch.sharding.specs import P
 
 LAYER_STACKS = ("blocks", "dense_blocks", "cross_blocks")
 
@@ -220,6 +225,17 @@ def lm_arrays_from_params(params) -> dict:
     return tree
 
 
+def flat_tree(tree, path=()) -> dict:
+    """A nested dict (``lm_arrays_from_params``' pytree) as ``{'/'-path:
+    leaf}``."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat_tree(v, path + (str(k),)))
+        return out
+    return {"/".join(path): tree}
+
+
 def lm_shard_from_arrays(params: dict, cfg, ctx, rank: int,
                          device: Device = None,
                          layout_shards: int = 1) -> Transformer:
@@ -246,40 +262,73 @@ def lm_shard_from_arrays(params: dict, cfg, ctx, rank: int,
     return model
 
 
-def lm_arrays_from_shards(shards, cfg, ctx, layout_shards: int = 1) -> dict:
+def lm_arrays_from_shards(shards, cfg, ctx, layout_shards: int = 1,
+                          spec_of: dict = None) -> dict:
     """The inverse of ``lm_shard_from_arrays``: every rank's parameters
     (models or ``{name: tensor}`` dicts, in rank order) gathered into the
     JAX ``init_params`` pytree for a model axis of ``layout_shards`` (its
-    padding rows zero)."""
+    padding rows zero).  ``spec_of`` (``{name: spec}``) places blocks cut
+    otherwise than the rules cut the parameters: ZeRO moment blocks."""
     states = [dict(s.named_parameters()) if isinstance(s, torch.nn.Module)
               else s for s in shards]
     full = {}
     for name in states[0]:
         blocks = [st[name].detach().cpu() for st in states]
-        logical = tfm.unshard_leaf(name, blocks, cfg, ctx)
+        logical = tfm.unshard_leaf(name, blocks, cfg, ctx,
+                                   None if spec_of is None
+                                   else spec_of[name])
         full[name] = tfm.to_cyclic_rows(name, logical, cfg, layout_shards)
     return lm_arrays_from_params(full)
 
 
+def lm_arrays_from_dumps(path: str, kind: str, cfg, ctx) -> dict:
+    """The JAX pytree of ``kind`` (``params``, ``m``, ``v``, ``grads``)
+    from the files ``rank<r>.pt`` that a training mesh's ranks wrote
+    (``train.mesh_worker``: each rank's blocks and their specs), read
+    lazily (``mmap``) one leaf at a time."""
+    dumps = [torch.load(os.path.join(path, f"rank{r}.pt"), mmap=True,
+                        weights_only=True) for r in range(ctx.num_devices)]
+    spec_of = {n: P(*s) for n, s in dumps[0]["specs"][kind].items()}
+    return lm_arrays_from_shards([d[kind] for d in dumps], cfg, ctx,
+                                 spec_of=spec_of)
+
+
 def train_state_from_arrays(params: dict, opt_state, cfg,
-                            device: Device = None):
+                            device: Device = None, ctx=None):
     """A port ``TrainState`` holding exactly a JAX ``TrainState``'s
     parameters (``params``, the ``init_params`` pytree) and AdamW state
     (``opt_state``: its ``m`` and ``v`` pytrees, float32, and its int32
-    ``step``), all as numpy arrays."""
+    ``step``; None: zero moments, step 0), all as numpy arrays.  With a
+    mesh ``ctx`` (a rank's) the state of that rank: its parameter blocks
+    (``lm_shard_from_arrays``) and its ZeRO blocks of the moments
+    (``optimizer.Zero``)."""
     from repro_torch.train import optimizer as opt
     from repro_torch.train.loop import TrainState
 
-    model = lm_params_from_arrays(params, cfg, device)
+    if ctx is None or ctx.mesh is None:
+        model = lm_params_from_arrays(params, cfg, device)
+        zero = None
+    else:
+        model = lm_shard_from_arrays(params, cfg, ctx, ctx.rank, device)
+        zero = opt.Zero(model, ctx)
     dev = model.device
     names = dict(model.named_parameters())
+    if opt_state is None:
+        return TrainState(model, opt.init(names, zero))
 
     def moments(tree):
         flat = _lm_state_from_tree(tree)
         if set(flat) != set(names):
             raise ValueError("the moments' leaves are not the model's "
                              "parameters")
-        return {n: flat[n].to(dev, torch.float32) for n in names}
+        if zero is None:
+            return {n: flat[n].to(dev, torch.float32) for n in names}
+        out = {}
+        for n in names:
+            logical = tfm.from_cyclic_rows(n, flat[n], cfg, 1)
+            blk = tfm.shard_leaf(n, logical, cfg, ctx, ctx.rank)
+            out[n] = zero.local(n, blk).to(dev, torch.float32).contiguous()
+        return out
 
     step = torch.tensor(int(np.asarray(opt_state.step)), dtype=torch.int32)
     return TrainState(model, opt.AdamWState(

@@ -93,12 +93,12 @@ def make_host_mesh(model: int = 1, data: Optional[int] = None,
 
 def make_production_mesh(*, multi_pod: bool = False):
     """The reference's production pods, (data=16, model=16) = 256 chips or
-    (pod=2, data=16, model=16) = 512: the port has no such mesh (ROADMAP
-    A.8.3 serves on the host's cards)."""
+    (pod=2, data=16, model=16) = 512: the port has no such mesh (it
+    serves and trains on the host's cards, ROADMAP A.8.3)."""
     shape = "2 x 16 x 16 (512 chips)" if multi_pod else "16 x 16 (256 chips)"
     raise NotImplementedError(
         f"the production mesh {shape} is the JAX package's TPU pod layout; "
-        "the port serves on a host mesh of the local cards "
+        "the port serves and trains on a host mesh of the local cards "
         "(make_host_mesh; ROADMAP A.8.3)")
 
 

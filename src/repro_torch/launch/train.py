@@ -16,9 +16,19 @@ the npz in the JAX package's layout (stacked ``[L, ...]`` layers,
 ``--preset lm100m`` is the end-to-end driver config (~100M params).  The
 weights are drawn from ``--seed`` on the device (the JAX package's
 distributions, not its bits); the batches equal the JAX launcher's bitwise.
-``main`` returns the state and history to an in-process caller.  One
-device only: ``--mesh host|pod|multipod`` is ROADMAP A.8.3's training
-half (the port serves on a mesh: ``launch.serve --mesh host``).
+``main`` returns the state and history to an in-process caller.
+
+``--mesh host`` trains on a mesh of ranks, as ``launch.serve --mesh
+host`` serves: by default data = the cards, model = 1; ``--devices N
+--mesh-model M`` runs N rank processes in an ``N/M x M`` mesh that share
+the cards (or the CPU), NCCL when each rank has a card of its own, else
+gloo (``train.mesh_worker``; rank 0 is this process).  Every rank draws
+its blocks of the single-device weights of ``--seed`` and takes the
+same steps as ``--mesh none`` on the same batches (parameters split by
+the rules, AdamW moments ZeRO-split over the data axis); rank 0 writes
+the npz, gathered to the JAX layout.  ``--layers`` cuts the depth (the
+widths stay the config's).  ``--mesh pod|multipod`` (the reference's TPU
+pods) and the SSM families on a model axis above 1 are ROADMAP A.8.3.
 """
 from __future__ import annotations
 
@@ -27,13 +37,14 @@ import dataclasses
 import json
 import os
 import sys
-from typing import List
+from typing import List, Optional
 
 from repro_torch import convert
 from repro_torch.configs import registry
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.data.lm_data import LMDataConfig, MarkovZipfSource
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.train import checkpoint
 from repro_torch.train import loop as train_loop
 
@@ -47,7 +58,7 @@ LM100M = ModelConfig(
 
 @dataclasses.dataclass
 class TrainResult:
-    state: train_loop.TrainState
+    state: Optional[train_loop.TrainState]   # None on a mesh: ranks hold it
     history: List[dict]
     cfg: ModelConfig
     tc: TrainConfig
@@ -55,10 +66,14 @@ class TrainResult:
 
 def build_cfg(args) -> ModelConfig:
     if args.preset == "lm100m":
-        return LM100M
-    if args.smoke:
-        return registry.smoke_variant(args.arch)
-    return registry.get(args.arch)
+        cfg = LM100M
+    elif args.smoke:
+        cfg = registry.smoke_variant(args.arch)
+    else:
+        cfg = registry.get(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    return cfg
 
 
 def main(argv=None) -> TrainResult:
@@ -79,18 +94,37 @@ def main(argv=None) -> TrainResult:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--microbatch", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to N layers (0: the config's)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="--mesh host: rank processes (default: the cards)")
+    ap.add_argument("--mesh-model", type=int, default=1,
+                    help="--mesh host: the model axis")
     args = ap.parse_args(argv)
 
-    if args.mesh != "none":
-        ap.error(f"--mesh {args.mesh}: training on a device mesh is ROADMAP "
-                 "A.8.3's training half, not ported yet; the port trains on "
-                 "one device")
+    if args.mesh in ("pod", "multipod"):
+        try:
+            mesh_mod.make_production_mesh(multi_pod=args.mesh == "multipod")
+        except NotImplementedError as e:
+            ap.error(f"--mesh {args.mesh}: {e}")
     try:
         device = resolve_device(args.device)
     except RuntimeError:
         ap.error(f"no CUDA device available for --device {args.device}: "
                  "pass --device cpu to run the plain PyTorch path")
     cfg = build_cfg(args)
+    layout = None
+    if args.mesh == "host":
+        try:
+            layout = mesh_mod.make_host_mesh(
+                args.mesh_model,
+                devices=args.devices or (None if device.type == "cuda"
+                                         else 1))
+        except ValueError as e:
+            ap.error(str(e))
+        if cfg.ssm_state > 0 and layout.model > 1:
+            ap.error(f"{cfg.name} on a model axis of {layout.model}: the SSM "
+                     "families' tensor-parallel in_proj is ROADMAP A.8.3")
 
     tc = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                      warmup_steps=max(args.steps // 10, 5), seed=args.seed,
@@ -106,9 +140,15 @@ def main(argv=None) -> TrainResult:
         cond_len=cfg.cond_len if cfg.cross_attn_mode else 0,
         cond_dim=cfg.cond_dim_ if cfg.cross_attn_mode else 0))
 
-    state = train_loop.init_state(args.seed, cfg, device=device)
-    state, history = train_loop.fit(state, src.batches(args.steps), cfg, tc,
-                                    log_every=args.log_every)
+    if layout is not None:
+        state = None
+        history, final = _train_on_mesh(layout, cfg, tc, args, device,
+                                        list(src.batches(args.steps)))
+    else:
+        state = train_loop.init_state(args.seed, cfg, device=device)
+        state, history = train_loop.fit(state, src.batches(args.steps), cfg,
+                                        tc, log_every=args.log_every)
+        final = None
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)
@@ -116,11 +156,27 @@ def main(argv=None) -> TrainResult:
                   "w") as f:
             json.dump(history, f, indent=2)
         checkpoint.save(os.path.join(args.out, f"{cfg.name}_final.npz"),
+                        final if final is not None else
                         convert.lm_arrays_from_params(state.model))
     first, last = history[0]["loss"], history[-1]["loss"]
     print(f"[train] loss {first:.4f} -> {last:.4f} "
           f"({'improved' if last < first else 'NO IMPROVEMENT'})")
     return TrainResult(state, history, cfg, tc)
+
+
+def _train_on_mesh(layout, cfg, tc, args, device, batches):
+    """``fit`` on every rank of the mesh; returns rank 0's history and,
+    when ``--out`` asks for it, the final parameters in the JAX layout."""
+    from repro_torch.train.mesh_worker import LMTrainRun
+
+    spec = {"data": layout.data, "model": layout.model}
+    with LMTrainRun(spec, device) as run:
+        print(f"[train] mesh {layout.data} x {layout.model} over "
+              f"{run.transport} ({run.world} ranks)")
+        run.call("train_init", cfg, tc, seed=args.seed)
+        history = run.call("train_fit", batches, args.log_every)["history"]
+        final = run.arrays(cfg, "params")["params"] if args.out else None
+    return history, final
 
 
 if __name__ == "__main__":

@@ -30,6 +30,15 @@ positions with every head, against K/V all-gathered over the model axis,
 and the outputs are all-gathered along the sequence.  MLA keeps ``w_dkv``
 replicated, so every model rank holds the whole latent cache of its batch
 slice, and decodes with the absorbed product per local head.
+
+The backward (training) follows from who computes what: in ``"heads"``
+mode the replicated input (MLA: the input of ``wq`` and the latent)
+enters the rank's heads through ``layers.model_copy``, and a replicated
+qk-norm scale used on them too; in ``"gather"`` mode every rank computes
+the same, so a gathered weight's gradient is already whole there; in the
+sequence-parallel prefill every rank works on its own positions, so the
+input is copied, the gathered weights and K/V reduce-scatter their
+gradients, and the output's gather keeps the rank's block.
 """
 from __future__ import annotations
 
@@ -39,53 +48,14 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import (RMSNorm, apply_rope, block, dtype_of,
-                                       full_shape, model_gather, normal_,
-                                       param, row_parallel)
+from repro_torch.models.layers import (RMSNorm, _bmm_f32, apply_rope, block,
+                                       dtype_of, full_shape, model_copy,
+                                       model_gather, normal_, param,
+                                       rms_norm, row_parallel)
 from repro_torch.sharding.specs import SINGLE, MeshCtx
 
 _NEG = -1e30
 _EMPTY = 2 ** 30         # position of a padded kv slot: always masked
-
-
-class _BmmF32(torch.autograd.Function):
-    """The batched product of two bf16/fp16 operands, in float32.
-
-    Forward: on the card the operands stay in their dtype and cuBLAS writes
-    float32 (no float32 copy of a cache); the CPU has no such product, so
-    they are widened first.  ``torch.bmm(..., out_dtype=...)`` has no
-    autograd formula, hence this function.  Backward: the float32
-    ``grad_out`` times the other operand widened to float32 (a tile of the
-    chunked core, never a cache), each gradient rounded to its operand's
-    dtype -- the arithmetic of the reference's ``einsum`` with
-    ``preferred_element_type=float32`` and of the CPU path's widening."""
-
-    @staticmethod
-    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        ctx.save_for_backward(a, b)
-        if a.is_cuda:
-            return torch.bmm(a, b, out_dtype=torch.float32)
-        return torch.bmm(a.to(torch.float32), b.to(torch.float32))
-
-    @staticmethod
-    def backward(ctx, grad: torch.Tensor):
-        a, b = ctx.saved_tensors
-        ga = gb = None
-        if ctx.needs_input_grad[0]:
-            ga = torch.bmm(grad, b.to(torch.float32).transpose(1, 2)
-                           ).to(a.dtype)
-        if ctx.needs_input_grad[1]:
-            gb = torch.bmm(a.to(torch.float32).transpose(1, 2), grad
-                           ).to(b.dtype)
-        return ga, gb
-
-
-def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` batched, accumulated and returned in float32, with a
-    backward (``_BmmF32``) for bf16/fp16 operands."""
-    if a.dtype == torch.float32:
-        return torch.bmm(a, b)
-    return _BmmF32.apply(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -283,36 +253,52 @@ class Attention(nn.Module):
             self.q_norm.reset_parameters(g)
             self.k_norm.reset_parameters(g)
 
-    def weights(self, full: bool = False):
+    def weights(self, full: bool = False, replicated: bool = True):
         """``(wq, wk, wv, wo)`` as this rank computes with them: its
         blocks in ``"heads"`` mode, all-gathered over the model axis in
-        ``"gather"`` mode or when ``full``."""
+        ``"gather"`` mode or when ``full``.  ``replicated``: every rank
+        computes the same with the gathered weights (their gradient is
+        whole on each rank), else each its own positions (the
+        sequence-parallel prefill: the gradient is reduce-scattered)."""
         w = (self.wq, self.wk, self.wv, self.wo)
         if self.tp and not full:
             return w
-        return (model_gather(w[0], self.ctx, 1, "weights"),
-                model_gather(w[1], self.ctx, 1, "weights"),
-                model_gather(w[2], self.ctx, 1, "weights"),
-                model_gather(w[3], self.ctx, 0, "weights"))
+        return tuple(model_gather(t, self.ctx, 0 if i == 3 else 1,
+                                  "weights", replicated)
+                     for i, t in enumerate(w))
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         return x.reshape(*x.shape[:-1], -1, self.cfg.head_dim_)
 
-    def _norm_rope(self, t, norm: str, positions, theta: float):
+    def _norm_rope(self, t, norm: str, positions, theta: float,
+                   partial: bool = False):
         """qk-norm (``norm`` names it), then RoPE when ``positions`` is
-        given."""
+        given.  ``partial``: ``t`` is this rank's part of the heads or
+        positions, so the replicated norm scale's gradient is summed over
+        the model ranks."""
         if self.cfg.use_qk_norm:
-            t = getattr(self, norm)(t)
+            mod = getattr(self, norm)
+            scale = model_copy(mod.scale, self.ctx, "norm") if partial \
+                else mod.scale
+            t = rms_norm(t, scale, mod.eps)
         return t if positions is None else apply_rope(t, positions, theta)
 
     def qkv(self, x, kv_in, positions: Optional[torch.Tensor],
             theta: float, w=None):
         """Projections (+ qk-norm, + RoPE when ``positions`` is given),
-        with this rank's heads (``weights()``) unless ``w`` is given."""
+        with this rank's heads (``weights()``) unless ``w`` is given.  In
+        ``"heads"`` mode the replicated inputs enter the rank's columns
+        (``model_copy``)."""
         wq, wk, wv, _ = self.weights() if w is None else w
-        q = self._norm_rope(self._split(x @ wq), "q_norm", positions, theta)
+        if self.tp:
+            xq = model_copy(x, self.ctx, "attn_in")
+            kv_in = xq if kv_in is x else model_copy(kv_in, self.ctx,
+                                                     "attn_in")
+            x = xq
+        q = self._norm_rope(self._split(x @ wq), "q_norm", positions, theta,
+                            self.tp)
         k = self._norm_rope(self._split(kv_in @ wk), "k_norm", positions,
-                            theta)
+                            theta, self.tp)
         return q, k, self._split(kv_in @ wv)
 
     def _out(self, out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -348,21 +334,25 @@ class Attention(nn.Module):
         b, t, _ = x.shape
         m, i = ctx.model_size, ctx.comm.model_idx
         c = t // m
+        # every rank's gradients here are partial (its positions; in
+        # "heads" mode its K/V heads): sums over the model ranks
+        x = model_copy(x, ctx, "attn_in")
         if self.tp:
-            wq = model_gather(self.wq, ctx, 1, "weights")
-            wo = model_gather(self.wo, ctx, 0, "weights")
+            wq = model_gather(self.wq, ctx, 1, "weights", False)
+            wo = model_gather(self.wo, ctx, 0, "weights", False)
             wk, wv = self.wk, self.wv
         else:
-            wq, wk, wv, wo = self.weights()
-        k = self._norm_rope(self._split(x @ wk), "k_norm", positions, theta)
+            wq, wk, wv, wo = self.weights(replicated=False)
+        k = self._norm_rope(self._split(x @ wk), "k_norm", positions, theta,
+                            True)
         v = self._split(x @ wv)
         k_all, v_all = k, v
         if self.tp:
-            k_all = model_gather(k, ctx, 2, "kv")
-            v_all = model_gather(v, ctx, 2, "kv")
+            k_all = model_gather(k, ctx, 2, "kv", False)
+            v_all = model_gather(v, ctx, 2, "kv", False)
         pos_q = positions[i * c:(i + 1) * c]
         q = self._norm_rope(self._split(x[:, i * c:(i + 1) * c] @ wq),
-                            "q_norm", pos_q, theta)
+                            "q_norm", pos_q, theta, True)
         kv = cfg.num_kv_heads
         qg = q.reshape(b, c, kv, cfg.num_heads // kv, cfg.head_dim_)
         out = _attend_chunked(qg, k_all, v_all, pos_q, positions,
@@ -463,13 +453,18 @@ class MLA(nn.Module):
         """Prefill MLA: expand the latent into per-head K/V and run the
         chunked core.  Returns ``(out, (ckv, krope))``: the cache stores only
         the (r + dr)-dim latent per token."""
-        cfg = self.cfg
+        cfg, ctx = self.cfg, self.ctx
         b, t, _ = x.shape
         dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
         wq, w_uk, w_uv, wo = self.weights()
-        qn, qr = self._q(x, positions, wq)
+        xq = model_copy(x, ctx, "attn_in") if self.tp else x
+        qn, qr = self._q(xq, positions, wq)
         h = qn.shape[2]
         ckv, krope = self._compress(x, positions)
+        if self.tp:
+            # the whole latent enters this rank's heads
+            ckv = model_copy(ckv, ctx, "latent")
+            krope = model_copy(krope, ctx, "latent")
         k_nope = (ckv @ w_uk).reshape(b, t, h, dn)
         val = (ckv @ w_uv).reshape(b, t, h, dv)
         q = torch.cat([qn, qr], dim=-1)                      # [B,T,H,dn+dr]

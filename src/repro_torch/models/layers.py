@@ -22,7 +22,12 @@ by a model all-reduce.  A row-parallel product keeps each rank's partial
 in float32, the ranks' sum is added in float32 and rounded once to the
 activation dtype (``row_parallel``), so it is the single device's product
 up to float32 order; the hidden between layers is replicated over the
-model axis and split over the data axis by batch.
+model axis and split over the data axis by batch.  Every collective
+carries its gradient (autograd functions: a sum passes it through, a
+copy into the rank's part sums it, a gather keeps the rank's block or
+reduce-scatters), and the training loss is vocab-parallel
+(``softmax_xent_sharded``), so a mesh's backward gives the single
+device's gradients.
 """
 from __future__ import annotations
 
@@ -80,23 +85,190 @@ def block(n: int, m: int, what: str) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Tensor-parallel collectives (identity on one device)
+# Tensor-parallel collectives with gradients (identity on one device)
 # ---------------------------------------------------------------------------
+#
+# The convention of the backward (Megatron's): an activation replicated over
+# the model axis has its whole gradient on every model rank.  So a sum of
+# the ranks' partial results (``model_sum``) passes its gradient through
+# unchanged, and a replicated activation that enters a rank's own slice of
+# the work (``model_copy``: its heads, its columns, its tokens) sums the
+# ranks' partial gradients.  A gather's backward depends on its consumer
+# (``gather_dim``): where every rank computes the same thing with the
+# gathered tensor, each rank's gradient is already whole and the backward
+# keeps the rank's own block; where the ranks compute different things
+# with it, the gradients are partial and the backward is a reduce-scatter.
+# Sums in the backward run in float32 and round once to the gradient's
+# dtype.  Forward tags count the forward's calls, ``<tag>.grad`` the
+# backward's.
+
+F32 = torch.float32
+
 
 def _model_comm(ctx: MeshCtx):
     comm = ctx.comm if ctx is not None else None
     return comm if comm is not None and comm.model > 1 else None
 
 
+def _sum_f32(comm, g: torch.Tensor, axis, tag: str) -> torch.Tensor:
+    return comm.all_reduce(g.to(F32), axis, tag).to(g.dtype)
+
+
+class _Sum(torch.autograd.Function):
+    """All-reduce over ``axis`` forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, comm, axis, tag):
+        return comm.all_reduce(x, axis, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+class _Copy(torch.autograd.Function):
+    """Identity forward, all-reduce over ``axis`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, comm, axis, tag):
+        ctx.comm, ctx.axis, ctx.tag = comm, axis, tag
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_f32(ctx.comm, g, ctx.axis, ctx.tag + ".grad"), None, \
+            None, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim`` over ``axis`` forward; backward: the rank's
+    own block (``replicated`` consumer) or a reduce-scatter."""
+
+    @staticmethod
+    def forward(ctx, x, comm, axis, dim, tag, replicated):
+        ctx.comm, ctx.axis, ctx.dim, ctx.tag = comm, axis, dim, tag
+        ctx.replicated, ctx.size = replicated, x.shape[dim]
+        return comm.all_gather_dim(x, axis, dim, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, dim = ctx.comm, ctx.dim
+        if ctx.replicated:
+            i = comm.axis_index(ctx.axis)
+            out = g.narrow(dim, i * ctx.size, ctx.size).contiguous()
+        else:
+            out = comm.reduce_scatter(g.movedim(dim, 0).to(F32), ctx.axis,
+                                      ctx.tag + ".grad")
+            out = out.movedim(0, dim).to(g.dtype)
+        return out, None, None, None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """``Mesh.all_to_all`` forward; its backward is the same exchange of
+    the gradient (the block permutation is its own inverse)."""
+
+    @staticmethod
+    def forward(ctx, x, comm, axis, tag):
+        ctx.comm, ctx.axis, ctx.tag = comm, axis, tag
+        return comm.all_to_all(x, axis, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_to_all(g.contiguous(), ctx.axis,
+                                   ctx.tag + ".grad"), None, None, None
+
+
+def mesh_sum(x: torch.Tensor, comm, axis, tag: str) -> torch.Tensor:
+    """The sum over ``axis`` of the ranks' ``x`` (a new tensor); the
+    gradient passes through unchanged (the sum is replicated)."""
+    if comm.axis_size(axis) == 1:
+        return x
+    return _Sum.apply(x, comm, axis, tag)
+
+
+def mesh_copy(x: torch.Tensor, comm, axis, tag: str) -> torch.Tensor:
+    """``x`` unchanged; its gradient summed over ``axis``."""
+    if comm.axis_size(axis) == 1:
+        return x
+    return _Copy.apply(x, comm, axis, tag)
+
+
+def gather_dim(x: torch.Tensor, comm, axis, dim: int, tag: str,
+               replicated: bool) -> torch.Tensor:
+    """The ranks' blocks of ``x`` concatenated along ``dim`` over ``axis``;
+    ``replicated``: every rank computes the same with the result (else
+    each its own part)."""
+    if comm.axis_size(axis) == 1:
+        return x
+    return _Gather.apply(x, comm, axis, dim % x.dim(), tag, replicated)
+
+
+def all_to_all(x: torch.Tensor, comm, axis, tag: str) -> torch.Tensor:
+    """``Mesh.all_to_all`` with its backward."""
+    if comm.axis_size(axis) == 1:
+        return x
+    return _AllToAll.apply(x, comm, axis, tag)
+
+
 def model_sum(x: torch.Tensor, ctx: MeshCtx, tag: str = "all_reduce",
               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The sum over the model ranks of their partial results, added in
-    float32 and rounded once to ``dtype`` (``x``'s by default)."""
+    float32 and rounded once to ``dtype`` (``x``'s by default); its
+    gradient passes through."""
     comm = _model_comm(ctx)
     dtype = dtype or x.dtype
     if comm is None:
         return x.to(dtype)
-    return comm.all_reduce(x.to(torch.float32), "model", tag).to(dtype)
+    return mesh_sum(x.to(F32), comm, "model", tag).to(dtype)
+
+
+def model_copy(x: torch.Tensor, ctx: MeshCtx,
+               tag: str = "copy") -> torch.Tensor:
+    """A model-replicated ``x`` entering this rank's slice of the work:
+    unchanged forward, the ranks' partial gradients summed backward."""
+    comm = _model_comm(ctx)
+    return x if comm is None else mesh_copy(x, comm, "model", tag)
+
+
+class _BmmF32(torch.autograd.Function):
+    """The batched product of two bf16/fp16 operands, in float32.
+
+    Forward: on the card the operands stay in their dtype and cuBLAS writes
+    float32 (no float32 copy of a cache); the CPU has no such product, so
+    they are widened first.  ``torch.bmm(..., out_dtype=...)`` has no
+    autograd formula, hence this function.  Backward: the float32
+    ``grad_out`` times the other operand widened to float32 (a tile of the
+    chunked core or a row-parallel weight block, never a cache), each
+    gradient rounded to its operand's
+    dtype -- the arithmetic of the reference's ``einsum`` with
+    ``preferred_element_type=float32`` and of the CPU path's widening."""
+
+    @staticmethod
+    def forward(ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(a, b)
+        if a.is_cuda:
+            return torch.bmm(a, b, out_dtype=torch.float32)
+        return torch.bmm(a.to(torch.float32), b.to(torch.float32))
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(grad, b.to(torch.float32).transpose(1, 2)
+                           ).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.bmm(a.to(torch.float32).transpose(1, 2), grad
+                           ).to(b.dtype)
+        return ga, gb
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` batched, accumulated and returned in float32, with a
+    backward (``_BmmF32``) for bf16/fp16 operands."""
+    if a.dtype == torch.float32:
+        return torch.bmm(a, b)
+    return _BmmF32.apply(a, b)
 
 
 def mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -105,11 +277,7 @@ def mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     card a bf16 ``bmm`` with a float32 output; the CPU widens first)."""
     if x.dtype == torch.float32:
         return x @ w
-    x3 = x.reshape(1, -1, x.shape[-1])
-    if x.is_cuda:
-        out = torch.bmm(x3, w[None], out_dtype=torch.float32)
-    else:
-        out = torch.bmm(x3.to(torch.float32), w.to(torch.float32)[None])
+    out = _bmm_f32(x.reshape(1, -1, x.shape[-1]), w[None])
     return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
@@ -125,12 +293,14 @@ def row_parallel(h: torch.Tensor, w: torch.Tensor, ctx: MeshCtx,
 
 
 def model_gather(x: torch.Tensor, ctx: MeshCtx, dim: int,
-                 tag: str = "all_gather") -> torch.Tensor:
-    """The model ranks' blocks of ``x`` concatenated along ``dim``."""
+                 tag: str = "all_gather",
+                 replicated: bool = True) -> torch.Tensor:
+    """The model ranks' blocks of ``x`` concatenated along ``dim``
+    (``gather_dim`` over the model axis)."""
     comm = _model_comm(ctx)
     if comm is None:
         return x
-    return comm.all_gather_dim(x, "model", dim % x.dim(), tag)
+    return gather_dim(x, comm, "model", dim, tag, replicated)
 
 
 def gather_vocab(logits: torch.Tensor, ctx: MeshCtx) -> torch.Tensor:
@@ -199,8 +369,10 @@ def activation(h: torch.Tensor, act: str) -> torch.Tensor:
 
 
 def apply_mlp(mlp: "MLP", x: torch.Tensor, act: str) -> torch.Tensor:
-    """On a mesh: column-parallel gate/up, row-parallel down, then the
+    """On a mesh: column-parallel gate/up (the replicated input enters
+    this rank's columns: ``model_copy``), row-parallel down, then the
     model all-reduce."""
+    x = model_copy(x, mlp.ctx, "mlp_in")
     h = activation(x @ mlp.w_gate, act) * (x @ mlp.w_up)
     return row_parallel(h, mlp.w_down, mlp.ctx, "mlp")
 
@@ -306,7 +478,7 @@ def lm_head_logits(head: Embedding, x: torch.Tensor) -> torch.Tensor:
     row).  Cross-entropy only needs logsumexp plus the label's logit, so
     they are never permuted back; labels map with the same integer
     formula."""
-    return x @ head.table.T
+    return model_copy(x, head.ctx, "head") @ head.table.T
 
 
 def softmax_xent_physical(logits_phys: torch.Tensor, labels: torch.Tensor,
@@ -324,3 +496,41 @@ def softmax_xent_physical(logits_phys: torch.Tensor, labels: torch.Tensor,
     lab_logit = torch.gather(logits_phys, -1, lab_phys[..., None])[..., 0]
     nll = lse - lab_logit
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def softmax_xent_sharded(logits: torch.Tensor, labels: torch.Tensor,
+                         layout: VocabLayout, mask: torch.Tensor,
+                         ctx: MeshCtx, shard: int) -> torch.Tensor:
+    """``softmax_xent_physical`` on a mesh, vocab-parallel: ``logits`` is
+    this rank's shard ``[..., pad_rows / M]`` (physical rows ``shard *
+    pad_rows / M`` on, its padding columns excluded here), its rows of the
+    batch are its data slice.  The row maxima meet over the model axis
+    (an all-gather of one float a row), the sums of exponentials and the
+    label's logit (taken on the rank that holds its physical row) in one
+    model all-reduce; no rank holds a whole row.  The loss is the global
+    masked mean: ``sum(nll * mask)`` summed over the data ranks over the
+    all-reduced ``sum(mask)`` (not the mean of the ranks' means)."""
+    comm = ctx.comm
+    rows = logits.shape[-1]
+    lo = shard * rows
+    x = logits.to(torch.float32)
+    valid = layout.valid_columns(logits.device)
+    if valid is not None:
+        x = torch.where(valid[lo:lo + rows], x, -math.inf)
+    top = x.detach().amax(-1, keepdim=True)
+    if comm.model > 1:
+        top = comm.all_gather_dim(top, "model", top.dim() - 1,
+                                  "xent_max").amax(-1, keepdim=True)
+    lab = layout.to_physical(labels.to(torch.int64)) - lo
+    mine = (lab >= 0) & (lab < rows)
+    picked = torch.gather(x, -1, lab.clamp(0, rows - 1)[..., None])[..., 0]
+    parts = torch.stack([torch.exp(x - top).sum(-1),
+                         torch.where(mine, picked, 0.0)])
+    parts = mesh_sum(parts, comm, "model", "xent")
+    nll = torch.log(parts[0]) + top[..., 0] - parts[1]
+    num = mesh_sum(torch.sum(nll * mask).reshape(1), comm, "data",
+                   "xent_sum")
+    den = torch.sum(mask).reshape(1).to(torch.float32)
+    if comm.data > 1:
+        den = comm.all_reduce(den, "data", "xent_sum")
+    return (num / torch.clamp(den, min=1.0))[0]

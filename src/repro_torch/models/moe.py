@@ -20,8 +20,12 @@ Paths:
 On a mesh the stored expert stack is this rank's block of the cyclic
 physical order, ``[E/M, D/dp, F]`` (``w_down``: ``[E/M, F/dp, D]``; the
 rules' ``P(model, dp, None)``); dim 1 is all-gathered over the data group
-per use.  The shared
-experts are a tensor-parallel MLP on the replicated hidden.
+per use, and its gradient reduce-scattered back (the experts' whole
+data-parallel sum).  The shared experts are a tensor-parallel MLP on the
+replicated hidden.  The all-to-alls carry gradients back the same way,
+the router's gradient is summed over the model ranks (each routes its
+own tokens), and the load-balance loss is the single device's, of the
+whole batch (``aux_stats`` summed over the world).
 """
 from __future__ import annotations
 
@@ -32,8 +36,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import (MLP, apply_mlp, block, dtype_of,
-                                       full_shape, normal_, param)
+from repro_torch.models.layers import (MLP, all_to_all, apply_mlp, block,
+                                       dtype_of, full_shape, gather_dim,
+                                       mesh_sum, model_copy, normal_, param)
 from repro_torch.sharding.specs import SINGLE, MeshCtx
 
 
@@ -77,6 +82,7 @@ class MoE(nn.Module):
         # routed) (token, expert) pairs of this rank's calls
         self.capacity_factor = cfg.capacity_factor
         self.drops = (0, 0)
+        self.count_drops = True        # off while remat recomputes a layer
         self.last_routed = None
         self.router = param((d, e), torch.float32, device)
         self.experts = Experts(e, d, fe, dt, device, ctx=ctx)
@@ -94,30 +100,53 @@ class MoE(nn.Module):
         return moe_block(self, x, self.cfg, self.ctx)
 
 
-def _route(moe: MoE, x: torch.Tensor, cfg: ModelConfig):
-    """Top-k routing.  x: [T, D] -> (gates [T,k], experts [T,k], aux-loss).
-    Ties go to the lower expert id, as XLA's ``top_k`` breaks them (the
-    expert-parallel path's padding rows are zeros, whose probabilities
-    all tie, and they take buffer slots)."""
-    logits = x.to(torch.float32) @ moe.router
+def _route(moe: MoE, x: torch.Tensor, cfg: ModelConfig,
+           router: Optional[torch.Tensor] = None):
+    """Top-k routing.  x: [T, D] -> (gates [T,k], experts [T,k], the
+    router's probabilities [T, E]); ``router`` is the router as this rank
+    uses it (``moe.router`` by default).  Ties go to the lower expert id,
+    as XLA's ``top_k`` breaks them (the expert-parallel path's padding
+    rows are zeros, whose probabilities all tie, and they take buffer
+    slots)."""
+    logits = x.to(torch.float32) @ (moe.router if router is None
+                                    else router)
     probs = torch.softmax(logits, dim=-1)
     vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     vals, ids = vals[:, :cfg.top_k], ids[:, :cfg.top_k]
     gates = vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9)
-    # Switch-style load-balance loss: E * sum_e f_e * p_e
+    return gates, ids, probs
+
+
+def aux_stats(ids: torch.Tensor, probs: torch.Tensor, cfg: ModelConfig,
+              rows: int) -> torch.Tensor:
+    """What the load-balance loss needs of the first ``rows`` rows (the
+    rest are padding), as sums over rows: ``[E]`` routed (token, expert)
+    counts, ``[E]`` router probabilities and the row count, ``[2E + 1]``
+    float32 (summed over the ranks, they give the whole batch's loss)."""
     e = cfg.num_experts
-    flat = ids.reshape(-1)
-    frac = torch.zeros(e, dtype=torch.float32, device=x.device).index_add_(
-        0, flat, torch.full(flat.shape, 1.0 / (x.shape[0] * cfg.top_k),
-                            dtype=torch.float32, device=x.device))
-    aux = e * torch.sum(frac * probs.mean(0))
-    return gates, ids, aux
+    flat = ids[:rows].reshape(-1)
+    counts = torch.zeros(e, dtype=torch.float32,
+                         device=probs.device).index_add_(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32,
+                            device=probs.device))
+    n = torch.full((1,), float(rows), dtype=torch.float32,
+                   device=probs.device)
+    return torch.cat([counts, probs[:rows].sum(0), n])
+
+
+def aux_from_stats(stats: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The load-balance loss of the rows whose ``aux_stats`` were added."""
+    e = cfg.num_experts
+    n = stats[2 * e]
+    frac = stats[:e] / (n * cfg.top_k)
+    return e * torch.sum(frac * (stats[e:2 * e] / n))
 
 
 def moe_block_dense(moe: MoE, x: torch.Tensor, cfg: ModelConfig
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [T, D].  Exact MoE (no capacity drops); O(E) compute."""
-    gates, ids, aux = _route(moe, x, cfg)
+    gates, ids, probs = _route(moe, x, cfg)
+    aux = aux_from_stats(aux_stats(ids, probs, cfg, x.shape[0]), cfg)
     t = x.shape[0]
     # [T, E] combined gate per expert
     gate_e = torch.zeros((t, cfg.num_experts), dtype=x.dtype,
@@ -155,7 +184,8 @@ class _Sent(NamedTuple):
     slot: torch.Tensor         # [t*k] its row in the send buffer
     keep: torch.Tensor         # [t*k] it fit its destination's capacity
     cap1: int
-    aux: torch.Tensor
+    ids: torch.Tensor          # [t, k] the experts
+    probs: torch.Tensor        # [t, E] the router's probabilities
 
 
 def _cap1(t: int, cfg: ModelConfig, m: int, cf: float) -> int:
@@ -170,15 +200,16 @@ def _cap2(cap1: int, cfg: ModelConfig, m: int, cf: float) -> int:
 
 
 def moe_dispatch(moe: MoE, x_loc: torch.Tensor, cfg: ModelConfig, m: int,
-                 cf: float):
+                 cf: float, router: Optional[torch.Tensor] = None):
     """Level 1: route this rank's ``t`` tokens and bucket the (token,
     expert) pairs by destination shard ``e mod m``.  Returns the send
     buffer ``[m * cap1, d + 1]`` (the activations plus the local-expert id
     ``e div m`` in channel ``d``, in the activation dtype; -1 marks an
-    empty slot) and what the combine needs."""
+    empty slot) and what the combine needs.  ``router``: the router as
+    this rank uses it (``moe.router`` by default)."""
     t, d = x_loc.shape
     k = cfg.top_k
-    gates, ids, aux = _route(moe, x_loc, cfg)
+    gates, ids, probs = _route(moe, x_loc, cfg, router)
     flat_e = ids.reshape(t * k)
     tok_idx = torch.arange(t, device=x_loc.device).repeat_interleave(k)
     dst = flat_e % m                       # cyclic placement (paper 2.2)
@@ -195,7 +226,7 @@ def moe_dispatch(moe: MoE, x_loc: torch.Tensor, cfg: ModelConfig, m: int,
     send[:, d] = torch.where(filled[:m * cap1], send[:, d],
                              torch.full((), -1.0, dtype=send.dtype,
                                         device=send.device))
-    return send, _Sent(gates, tok_idx, slot, keep1, cap1, aux)
+    return send, _Sent(gates, tok_idx, slot, keep1, cap1, ids, probs)
 
 
 def _expert_ffn(w_gate, w_up, w_down, xg: torch.Tensor) -> torch.Tensor:
@@ -250,34 +281,45 @@ def moe_combine(back: torch.Tensor, sent: _Sent, x_loc: torch.Tensor,
 
 def _expert_weights(moe: MoE) -> tuple:
     """This rank's expert stack, dim 1 all-gathered over the data group
-    (ZeRO storage, gathered per use)."""
+    (ZeRO storage, gathered per use).  Each data row computes with them on
+    its own tokens, so the backward reduce-scatters their gradient over
+    the data group: that is these leaves' whole data-parallel sum."""
     we = moe.experts
     comm = moe.ctx.comm
     w = (we.w_gate, we.w_up, we.w_down)
     if comm is None or comm.data == 1:
         return w
-    return tuple(comm.all_gather_dim(t, "data", 1, "experts") for t in w)
+    return tuple(gather_dim(t, comm, "data", 1, "experts", False)
+                 for t in w)
 
 
 def moe_block_spmd(moe: MoE, x_loc: torch.Tensor, cfg: ModelConfig,
-                   ctx: MeshCtx) -> Tuple[torch.Tensor, torch.Tensor]:
+                   ctx: MeshCtx, rows: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One rank's routed experts on its ``t`` tokens ``x_loc [t, D]``:
     push to the owners (model all-to-all), the local experts, pull back
-    (the reverse all-to-all), combine.  Returns ``(y [t, D], aux)``, the
-    aux loss averaged over every rank; the shared experts are not in
-    ``y`` (``moe_block`` adds them)."""
+    (the reverse all-to-all), combine; the all-to-alls carry gradients
+    back the same way.  Returns ``(y [t, D], aux)``: ``aux`` is the
+    single device's load-balance loss of the whole batch (every rank's
+    ``aux_stats`` of its first ``rows`` rows, the real ones, added over
+    the world; the gradient of the sum passes through).  The shared
+    experts are not in ``y`` (``moe_block`` adds them)."""
     comm = ctx.comm
     m, cf = ctx.model_size, moe.capacity_factor
-    send, sent = moe_dispatch(moe, x_loc, cfg, m, cf)
-    recv = comm.all_to_all(send, "model", tag="moe_push")
-    rows, drop2 = moe_experts(recv, _expert_weights(moe), cfg, m, cf)
-    back = comm.all_to_all(rows, "model", tag="moe_pull")
+    # the router sees this rank's tokens alone: its gradient is partial
+    router = model_copy(moe.router, ctx, "router")
+    send, sent = moe_dispatch(moe, x_loc, cfg, m, cf, router)
+    recv = all_to_all(send, comm, "model", "moe_push")
+    out, drop2 = moe_experts(recv, _expert_weights(moe), cfg, m, cf)
+    back = all_to_all(out, comm, "model", "moe_pull")
     y = moe_combine(back, sent, x_loc, cfg.top_k)
-    moe.drops = (moe.drops[0] + int((~sent.keep).sum()) + drop2,
-                 moe.drops[1] + sent.keep.numel())
-    aux = comm.all_reduce(sent.aux.reshape(1), ("data", "model"),
-                          tag="moe_aux")[0] / comm.world
-    return y, aux
+    if moe.count_drops:
+        moe.drops = (moe.drops[0] + int((~sent.keep).sum()) + drop2,
+                     moe.drops[1] + sent.keep.numel())
+    stats = aux_stats(sent.ids, sent.probs, cfg,
+                      x_loc.shape[0] if rows is None else rows)
+    return y, aux_from_stats(mesh_sum(stats, comm, ("data", "model"),
+                                      "moe_aux"), cfg)
 
 
 def moe_block(moe: MoE, x: torch.Tensor, cfg: ModelConfig,
@@ -303,21 +345,28 @@ def moe_block(moe: MoE, x: torch.Tensor, cfg: ModelConfig,
     if (b * s) % m == 0:
         t = b * s // m
         i = comm.model_idx
-        y_loc, aux = moe_block_spmd(moe, flat[i * t:(i + 1) * t], cfg, ctx)
-        y = comm.all_gather(y_loc, "model", tag="moe_gather")
+        x_loc = model_copy(flat, ctx, "moe_in")[i * t:(i + 1) * t]
+        y_loc, aux = moe_block_spmd(moe, x_loc, cfg, ctx)
+        y = gather_dim(y_loc, comm, "model", 0, "moe_gather", True)
     else:
+        if torch.is_grad_enabled():
+            raise ValueError(
+                f"{b * s} tokens a data row do not split over {m} model "
+                "ranks: the rows that cross data rows (decode) have no "
+                "backward")
         glob = comm.all_gather(flat, "data", tag="moe_gather")
         total = glob.shape[0]
         tpad = _round_up(total, comm.world)
         glob = F.pad(glob, (0, 0, 0, tpad - total))
         t = tpad // comm.world
         r = comm.rank
-        y_loc, aux = moe_block_spmd(moe, glob[r * t:(r + 1) * t], cfg, ctx)
+        y_loc, aux = moe_block_spmd(moe, glob[r * t:(r + 1) * t], cfg, ctx,
+                                    rows=min(max(total - r * t, 0), t))
         y_all = comm.all_gather(y_loc, ("data", "model"),
                                 tag="moe_gather")[:total]
         j = comm.data_idx
         y = y_all[j * b * s:(j + 1) * b * s]
-    moe.last_routed = y                # the routed part, for the checks
+    moe.last_routed = y.detach()       # the routed part, for the checks
     if cfg.num_shared_experts > 0:
         y = y + apply_mlp(moe.shared, flat, cfg.act)
     return y.reshape(b, s, d), aux
@@ -329,7 +378,8 @@ def moe_block(moe: MoE, x: torch.Tensor, cfg: ModelConfig,
 
 class EmulatedMoE(NamedTuple):
     y: torch.Tensor            # [B, S, D]: routed (+ shared) output
-    aux: torch.Tensor
+    aux: torch.Tensor          # the whole batch's (the port's mesh's)
+    aux_mean: torch.Tensor     # the ranks' own, averaged (the reference's)
     routed: List[torch.Tensor]  # each rank's routed rows [t, D]
     dropped: int               # (token, expert) pairs dropped, both levels
     pairs: int                 # (token, expert) pairs routed
@@ -343,7 +393,9 @@ def moe_block_spmd_emulated(moe: MoE, x: torch.Tensor, cfg: ModelConfig,
     process: ``moe`` holds the single-device (logical) weights, ``x`` the
     whole batch ``[B, S, D]``.  Every rank's phases run in turn with the
     same operations as ``moe_block_spmd``; the all-to-alls become
-    re-slicings, the aux loss the mean of the ranks'."""
+    re-slicings.  ``aux`` is the port's mesh's (the whole batch's load
+    balance, the single device's); ``aux_mean`` the reference mesh's
+    (each rank's over its rows, padding included, averaged)."""
     b, s, d = x.shape
     world = dp * m
     cf = moe.capacity_factor if capacity_factor is None else capacity_factor
@@ -379,6 +431,11 @@ def moe_block_spmd_emulated(moe: MoE, x: torch.Tensor, cfg: ModelConfig,
     y = torch.cat(routed)[:total]
     if shared and cfg.num_shared_experts > 0:
         y = y + apply_mlp(moe.shared, flat, cfg.act)
-    aux = torch.stack([st.aux for st in sents]).sum() / world
-    return EmulatedMoE(y.reshape(b, s, d), aux, routed, dropped,
+    aux = aux_from_stats(sum(
+        aux_stats(st.ids, st.probs, cfg, min(max(total - r * t, 0), t))
+        for r, st in enumerate(sents)), cfg)
+    aux_mean = torch.stack([aux_from_stats(aux_stats(st.ids, st.probs, cfg,
+                                                     t), cfg)
+                            for st in sents]).sum() / world
+    return EmulatedMoE(y.reshape(b, s, d), aux, aux_mean, routed, dropped,
                        sum(st.keep.numel() for st in sents))

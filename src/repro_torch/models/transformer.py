@@ -15,7 +15,10 @@ step, in place.
 Training rematerialises each layer (``cfg.remat``): the layer's forward
 runs under ``torch.utils.checkpoint``, which keeps its input alone and runs
 it again in the backward, as the reference's ``jax.checkpoint`` around each
-scanned layer and each cross-attention layer does.
+scanned layer and each cross-attention layer does.  On a mesh the rerun
+issues the layer's collectives again; every rank's graph is the same, so
+every rank reruns at the same point, and the MoE layers count their
+drops in the first run only.
 
 On a mesh (a ``MeshCtx`` over a rank's ``launch.mesh.Mesh``) the model
 holds this rank's block of every parameter (``sharding.specs`` rules, the
@@ -34,6 +37,7 @@ Entry points:
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
@@ -48,7 +52,8 @@ from repro_torch.models.attention import (MLA, Attention, CrossAttention,
                                           cache_kv_heads)
 from repro_torch.models.layers import (MLP, Embedding, RMSNorm, VocabLayout,
                                        dtype_of, lm_head_logits, param,
-                                       softmax_xent_physical)
+                                       softmax_xent_physical,
+                                       softmax_xent_sharded)
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import SSM
 from repro_torch.sharding import specs
@@ -297,6 +302,12 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed.table.device
 
+    def _recompute_context(self):
+        """``checkpoint``'s contexts: none for the forward; for the
+        recompute in the backward, the MoE layers count no drops (the
+        pairs were counted once, in the forward)."""
+        return contextlib.nullcontext(), _drops_uncounted(self)
+
     def reset_parameters(self, g: torch.Generator) -> None:
         for child in self.children():
             if isinstance(child, nn.ModuleList):
@@ -350,7 +361,8 @@ class Transformer(nn.Module):
             if remat:
                 x, a = checkpoint(_layer_out, blk, x, positions, win, th,
                                   cond, use_reentrant=False,
-                                  preserve_rng_state=False)
+                                  preserve_rng_state=False,
+                                  context_fn=self._recompute_context)
                 aux = aux + a
                 continue
             x, entry, a = blk.full(x, positions=positions, window=win,
@@ -420,11 +432,14 @@ def shard_leaf(name: str, full: torch.Tensor, cfg: ModelConfig,
 
 
 def unshard_leaf(name: str, blocks: List[torch.Tensor], cfg: ModelConfig,
-                 ctx: MeshCtx) -> torch.Tensor:
+                 ctx: MeshCtx, spec=None) -> torch.Tensor:
     """The inverse of ``shard_leaf``: the single-device (logical) value of
-    parameter ``name`` from every rank's block, in rank order."""
+    parameter ``name`` from every rank's block, in rank order; ``spec``
+    places the blocks (the rules' by default; a ZeRO moment's are its
+    ``opt_state_specs``)."""
     mesh = ctx.mesh
-    spec = specs.spec_for(specs.path_str(name), blocks[0].dim(), ctx)
+    if spec is None:
+        spec = specs.spec_for(specs.path_str(name), blocks[0].dim(), ctx)
     kind = _cyclic_kind(name)
     shape = list(blocks[0].shape)
     grid = [specs.shard_grid(spec, mesh, r) for r in range(len(blocks))]
@@ -480,6 +495,18 @@ def _attach_fill(name: str, p: torch.Tensor, cfg: ModelConfig,
         raise AssertionError(f"{name}: block {tuple(p.shape)}, the rules "
                              f"give {want}")
     p._mesh_fill = lambda full: shard_leaf(name, full, cfg, ctx, rank)
+
+
+@contextlib.contextmanager
+def _drops_uncounted(model: Transformer):
+    moes = [m for m in model.modules() if isinstance(m, MoE)]
+    for m in moes:
+        m.count_drops = False
+    try:
+        yield
+    finally:
+        for m in moes:
+            m.count_drops = True
 
 
 def _layer_out(blk: Block, x, positions, window: int, theta: float, cond):
@@ -552,9 +579,16 @@ def loss_fn(model: Transformer, tokens: torch.Tensor, targets: torch.Tensor,
             remat: Optional[bool] = None):
     """Masked mean cross-entropy over the physical logits plus
     ``router_aux_weight`` times the MoE load-balance loss.  Returns
-    ``(loss, {"xent", "aux"})``."""
+    ``(loss, {"xent", "aux"})``.  On a mesh the batch is this rank's data
+    slice, the cross-entropy is vocab-parallel and the loss is the whole
+    batch's (``layers.softmax_xent_sharded``; the MoE's ``aux`` is the
+    whole batch's too), the same on every rank."""
     logits, aux = model(tokens, cond, remat=remat)
-    xent = softmax_xent_physical(logits, targets, model.layout, mask)
+    if model.ctx.comm is None:
+        xent = softmax_xent_physical(logits, targets, model.layout, mask)
+    else:
+        xent = softmax_xent_sharded(logits, targets, model.layout, mask,
+                                    model.ctx, model.head.shard)
     loss = xent + model.cfg.router_aux_weight * aux
     return loss, {"xent": xent, "aux": aux}
 

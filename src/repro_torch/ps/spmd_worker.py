@@ -385,12 +385,16 @@ class SpmdRun:
             time.sleep(0.02)
 
     def check_alive(self) -> None:
-        for r, p in enumerate(self.procs, start=1):
-            rc = p.poll()
-            if rc is not None:
-                raise RuntimeError(
-                    f"SPMD rank {r} (pid {p.pid}) exited with rc {rc}; its "
-                    f"log:\n{_tail(os.path.join(self.dir, f'rank{r}.log'))}")
+        """Raise if a helper has exited, with the log of every helper that
+        has (the one that failed first takes its peers' collectives down
+        with it, and need not be the lowest rank)."""
+        dead = [(r, p) for r, p in enumerate(self.procs, start=1)
+                if p.poll() is not None]
+        if dead:
+            raise RuntimeError("\n".join(
+                f"SPMD rank {r} (pid {p.pid}) exited with rc {p.returncode}"
+                f"; its log:\n{_tail(os.path.join(self.dir, f'rank{r}.log'))}"
+                for r, p in dead))
 
     def do(self, op: int, arg: int = 0):
         """Run one op on every rank; returns rank 0's result."""

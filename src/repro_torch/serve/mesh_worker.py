@@ -310,7 +310,17 @@ class LMMeshRun(SpmdRun):
 
     def call(self, name: str, *args, **kwargs):
         self.program.pending = (name, args, kwargs)
-        return self.do(OP_CALL)
+        try:
+            return self.do(OP_CALL)
+        except RuntimeError:
+            # a helper that failed takes the collective down with it:
+            # raise with its log, once it has exited
+            deadline = time.time() + 30.0
+            while time.time() < deadline and all(
+                    p.poll() is None for p in self.procs):
+                time.sleep(0.1)
+            self.check_alive()
+            raise
 
     def finish(self) -> None:
         if not self.finished:

@@ -180,12 +180,39 @@ def _tree_map(fn, tree, path=()):
     return fn("/".join(path), tree)
 
 
-def _leaves(params):
+class _Shape(tuple):
+    @property
+    def shape(self):
+        return tuple(self)
+
+
+def _leaves(params, ctx: "MeshCtx"):
     """``params`` as a nested dict (the JAX tree's layout) or a module,
-    whose parameters become ``{'/'-path: tensor}``."""
-    if hasattr(params, "named_parameters"):
-        return {path_str(n): p for n, p in params.named_parameters()}
-    return params
+    whose parameters become ``{'/'-path: shape}``: on a mesh the shape of
+    the leaf the blocks make up (a block's shape times its split), the
+    shape the reference's specs see."""
+    if not hasattr(params, "named_parameters"):
+        return params
+    out = {}
+    for n, p in params.named_parameters():
+        path = path_str(n)
+        shape = tuple(p.shape)
+        if ctx.mesh is not None:
+            grid = shard_grid(spec_for(path, len(shape), ctx), ctx.mesh, 0)
+            shape = tuple(s * g[0] for s, g in zip(shape, grid)) + \
+                shape[len(grid):]
+        out[path] = _Shape(shape)
+    return out
+
+
+# a module's layer-stack leaves (``blocks/3/attn/wq``): the reference
+# stacks them as ``[L, ...]``
+_STACKED = re.compile(r"^(blocks|dense_blocks|cross_blocks)/\d+/")
+
+
+def stacked(path: str) -> bool:
+    """Whether a module's leaf at ``path`` is one layer of a stack."""
+    return bool(_STACKED.match(path))
 
 
 def param_specs(params, ctx: MeshCtx):
@@ -193,14 +220,17 @@ def param_specs(params, ctx: MeshCtx):
     ``.ndim`` (numpy arrays, tensors, ``jax.ShapeDtypeStruct``), or a
     module (then ``{path: spec}``)."""
     return _tree_map(lambda p, leaf: spec_for(p, len(leaf.shape), ctx),
-                     _leaves(params))
+                     _leaves(params, ctx))
 
 
 def opt_state_specs(params, ctx: MeshCtx):
     """ZeRO-style specs for optimizer moments / gradient accumulators:
     the parameter's spec, additionally sharded over the dp axes on the
     first dp-divisible dim the parameter spec leaves None (dims 1.., then
-    0), unless it already uses a dp axis."""
+    0), unless it already uses a dp axis.  A module's layer-stack leaf is
+    one layer of the reference's ``[L, ...]`` stack, whose dims 1.. are
+    its dims: it takes the stack's choice (its dims in order), and where
+    the stack would split its ``L`` it stays whole."""
     if ctx.mesh is None:
         return param_specs(params, ctx)
     dp = tuple(ctx.dp)
@@ -216,13 +246,15 @@ def opt_state_specs(params, ctx: MeshCtx):
                 used.add(ax)
         if any(a in used for a in dp):
             return P(*parts)
-        for i in list(range(1, len(shape))) + [0]:
+        order = list(range(len(shape))) if stacked(path) else \
+            list(range(1, len(shape))) + [0]
+        for i in order:
             if parts[i] is None and shape[i] and shape[i] % dpsz == 0:
                 parts[i] = dp
                 return P(*parts)
         return P(*parts)
 
-    return _tree_map(widen, _leaves(params))
+    return _tree_map(widen, _leaves(params, ctx))
 
 
 # ---------------------------------------------------------------------------

@@ -1,21 +1,33 @@
 """LM training loop: state, the train step, the host loop; the twin of the
-JAX package's ``train/loop.py`` on one device.
+JAX package's ``train/loop.py``.
 
 ``make_train_step`` returns loss -> gradients -> clip -> AdamW as one eager
 function: the model's forward and autograd's backward, then
 ``optimizer.apply`` in place.  ``jit_train_step`` returns that same step
-(no ``torch.compile``, no CUDA graph: this is the eager baseline).  On a
-mesh the JAX package shards parameters, moments and the batch
-(``state_specs``); that half is ROADMAP A.8.3.
+(no ``torch.compile``, no CUDA graph: this is the eager baseline).
 
 With ``tc.microbatch > 1`` the batch is split into microbatches run one
 after another, each one's gradient (in the parameter's dtype) widened to
 float32, divided by the microbatch count and added to a float32
-accumulator, as the reference's scan does.  The gradients are folded in as
-autograd finishes each parameter's (a post-accumulate-grad hook, then
-``grad = None``), so the bf16 gradients of all the leaves never coexist,
-and ``.grad`` never accumulates across microbatches (which would add them
-in bf16).
+accumulator, as the reference's scan does.  On one device the gradients
+are folded in as autograd finishes each parameter's (a post-accumulate-
+grad hook, then ``grad = None``), so the bf16 gradients of all the leaves
+never coexist, and ``.grad`` never accumulates across microbatches (which
+would add them in bf16).
+
+**On a mesh** (a ``MeshCtx`` over a rank's ``launch.mesh.Mesh``; every
+rank runs the same step on the same global batch) the model holds the
+rank's parameter blocks and the moments their ZeRO blocks
+(``state_specs``: the reference's ``param_specs`` and
+``opt_state_specs``; ``optimizer.Zero``).  The global batch is split into
+microbatches first and each microbatch's rows over the data axis (the
+reference's order, so each microbatch's metrics are the single device's).
+The model's collectives carry their gradients (``models.layers``), the
+loss is the whole microbatch's, and after each microbatch's backward the
+gradients are widened to float32 and reduce-scattered over the data axis,
+leaf by leaf in ``named_parameters`` order -- one order on every rank --
+before the float32 add.  The step gives the single device's loss,
+gradients and update on the same logical weights.
 
 ``fit_lda`` / ``fit_lda_stream`` are **deprecated shims**, kept as the
 reference keeps them: the unified LDA trainer lives in
@@ -32,6 +44,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.device import Device
 from repro_torch.models import transformer as tfm
+from repro_torch.sharding import specs
 from repro_torch.sharding.specs import SINGLE, MeshCtx
 from repro_torch.train import optimizer as opt
 
@@ -49,20 +62,37 @@ class TrainState(NamedTuple):
         return dict(self.model.named_parameters())
 
 
+def zero_of(model: tfm.Transformer) -> Optional[opt.Zero]:
+    """The model's ZeRO plan on a mesh of ranks (None on one device)."""
+    return opt.Zero(model, model.ctx) if model.ctx.comm is not None \
+        else None
+
+
 def init_state(seed, cfg: ModelConfig, ctx: MeshCtx = SINGLE,
                device: Device = None) -> TrainState:
     """Weights drawn from ``seed`` (``transformer.init_params``) on the card
-    unless ``device`` says otherwise, zero moments."""
+    unless ``device`` says otherwise, zero moments (on a mesh the rank's
+    blocks of the single-device weights of ``seed``, and ZeRO moments)."""
     model = tfm.init_params(seed, cfg, ctx, device)
-    return TrainState(model, opt.init(dict(model.named_parameters())))
+    return TrainState(model, opt.init(dict(model.named_parameters()),
+                                      zero_of(model)))
 
 
 def state_specs(state: TrainState, ctx: MeshCtx = SINGLE) -> dict:
-    """Every parameter and moment replicated (``()``, the reference's
-    ``P()``): on one device nothing is sharded (training on a mesh is
-    ROADMAP A.8.3's training half)."""
-    ps = {n: () for n in state.params}
-    return {"params": ps, "opt": opt.AdamWState(ps, dict(ps), ())}
+    """The reference's ``TrainState(param_specs, AdamWState(opt_specs,
+    opt_specs, P()))`` keyed by parameter name: the parameters as the
+    rules split them, the moments ZeRO-split over the dp axes as well
+    (``specs.opt_state_specs``); everything ``P()`` on one device."""
+    names = list(state.params)
+    if ctx.mesh is None:
+        ps = {n: specs.P() for n in names}
+        os_ = dict(ps)
+    else:
+        pt = specs.param_specs(state.model, ctx)
+        ot = specs.opt_state_specs(state.model, ctx)
+        ps = {n: pt[specs.path_str(n)] for n in names}
+        os_ = {n: ot[specs.path_str(n)] for n in names}
+    return {"params": ps, "opt": opt.AdamWState(os_, dict(os_), specs.P())}
 
 
 def _fold_into(acc: torch.Tensor, mb: int) -> Callable:
@@ -77,63 +107,125 @@ def _fold_into(acc: torch.Tensor, mb: int) -> Callable:
     return hook
 
 
+def step_grads(state: TrainState, mb: int, tokens, targets, mask,
+               cond=None) -> Tuple[Dict[str, torch.Tensor], dict]:
+    """A train step's first half: the gradient it applies and its
+    metrics.  On one device the microbatches' gradients summed in float32
+    (with ``mb == 1`` the one gradient, in the parameters' dtype); on a
+    mesh the rank's ZeRO slices of that sum (``mesh_grads``).  The
+    metrics are the microbatches' means, 0-d tensors."""
+    if state.model.ctx.comm is not None:
+        return mesh_grads(state, mb, tokens, targets, mask, cond)
+    params = state.params
+    for p in params.values():
+        p.grad = None
+    if mb == 1:
+        loss, metrics = tfm.loss_fn(state.model, tokens, targets, mask, cond)
+        loss.backward()
+        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
+                 for n, p in params.items()}
+        return grads, {k: v.detach() for k, v in
+                       dict(metrics, loss=loss).items()}
+    b = tokens.shape[0]
+    if b % mb:
+        raise ValueError(f"batch {b} does not split into {mb} microbatches")
+    n = b // mb
+    grads = {k: torch.zeros(p.shape, dtype=F32, device=p.device)
+             for k, p in params.items()}
+    hooks = [p.register_post_accumulate_grad_hook(_fold_into(grads[k], mb))
+             for k, p in params.items()]
+    runs = []
+    try:
+        for i in range(mb):
+            part = slice(i * n, (i + 1) * n)
+            loss_i, met_i = tfm.loss_fn(
+                state.model, tokens[part], targets[part], mask[part],
+                None if cond is None else cond[part])
+            loss_i.backward()
+            runs.append({k: v.detach() for k, v in
+                         dict(met_i, loss=loss_i).items()})
+    finally:
+        for h in hooks:
+            h.remove()
+    return grads, {k: torch.stack([r[k] for r in runs]).mean()
+                   for k in runs[0]}
+
+
+def mesh_grads(state: TrainState, mb: int, tokens, targets, mask,
+               cond=None) -> Tuple[Dict[str, torch.Tensor], dict]:
+    """A mesh rank's part of the gradient of the global batch: for each
+    of ``mb`` microbatches its data slice's forward and backward, then
+    every gradient widened to float32, summed over the data axis onto the
+    rank's ZeRO slice (``optimizer.Zero.reduce``, leaf by leaf in
+    ``named_parameters`` order), divided by ``mb`` and added to a float32
+    accumulator.  Returns ``(accumulator, metrics)``: the ZeRO slices of
+    the single device's accumulated gradient, and the microbatches' mean
+    metrics (0-d tensors, the same on every rank)."""
+    model = state.model
+    zero = zero_of(model)
+    comm = zero.comm
+    b = tokens.shape[0]
+    if b % mb or (b // mb) % comm.data:
+        raise ValueError(f"batch {b} does not split into {mb} microbatches "
+                         f"of rows over {comm.data} data ranks")
+    n = b // mb
+    per = n // comm.data
+    params = state.params
+    acc: Dict[str, torch.Tensor] = {}
+    runs = []
+    for i in range(mb):
+        part = slice(i * n + comm.data_idx * per,
+                     i * n + (comm.data_idx + 1) * per)
+        for p in params.values():
+            p.grad = None
+        loss_i, met_i = tfm.loss_fn(model, tokens[part], targets[part],
+                                    mask[part],
+                                    None if cond is None else cond[part])
+        loss_i.backward()
+        for k, p in params.items():
+            g = zero.reduce(k, torch.zeros_like(p) if p.grad is None
+                            else p.grad)
+            p.grad = None
+            g = g / mb if mb > 1 else g
+            acc[k] = g if k not in acc else acc[k].add_(g)
+        runs.append({k: v.detach() for k, v in
+                     dict(met_i, loss=loss_i).items()})
+    metrics = {k: torch.stack([r[k] for r in runs]).mean() for k in runs[0]}
+    return acc, metrics
+
+
+def apply_grads(state: TrainState, grads: Dict[str, torch.Tensor],
+                tc: TrainConfig) -> Tuple[TrainState, dict]:
+    """A train step's second half: AdamW (``optimizer.apply``, on a mesh
+    with the rank's ``Zero``) on ``step_grads``'s gradient, in place.
+    Returns the state and the optimizer's metrics (``lr``,
+    ``grad_norm``)."""
+    params = state.params
+    zero = zero_of(state.model)     # one device: the reference's 4 arguments
+    _, new_opt, om = opt.apply(grads, state.opt, params, tc,
+                               *(() if zero is None else (zero,)))
+    for p in params.values():
+        p.grad = None
+    return TrainState(state.model, new_opt), om
+
+
 def make_train_step(cfg: ModelConfig, tc: TrainConfig, ctx: MeshCtx = SINGLE
                     ) -> Callable:
     """Returns ``train_step(state, tokens, targets, mask, cond=None) ->
-    (state, metrics)``; the parameters and moments are updated in place and
-    the metrics are 0-d tensors (``loss``, ``xent``, ``aux``, ``lr``,
-    ``grad_norm``) left on the device.  One device only: a mesh (the
-    sharded moments, gradients through the all-to-all) is ROADMAP A.8.3's
-    training half."""
-    if ctx.mesh is not None:
-        raise NotImplementedError(
-            "a train step on a device mesh is ROADMAP A.8.3's training "
-            "half, not ported yet; the port serves on a mesh and trains on "
-            "one device")
+    (state, metrics)``: ``step_grads`` then ``apply_grads``.  The
+    parameters and moments are updated in place and the metrics are 0-d
+    tensors (``loss``, ``xent``, ``aux``, ``lr``, ``grad_norm``) left on
+    the device.  On a mesh every rank calls it with the whole batch and
+    takes its rows (``mesh_grads``); the metrics are the same on every
+    rank."""
     mb = max(tc.microbatch, 1)
 
     def train_step(state: TrainState, tokens, targets, mask, cond=None):
-        params = state.params
-        for p in params.values():
-            p.grad = None
-        if mb == 1:
-            loss, metrics = tfm.loss_fn(state.model, tokens, targets, mask,
-                                        cond)
-            loss.backward()
-            grads = {n: torch.zeros_like(p) if p.grad is None else p.grad
-                     for n, p in params.items()}
-        else:
-            b = tokens.shape[0]
-            if b % mb:
-                raise ValueError(f"batch {b} does not split into {mb} "
-                                 "microbatches")
-            n = b // mb
-            grads = {k: torch.zeros(p.shape, dtype=F32, device=p.device)
-                     for k, p in params.items()}
-            hooks = [p.register_post_accumulate_grad_hook(
-                _fold_into(grads[k], mb)) for k, p in params.items()]
-            runs = []
-            try:
-                for i in range(mb):
-                    part = slice(i * n, (i + 1) * n)
-                    loss_i, met_i = tfm.loss_fn(
-                        state.model, tokens[part], targets[part], mask[part],
-                        None if cond is None else cond[part])
-                    loss_i.backward()
-                    runs.append({k: v.detach() for k, v in
-                                 dict(met_i, loss=loss_i).items()})
-            finally:
-                for h in hooks:
-                    h.remove()
-            metrics = {k: torch.stack([r[k] for r in runs]).mean()
-                       for k in runs[0]}
-            loss = metrics.pop("loss")
-        _, new_opt, om = opt.apply(grads, state.opt, params, tc)
-        for p in params.values():
-            p.grad = None
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics = dict(metrics, loss=loss.detach(), **om)
-        return TrainState(state.model, new_opt), metrics
+        grads, metrics = step_grads(state, mb, tokens, targets, mask, cond)
+        state, om = apply_grads(state, grads, tc)
+        del grads
+        loss = metrics.pop("loss")
+        return state, dict(metrics, loss=loss, **om)
 
     return train_step
 
@@ -141,8 +233,9 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, ctx: MeshCtx = SINGLE
 def jit_train_step(cfg: ModelConfig, tc: TrainConfig, ctx: MeshCtx,
                    state: TrainState, donate: bool = True) -> Callable:
     """The reference compiles the step with shardings; the port runs it
-    eagerly on one device (``state`` and ``donate`` are the reference's
-    arguments: the step updates the state in place anyway)."""
+    eagerly, on one device or as one rank of a mesh (``state`` and
+    ``donate`` are the reference's arguments: the step updates the state
+    in place anyway)."""
     return make_train_step(cfg, tc, ctx)
 
 
@@ -202,7 +295,8 @@ def fit(state: TrainState, batches, cfg: ModelConfig, tc: TrainConfig,
         ) -> Tuple[TrainState, list]:
     """Simple host loop over an iterable of batches (dicts of numpy arrays,
     moved to the model's device); every ``log_every`` steps the metrics are
-    read back (which waits for the device) into the history."""
+    read back (which waits for the device) into the history.  On a mesh
+    every rank runs it on the same batches."""
     step_fn = jit_train_step(cfg, tc, ctx, state)
     device = state.model.device
     history = []

@@ -11,14 +11,32 @@ The reference is functional.  Here ``apply`` updates the parameters and
 moments in place, a slice of rows at a time (``row_slices``), with the
 reference's operations in its order: at gemma3-4b's 262,144 x 2,560
 embedding every float32 temporary of the whole leaf would be 2.7 GB.
+Weight decay applies to the leaves the reference decays: those of two or
+more dims in its tree, where a layer's leaf is one slice of an ``[L,
+...]`` stack (so a layer's norm scale is decayed, a layer's scalar gate
+is not).
+
+**On a mesh** (``Zero``) each rank holds its block of every parameter
+and its ZeRO block of the moments: the block cut once more over the data
+axis on the dim ``sharding.specs.opt_state_specs`` names.  A gradient
+reaches the moments reduce-scattered over the data axis onto that dim
+(all-reduced where there is none; as it is where the parameter's own
+spec already splits over data, the experts, whose gather's backward did
+the sum); AdamW updates the rank's slice of the parameter, and an
+all-gather over the data axis rebuilds the block.  The global norm adds
+each leaf's squares once: a block's local sum is divided by the number
+of ranks that hold the same block, and one all-reduce over the world
+adds them.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, NamedTuple, Tuple
+import math
+from typing import Dict, Iterator, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.sharding import specs
 
 F32 = torch.float32
 # elements of one slice of a leaf: its float32 temporaries are 64 MB each
@@ -42,9 +60,96 @@ def row_slices(t: torch.Tensor) -> Iterator:
         yield slice(r, r + rows)
 
 
-def init(params: Dict[str, torch.Tensor]) -> AdamWState:
+class ZeroLeaf(NamedTuple):
+    dim: Optional[int]           # the dim ZeRO splits over data, or None
+    in_param: bool               # the parameter's own spec splits over data
+    copies: int                  # ranks that hold the same moment block
+
+
+class Zero:
+    """ZeRO over the data axis for one rank: where each leaf's moments
+    live and how its gradient reaches them.  ``model`` holds the rank's
+    blocks; ``ctx`` its mesh (with collectives, ``ctx.comm``, to reduce
+    and rebuild; a ``MeshLayout`` gives the shapes alone)."""
+
+    def __init__(self, model: torch.nn.Module, ctx: specs.MeshCtx):
+        self.comm = ctx.comm
+        # this rank's place on the data axes
+        self.data, self.index = specs.shard_grid(
+            specs.P(tuple(ctx.dp)), ctx.mesh, ctx.rank)[0]
+        world = ctx.num_devices
+        pspecs = specs.param_specs(model, ctx)
+        ospecs = specs.opt_state_specs(model, ctx)
+        self.leaves: Dict[str, ZeroLeaf] = {}
+        for name, p in model.named_parameters():
+            path = specs.path_str(name)
+            nd = p.dim()
+            pp = list(pspecs[path]) + [None] * (nd - len(pspecs[path]))
+            oo = list(ospecs[path]) + [None] * (nd - len(ospecs[path]))
+            dim = next((i for i in range(nd) if pp[i] != oo[i]), None)
+            in_param = any(ax in ctx.dp for part in pp if part is not None
+                           for ax in (part if isinstance(part, tuple)
+                                      else (part,)))
+            shards = math.prod(n for n, _ in specs.shard_grid(
+                ospecs[path], ctx.mesh, 0))
+            self.leaves[name] = ZeroLeaf(dim, in_param, world // shards)
+
+    def local(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's ZeRO slice of a parameter-block-shaped ``t`` (a
+        view)."""
+        dim = self.leaves[name].dim
+        if dim is None:
+            return t
+        n = t.shape[dim] // self.data
+        return t.narrow(dim, self.index * n, n)
+
+    def reduce(self, name: str, g: torch.Tensor) -> torch.Tensor:
+        """A rank's gradient of a parameter block -> the float32 ZeRO
+        slice of its sum over the data axis (a new tensor)."""
+        lf = self.leaves[name]
+        g = g.to(F32)
+        if lf.in_param or self.data == 1:
+            return g
+        if lf.dim is None:
+            return self.comm.all_reduce(g, "data", "grad_sum")
+        out = self.comm.reduce_scatter(g.movedim(lf.dim, 0), "data",
+                                       "grad_rs")
+        return out.movedim(0, lf.dim).contiguous()
+
+    def rebuild(self, name: str, p: torch.Tensor) -> None:
+        """After the rank updated its slice of ``p``: every data rank's
+        slice gathered back into the block, in place."""
+        dim = self.leaves[name].dim
+        if dim is None or self.data == 1:
+            return
+        with torch.no_grad():
+            p.copy_(self.comm.all_gather_dim(self.local(name, p), "data",
+                                             dim, "param_gather"))
+
+    def norm(self, sq: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global norm from each leaf's local sum of squares."""
+        total = sum(s / self.leaves[n].copies for n, s in sq.items())
+        total = total.reshape(1)
+        if self.comm is not None and self.comm.world > 1:
+            total = self.comm.all_reduce(total, ("data", "model"),
+                                         "grad_norm")
+        return torch.sqrt(total[0])
+
+
+def decays(name: str, p: torch.Tensor) -> bool:
+    """Whether AdamW decays leaf ``name``: two or more dims in the
+    reference's tree, a layer's leaf counting its stack's dim."""
+    return p.dim() + bool(specs.stacked(specs.path_str(name))) >= 2
+
+
+def init(params: Dict[str, torch.Tensor],
+         zero: Optional[Zero] = None) -> AdamWState:
+    """Zero moments, each the parameter's shape (on a mesh its ZeRO
+    block, ``zero``)."""
     def zeros():
-        return {n: torch.zeros(p.shape, dtype=F32, device=p.device)
+        return {n: torch.zeros(p.shape if zero is None else
+                               zero.local(n, p).shape, dtype=F32,
+                               device=p.device)
                 for n, p in params.items()}
 
     dev = next(iter(params.values())).device
@@ -61,15 +166,26 @@ def lr_schedule(step: torch.Tensor, tc: TrainConfig) -> torch.Tensor:
     return tc.learning_rate * warm * (0.1 + 0.9 * cos)
 
 
-def global_norm(tree: Dict[str, torch.Tensor]) -> torch.Tensor:
+def _sum_sq(x: torch.Tensor) -> torch.Tensor:
+    sq = None
+    for sl in row_slices(x):
+        c = x[sl].to(F32)
+        s = torch.sum(c * c)
+        sq = s if sq is None else sq + s
+    return sq
+
+
+def global_norm(tree: Dict[str, torch.Tensor],
+                zero: Optional[Zero] = None) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in float32 (a slice of rows
-    at a time, so a bf16 leaf is never widened whole)."""
+    at a time, so a bf16 leaf is never widened whole).  With ``zero`` the
+    leaves are a rank's ZeRO slices: each counted once over the mesh."""
+    if zero is not None:
+        return zero.norm({n: _sum_sq(x) for n, x in tree.items()})
     sq = None
     for x in tree.values():
-        for sl in row_slices(x):
-            c = x[sl].to(F32)
-            s = torch.sum(c * c)
-            sq = s if sq is None else sq + s
+        s = _sum_sq(x)
+        sq = s if sq is None else sq + s
     return torch.sqrt(sq)
 
 
@@ -89,14 +205,17 @@ def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float
 
 @torch.no_grad()
 def apply(grads: Dict[str, torch.Tensor], state: AdamWState,
-          params: Dict[str, torch.Tensor], tc: TrainConfig
+          params: Dict[str, torch.Tensor], tc: TrainConfig,
+          zero: Optional[Zero] = None
           ) -> Tuple[Dict[str, torch.Tensor], AdamWState, dict]:
     """One AdamW step, in place: ``params`` and the moments are updated and
-    returned with the new step count.  Weight decay applies only to >=2-D
-    leaves (matrices/embeddings), not to norms/scalars/biases.  ``grads``
-    are read, never written; the clip multiplies in each gradient's own
-    dtype, as the reference's ``clip_by_global_norm`` does."""
-    gn = global_norm(grads)
+    returned with the new step count.  Weight decay applies to the
+    reference's >=2-D leaves (``decays``).  ``grads`` are read, never
+    written; the clip multiplies in each gradient's own dtype, as the
+    reference's ``clip_by_global_norm`` does.  On a mesh (``zero``) the
+    gradients and moments are the rank's ZeRO slices (``Zero.reduce``)
+    and each parameter block is rebuilt after its slice's update."""
+    gn = global_norm(grads, zero)
     scale = _clip_scale(gn, tc.grad_clip)
     step = state.step + 1
     lr = lr_schedule(step, tc)
@@ -107,18 +226,38 @@ def apply(grads: Dict[str, torch.Tensor], state: AdamWState,
     for name, p in params.items():
         g, m, v = grads[name], state.m[name], state.v[name]
         sg = scale.to(g.dtype)
-        for sl in row_slices(p):
+        own = p if zero is None else zero.local(name, p)
+        decay = decays(name, p)
+        for sl in row_slices(own):
             g32 = (g[sl] * sg).to(F32)
             mi, vi = m[sl], v[sl]
             mi.mul_(b1).add_(g32 * (1 - b1))       # b1 m + (1 - b1) g
             vi.mul_(b2).add_((g32 * (1 - b2)).mul_(g32))
             delta = (mi / c1).div_((vi / c2).sqrt_().add_(tc.eps))
-            p32 = p[sl].to(F32)
-            if p.dim() >= 2:
+            p32 = own[sl].to(F32)
+            if decay:
                 delta.add_(p32 * tc.weight_decay)
-            p[sl].copy_(p32 - delta.mul_(lr))
+            own[sl].copy_(p32 - delta.mul_(lr))
+        if zero is not None:
+            zero.rebuild(name, p)
     return params, AdamWState(state.m, state.v, step), \
         {"lr": lr, "grad_norm": gn}
+
+
+def first_step_band(g: torch.Tensor, scale: float, lr: float, eps: float,
+                    rtol: float, atol: float) -> torch.Tensor:
+    """How far the first ``apply`` (zero moments) can move each element
+    of a parameter whose gradient is known only to within ``atol`` of the
+    leaf's largest plus ``rtol`` of ``g``: the step moves it by lr times
+    ``x / (|x| + eps)`` of the clipped gradient ``x = g * scale``, so by
+    lr times that function's range over the tolerance -- up to 2 lr where
+    the tolerance spans 0 (a near-zero gradient takes either sign), less
+    where it does not.  Float32, ``g``'s shape."""
+    g = g.abs().double()
+    tol = atol * float(g.max()) + rtol * g
+    a, t = g * scale, tol * scale
+    return (lr * ((a + t) / (a + t + eps)
+                  - (a - t) / ((a - t).abs() + eps))).float()
 
 
 # --- plain SGD (baseline / LDA hyper-updates) ---

@@ -412,16 +412,71 @@ def test_loss_decreases_markov():
     assert last < first - 0.5, (first, last)
 
 
+def _flat(tree, path=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, path + (str(k),)))
+        return out
+    return {"/".join(path): tree}
+
+
+def assert_state_specs_match(jcfg, tcfg, layout):
+    """``loop.state_specs`` of a rank's model (on the meta device) against
+    the JAX ``state_specs`` of the same config on ``layout``: each layer's
+    leaf takes its ``[L, ...]`` stack's spec without the stack dim, and
+    where the stack's ZeRO dim is ``L`` itself the layer's moments keep
+    the parameter's spec."""
+    from repro.sharding import specs as jspecs
+    from repro_torch.launch.mesh import ctx_for
+
+    jctx = jspecs.MeshCtx(layout, ("data",), "model")
+    tctx = ctx_for(layout)
+    shapes = jax.eval_shape(lambda k: jtfm.init_params(k, jcfg, jctx),
+                            jax.random.PRNGKey(0))
+    want = jloop.state_specs(jloop.TrainState(shapes, None), jctx)
+    model = ttfm.Transformer(tcfg, tctx, device="meta", rank=0)
+    got = tloop.state_specs(tloop.TrainState(model, None), tctx)
+    assert tuple(got["opt"].step) == tuple(want.opt.step) == ()
+    flat = {"params": _flat(want.params), "opt": _flat(want.opt.m)}
+
+    def pad(spec, nd):
+        return tuple(spec) + (None,) * (nd - len(spec))
+
+    for leaf, p in model.named_parameters():
+        nd = p.dim()
+        parts = leaf.split(".")
+        stacked = parts[0] in convert.LAYER_STACKS
+        assert got["opt"].v[leaf] == got["opt"].m[leaf]
+        for kind, mine in (("params", got["params"][leaf]),
+                           ("opt", got["opt"].m[leaf])):
+            if not stacked:
+                ref = pad(flat[kind][leaf.replace(".", "/")], nd)
+            else:
+                ref = pad(flat[kind]["/".join([parts[0]] + parts[2:])],
+                          nd + 1)
+                if ref[0] is not None:         # the stack's L is split
+                    assert kind == "opt", leaf
+                    ref = (None,) + pad(got["params"][leaf], nd)
+                ref = ref[1:]
+            assert pad(mine, nd) == ref, (tcfg.name, kind, leaf)
+
+
 def test_state_specs_and_jit_step_single_only():
+    """On one device every spec is ``P()``; on a 2 x 2 layout the specs
+    are the JAX ``state_specs`` (``assert_state_specs_match``), and
+    ``jit_train_step`` builds a step for a mesh context too."""
+    from repro_torch.launch.mesh import MeshLayout, ctx_for
+
     state = tloop.init_state(0, TINY, device="cpu")
     specs = tloop.state_specs(state)
     assert set(specs["params"]) == set(state.params)
     assert all(s == () for s in specs["opt"].m.values())
-    step = tloop.jit_train_step(TINY, TrainConfig(), tloop.SINGLE, state)
-    assert callable(step)
-    with pytest.raises(NotImplementedError, match="A.8.3"):
-        tloop.jit_train_step(TINY, TrainConfig(),
-                             MeshCtx(object(), ("data",), "model"), state)
+    assert callable(tloop.jit_train_step(TINY, TrainConfig(), tloop.SINGLE,
+                                         state))
+    assert_state_specs_match(JTINY, TINY, MeshLayout(2, 2))
+    assert callable(tloop.jit_train_step(
+        TINY, TrainConfig(), ctx_for(MeshLayout(2, 2)), state))
 
 
 # ---------------------------------------------------------------------------
@@ -492,11 +547,12 @@ def test_launcher_batches_equal_jax_launcher_data():
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--mesh", "host", "--device", "cpu"], "A.8.3"),
+    (["--mesh", "pod", "--device", "cpu"], "A.8.3"),
     (["--smoke", "--device", "cuda"], "--device cpu")])
 def test_launcher_refusals_exit_2(argv, what):
-    """``--mesh host`` names A.8.3; without a card ``--device cuda`` names
-    ``--device cpu`` (the cuda case runs only where there is no card)."""
+    """``--mesh pod`` (the reference's TPU pod) names A.8.3; without a card
+    ``--device cuda`` names ``--device cpu`` (the cuda case runs only where
+    there is no card)."""
     if "cuda" in argv and torch.cuda.is_available():
         argv = ["--mesh", "pod"]
         what = "A.8.3"
@@ -506,6 +562,40 @@ def test_launcher_refusals_exit_2(argv, what):
                                              "PATH": "/usr/bin:/bin"})
     assert out.returncode == 2, out.stderr
     assert what in out.stderr
+
+
+def test_launcher_mesh_host_npz_matches_one_device(tmp_path):
+    """``launch.train --mesh host --devices 4 --mesh-model 2 --device cpu``
+    exits 0 and writes an npz that the JAX package's ``checkpoint.restore``
+    reads, equal to ``--mesh none``'s within rtol 1e-4 and atol 1e-5 of
+    each leaf's largest (plus 2 lr where a step's update took the other
+    sign of a near-zero gradient, at most 2 % of a leaf)."""
+    argv = ["--arch", "gemma3-4b", "--smoke", "--device", "cpu", "--steps",
+            "3", "--batch", "4", "--seq", "16", "--log-every", "1"]
+    outs, logs = {}, {}
+    for mesh in ("host", "none"):
+        out = tmp_path / mesh
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *argv,
+             "--mesh", mesh, "--devices", "4", "--mesh-model", "2",
+             "--out", str(out)], capture_output=True, text=True, timeout=300,
+            cwd=str(ROOT), env={"PYTHONPATH": str(ROOT / "src"),
+                                "PATH": "/usr/bin:/bin"})
+        assert res.returncode == 0, res.stderr[-3000:]
+        outs[mesh] = out / "smoke-gemma3-4b_final.npz"
+        logs[mesh] = res.stdout
+    assert "[train] mesh 2 x 2 over gloo (4 ranks)" in logs["host"]
+    like = jtfm.init_params(jax.random.PRNGKey(0),
+                            jreg.smoke_variant("gemma3-4b"))
+    got, want = (jckpt.restore(str(outs[m]), like) for m in ("host", "none"))
+    lr = 3e-4
+    for (path, a), b in zip(jax.tree_util.tree_flatten_with_path(got)[0],
+                            jax.tree.leaves(want)):
+        a, b = np.asarray(a), np.asarray(b)
+        tol = 1e-5 * float(np.abs(b).max()) + 1e-4 * np.abs(b)
+        bad = np.abs(a - b) > tol
+        assert not (np.abs(a - b) > tol + 2 * lr).any(), path
+        assert bad.mean() <= 0.02, (path, float(bad.mean()))
 
 
 # ---------------------------------------------------------------------------

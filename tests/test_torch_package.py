@@ -51,7 +51,8 @@ def test_source_has_no_jax_or_repro_import():
     # the training slice's modules are among them, and the stream,
     # checkpoint, serving facade, launchers, tiered storage, autotuner,
     # timer, the Spark-LDA baselines, the trace replay and the report, the
-    # LM serving path, the LM training path and LM serving on a mesh
+    # LM serving path, the LM training path, LM serving and training on a
+    # mesh
     for mod in ("core/pserver.py", "ps/client.py", "ps/routes.py",
                 "train/async_exec.py", "api/session.py", "api/job.py",
                 "kernels/delta_push.py", "core/coherence.py",
@@ -67,7 +68,8 @@ def test_source_has_no_jax_or_repro_import():
                 "models/transformer.py", "serve/engine.py",
                 "launch/serve.py", "data/lm_data.py", "train/optimizer.py",
                 "train/loop.py", "launch/train.py", "launch/mesh.py",
-                "serve/mesh_worker.py", "launch/dryrun.py"):
+                "serve/mesh_worker.py", "launch/dryrun.py",
+                "train/mesh_worker.py"):
         assert PKG / mod in files, mod
     for f in files:
         assert not pattern.search(f.read_text()), f
