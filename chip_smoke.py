@@ -35,7 +35,7 @@ Phases (any failure raises and the script exits non-zero):
                  the card is empty: deepseek-v2-lite-16b at its full
                  config (27 layers, MLA, 64 experts top-6, bf16, 15.72 B
                  parameters from --seed) on data 1 x model 4, batch 4,
-                 prompt 2,048, 64 greedy tokens at capacity factor 1.25:
+                 prompt 2,048, 16 greedy tokens at capacity factor 1.25:
                  (a) at capacity factor 16 (no drops, asserted) the
                  prefill's and 8 teacher-forced decode steps' logits
                  against the single-device run of the same seed after
@@ -49,8 +49,7 @@ Phases (any failure raises and the script exits non-zero):
                  layer, the byte and FLOP bounds in a {"lm_mesh_serve":
                  ...} line; then gemma3-4b at full width, 6 layers, on
                  data 2 x model 2 through repro_torch.launch.serve --mesh
-                 host (the timed loop's tokens equal the launcher's),
-                 its logits against one device within 1/32, and the
+                 host (its timed parts of Engine.generate), its logits against one device within 1/32, and the
                  eight attention archs' smoke variants against one
                  device on the card, in a {"lm_mesh_dp": ...} line;
   3c. lm_mesh_train -- LM training on a data 2 x model 2 mesh of 4 gloo
@@ -70,6 +69,23 @@ Phases (any failure raises and the script exits non-zero):
                  the eight attention archs' smoke variants' step on the
                  mesh against one device on the card; a
                  {"lm_mesh_train": ...} line;
+  3d. lm_mesh_ssm -- the SSM families on a model axis above 1: (a)
+                 mamba2-370m at its full config served on data 1 x model
+                 4 through repro_torch.launch.serve --mesh host (4 x
+                 2,048, 8 greedy tokens) and trained on 2 x 2 through
+                 repro_torch.launch.train --mesh host (8 layers, 4 x
+                 2,048, microbatch 2, 2 steps); (b) hymba-1.5b at full
+                 width on 2 x 2 ("heads" SSM, "gather" attention), served
+                 at 4 layers and trained at 2; (c) mamba2-370m in
+                 float32 on 1 x 4 against one device: logits within
+                 1/32 of the row's largest, one train step at (3c)'s
+                 check (a) tolerances; a {"lm_mesh_ssm": ...} line;
+  3e. lm_mesh_long -- the sequence-sharded decode cache, batch 1 on 2 x
+                 2: gemma3-4b at full width, 6 layers, and hymba-1.5b at
+                 2 layers, a 32,768-slot cache, a 24,576-token prompt, 16
+                 greedy tokens; (f) gemma3-4b in float32 at 8,192 slots
+                 against one device within 1/32, every data rank's
+                 logits the same bits; a {"lm_mesh_long": ...} line;
   4. serving  -- the serving slice at full width, V = 100,000 and
                  K = 1,000: TopicModel -> snapshot -> transform of 512
                  documents -> score -> a ConcurrentEngine under 8 client
@@ -2789,7 +2805,11 @@ def lm_serve(torch, seed: int, card: str, device: str = "cuda",
 
 LM_MESH_ARCH = "deepseek-v2-lite-16b"
 LM_MESH_SHAPE = (1, 4)            # data x model: 4 gloo ranks share the card
-LM_MESH_BATCH, LM_MESH_PROMPT, LM_MESH_GEN = 4, 2048, 64
+# the timed greedy tokens cut from 64 to 16 when the SSM and long-context
+# mesh phases joined the script (its 1,200 s limit; PERF.md section 4):
+# the config, check (a) and the prefill stay whole, the decode median is
+# over 15 steps
+LM_MESH_BATCH, LM_MESH_PROMPT, LM_MESH_GEN = 4, 2048, 16
 LM_MESH_CF = 1.25                 # the config's capacity factor
 LM_MESH_CHECK_PROMPT = 64         # check (a): prompt, then LM_CHECK_STEPS
 # check (a): mesh logits against the single-device run of the same seed on
@@ -2860,9 +2880,10 @@ def coll_summary(coll: dict, per: int = 1) -> dict:
     all-gather."""
     kinds = {"all_to_all": ("moe_push", "moe_pull", "moe_push.staging",
                             "moe_pull.staging"),
-             "all_reduce": ("embed", "attn", "mlp", "moe_aux"),
+             "all_reduce": ("embed", "attn", "mlp", "moe_aux", "ssm",
+                            "norm"),
              "all_gather": ("logits", "moe_gather", "weights", "kv", "seq",
-                            "experts", "tokens")}
+                            "experts", "tokens", "ssm_weights", "lse")}
     out = {}
     for kind, tags in kinds.items():
         out[kind] = {k: sum(coll.get(t, {}).get(k, 0) for t in tags) / per
@@ -2877,6 +2898,17 @@ def param_bytes(cfg) -> int:
     from repro_torch.models import transformer as tfm
     model = tfm.Transformer(cfg, device="meta")
     return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def ssd_flops(cfg, tokens: int) -> int:
+    """FLOPs the SSM mixers' scans must do over ``tokens`` positions: the
+    recurrence's state update and read, 4 H P N a token and SSM layer (the
+    chunked form's extra intra-chunk products are work the bound need not
+    do); 0 without an SSM."""
+    if not cfg.ssm_state:
+        return 0
+    return 4 * tokens * cfg.num_layers * cfg.ssm_heads * cfg.ssm_head_dim \
+        * cfg.ssm_state
 
 
 def mesh_flops(cfg, batch: int, prompt: int, shape, cf: float) -> dict:
@@ -2904,11 +2936,12 @@ def mesh_flops(cfg, batch: int, prompt: int, shape, cf: float) -> dict:
         min(q + 1, w) if w else q + 1 for q in range(prompt))
         for w in cfg.windows())
     need = (2 * toks * dense_w + toks * cfg.top_k * expert * moe_layers
-            + attn + 2 * batch * cfg.d_model * cfg.vocab_size)
+            + attn + 2 * batch * cfg.d_model * cfg.vocab_size
+            + ssd_flops(cfg, toks))
     data, m = shape
     t = toks // (data * m)
-    cap1 = moe_mod._cap1(t, cfg, m, cf)
-    cap2 = moe_mod._cap2(cap1, cfg, m, cf)
+    cap1 = moe_mod._cap1(t, cfg, m, cf) if cfg.num_experts else 0
+    cap2 = moe_mod._cap2(cap1, cfg, m, cf) if cfg.num_experts else 0
     ep = moe_layers * data * m * (cfg.num_experts // m) * cap2 * expert
     return {"need": need, "ep_expert": ep,
             "dense_expert": moe_layers * toks * cfg.num_experts * expert,
@@ -2952,7 +2985,7 @@ def lm_mesh_serve(torch, seed: int, card: str, device: str = "cuda",
     teacher-forced decode steps' logits against the single-device run of
     the same seed, run after the mesh has gone: held in float32, measured
     in bf16 (LM_MESH_TOL); then the cell in bf16 at the config's capacity
-    factor: batch 4, prompt 2,048, 64 greedy tokens, timed, with each MoE
+    factor: batch 4, prompt 2,048, ``gen`` greedy tokens, timed, with each MoE
     layer's dropped share, the collectives and the bounds; (b) the first
     MoE layer at the cell's shape on every rank against
     ``moe_block_spmd_emulated``."""
@@ -2987,7 +3020,7 @@ def lm_mesh_serve(torch, seed: int, card: str, device: str = "cuda",
         a16 = run.call("logits", tokens_a, check_steps, None, False)
         run.call("set", capacity_factor=LM_MESH_CF)
         run.call("reset_peak")
-        cell = run.call("timed", prompts, gen)
+        cell = run.call("generate", prompts, gen, timed=True)
         b = run.call("moe_check", (batch, prompt, cfg.d_model), seed)
         stats = run.call("stats")
         transport = run.transport
@@ -3097,9 +3130,9 @@ def lm_mesh_dp(torch, seed: int, card: str, device: str = "cuda",
     on a data 2 x model 2 mesh (the data axis, the sequence-parallel
     prefill: kv 4 on a model axis of 2, the 262,144-row vocab split):
     through ``repro_torch.launch.serve``'s main with ``--mesh host
-    --devices 4 --mesh-model 2``; then on a second mesh the timed loop (its
-    tokens equal the launcher's) and the prefill and 8 teacher-forced
-    decode steps against the single-device run; then the eight attention
+    --devices 4 --mesh-model 2`` (its timed parts and every rank's stats);
+    then on a second mesh the prefill and 8 teacher-forced decode steps
+    against the single-device run; then the eight attention
     architectures' smoke variants (float32) on the same mesh against the
     single-device run on the card."""
     from repro_torch import rng as jrng
@@ -3116,7 +3149,8 @@ def lm_mesh_dp(torch, seed: int, card: str, device: str = "cuda",
     t0 = time.perf_counter()
     res = serve_launch.main(argv)
     launcher_s = time.perf_counter() - t0
-    prompts = res.prompts.cpu()
+    cell = dict(res.mesh["timed"], tokens=res.out.cpu())
+    stats = res.mesh["stats"]
     tokens_a = jrng.randint(jrng.PRNGKey(seed), (batch, check_prompt
                                                   + check_steps), 0,
                             cfg.vocab_size)
@@ -3127,9 +3161,6 @@ def lm_mesh_dp(torch, seed: int, card: str, device: str = "cuda",
     with LMMeshRun({"data": data, "model": m}, torch.device(device)) as run:
         run.call("load", cfg, seed=seed, max_seq=prompt + gen + 1)
         a = run.call("logits", tokens_a, check_steps, None, False)
-        run.call("reset_peak")
-        cell = run.call("timed", prompts, gen)
-        stats = run.call("stats")
         for name in names if smoke else []:
             scfg = registry.smoke_variant(name)
             cf = 16.0 if scfg.num_experts else None
@@ -3145,9 +3176,6 @@ def lm_mesh_dp(torch, seed: int, card: str, device: str = "cuda",
             got = run.call("logits", toks, LM_MESH_SMOKE_STEPS, cond, True)
             smoke_cases[name] = (scfg, toks, cond, got)
         transport = run.transport
-    if not torch.equal(cell["tokens"], res.out.cpu()):
-        raise AssertionError("the mesh's timed loop differs from the "
-                             "launcher's generate")
     got = mesh_logical(torch, a["logits"], cfg, LM_DP_SHAPE)
     want = single_logits(torch, cfg, seed, tokens_a, check_steps, device)
     rel = row_rel(got, want)
@@ -3399,7 +3427,7 @@ def mesh_train_flops(cfg, batch: int, seq: int) -> int:
     attn = sum(6 * batch * cfg.num_heads * (qk + v) * sum(
         min(q + 1, w) if w else q + 1 for q in range(seq))
         for w in cfg.windows())
-    return 6 * batch * seq * active + attn
+    return 6 * batch * seq * active + attn + 3 * ssd_flops(cfg, batch * seq)
 
 
 def mesh_train_cell(torch, run, cfg, tc, batches, card: str) -> dict:
@@ -3411,11 +3439,20 @@ def mesh_train_cell(torch, run, cfg, tc, batches, card: str) -> dict:
     share of the steps' time, the dropped share, and the bound: the
     step's FLOPs at 989 TFLOP/s plus the optimizer's bytes at 3.35 TB/s
     (the card does every rank's work)."""
-    from repro_torch.models import transformer as tfm
     init = run.call("train_init", cfg, tc, seed=tc.seed)
     res = run.call("train_fit", batches, 1)
     run.call("release")
-    hist, ranks = res["history"], res["ranks"]
+    batch, seq = batches[0]["tokens"].shape
+    return train_cell_summary(cfg, tc, init, res["history"], res["ranks"],
+                              LM_MT_SHAPE, batch, seq, card)
+
+
+def train_cell_summary(cfg, tc, init: dict, hist: list, ranks: list, shape,
+                       batch: int, seq: int, card: str) -> dict:
+    """A training cell's numbers from ``op_train_init``'s result and
+    ``op_train_fit``'s history (a step logged each step) and ranks: see
+    ``mesh_train_cell``."""
+    from repro_torch.models import transformer as tfm
     for h in hist:
         if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
             raise AssertionError(f"{cfg.name}: step {h['step']} loss "
@@ -3428,7 +3465,6 @@ def mesh_train_cell(torch, run, cfg, tc, batches, card: str) -> dict:
     ends = [h["elapsed_s"] * 1e3 for h in hist]
     step_ms = [b - a for a, b in zip(ends, ends[1:])]
     ms = float(np.median(step_ms))
-    batch, seq = batches[0]["tokens"].shape
     steps = len(hist)
     coll = ranks[0]["collectives"]
     coll_ms = sum(c["ms"] for c in coll.values())
@@ -3447,7 +3483,7 @@ def mesh_train_cell(torch, run, cfg, tc, batches, card: str) -> dict:
     nbytes = lm_train_bytes(model, max(tc.microbatch, 1))
     bound = flops / BF16_FLOPS * 1e3 + nbytes / HBM_BYTES_PER_S * 1e3
     return {
-        "arch": cfg.name, "layers": cfg.num_layers, "mesh": list(LM_MT_SHAPE),
+        "arch": cfg.name, "layers": cfg.num_layers, "mesh": list(shape),
         "dtype": cfg.dtype, "remat": cfg.remat, "batch": batch, "seq": seq,
         "microbatch": tc.microbatch, "steps": steps,
         "capacity_factor": cfg.capacity_factor if cfg.num_experts else None,
@@ -3610,6 +3646,442 @@ def lm_mesh_train(torch, seed: int, card: str, device: str = "cuda",
         f"{max(v['params']['max_rel_err'] for v in smoke_out.values()):.3g}"
         f" of the leaf's largest")
     log(json.dumps({"lm_mesh_train": summary}))
+    return summary
+
+
+# -- the SSM families on a model axis, the sequence-sharded decode cache ------
+
+LM_SSM_ARCH, LM_HY_ARCH = "mamba2-370m", "hymba-1.5b"
+LM_SSM_SERVE_SHAPE, LM_SSM_TRAIN_SHAPE = (1, 4), (2, 2)
+LM_HY_SHAPE = (2, 2)               # "heads" SSM, "gather" attention
+# cut to fit the script's time beside the earlier mesh cells (PERF.md
+# section 4; whole-script runs were slower than a phase alone by up to 2x,
+# gloo's calls): mamba2-370m's tokens from 64 to 8 and its training depth
+# from 48 to 8 layers and steps from 3 to 2; hymba-1.5b's serving depth
+# from 32 to 4 (layer 0, global, kept) and tokens from 32 to 8, its
+# training depth to 2
+LM_SSM_BATCH, LM_SSM_PROMPT, LM_SSM_GEN = 4, 2048, 8
+LM_SSM_TRAIN_LAYERS, LM_HY_SERVE_LAYERS, LM_HY_TRAIN_LAYERS = 8, 4, 2
+LM_HY_GEN = 8
+LM_SSM_SEQ, LM_SSM_MB, LM_SSM_STEPS, LM_HY_STEPS = 2048, 2, 2, 2
+# check (c): mamba2-370m in float32 on 1 x 4 against one device, the
+# prompt and LM_CHECK_STEPS decode steps (LM_MESH_TOL), and one train step
+# at 4 x LM_SSM_CHECK_SEQ (lm_mesh_train's check (a) tolerances)
+LM_SSM_CHECK_SEQ = 128
+# the sequence-sharded cache: gemma3-4b at full width, one 5 local : 1
+# global period (6 layers), and hymba-1.5b, batch 1 on 2 x 2.  long_500k's
+# 524,288 slots cut by 16 and the prompt to 24,576: four ranks share one
+# card and each data rank runs the whole prompt (the reference replicates
+# a batch the dp axes cannot fill), and the script's time (PERF.md
+# section 4); the global layer still reads both data ranks' blocks of
+# 16,384 slots, the window-1,024 layers one rank's
+LM_LONG_SHAPE, LM_LONG_LAYERS = (2, 2), 6
+# cut to fit the script's time (PERF.md section 4): the tokens from 32 to
+# 16, hymba-1.5b's depth from 32 to 2 (layer 0, global, and a window
+# layer): at 32 its prefill took 127 s at a 98,304 prompt
+LM_LONG_HY_LAYERS = 2
+LM_LONG_SLOTS, LM_LONG_PROMPT, LM_LONG_GEN = 32_768, 24_576, 16
+LM_LONG_CHECK_SLOTS, LM_LONG_CHECK_PROMPT = 8192, 6144
+
+
+def full_config(cfg, want: tuple) -> None:
+    """Raise unless ``cfg`` has the published widths ``want``: (layers,
+    d_model, heads, kv heads, SSD heads, SSM state, vocab, dtype)."""
+    got = (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+           cfg.ssm_heads if cfg.ssm_state else 0, cfg.ssm_state,
+           cfg.vocab_size, cfg.dtype)
+    if got != want:
+        raise AssertionError(f"not {cfg.name}'s full config: {got}")
+
+
+def ssm_decode_bytes(cfg, batch: int, pos: int, dp: int = 1) -> int:
+    """Bytes a decode step at ``pos`` must move: every weight once, each
+    SSM layer's state read and written (float32) and conv tail read, and
+    each attention layer's K and V over its live slots (``lm_decode_bytes``'
+    count); ``dp`` data ranks that each hold the whole batch read the
+    weights and states ``dp`` times (a replicated batch's work: not the
+    function's bound, reported beside it)."""
+    from repro_torch.models.attention import live_range
+    n = param_bytes(cfg) * dp
+    it = 2 if cfg.dtype == "bfloat16" else 4
+    if cfg.ssm_state:
+        state = cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4
+        tail = (cfg.ssm_conv_width - 1) * (cfg.d_inner + 2 * cfg.ssm_state)
+        n += dp * cfg.num_layers * batch * (2 * state + tail * it)
+    if cfg.has_attention:
+        slot = cfg.num_kv_heads * cfg.head_dim_ * 2 * it
+        for w in cfg.windows():
+            lo, hi = live_range(pos, w)
+            n += batch * (hi - lo) * slot
+    return n
+
+
+def serve_cell_summary(cfg, cell: dict, stats: list, transport: str, shape,
+                       batch: int, prompt: int, gen: int, card: str) -> dict:
+    """A serving cell's numbers from ``op_generate(timed=True)``'s result
+    (its tokens checked) and ``op_stats``': rank 0's prefill and decode step ms and
+    collectives, each rank's peak memory (``mesh_cell_summary``), and the
+    bounds: prefill's FLOPs at 989 TFLOP/s (``mesh_flops``), a decode
+    step's bytes at 3.35 TB/s (``ssm_decode_bytes``)."""
+    out = cell["tokens"]
+    if tuple(out.shape) != (batch, gen) or int(out.min()) < 0 or \
+            int(out.max()) >= cfg.vocab_size:
+        raise AssertionError(f"{cfg.name}: tokens {tuple(out.shape)} out of "
+                             "range")
+    fl = mesh_flops(cfg, batch, prompt, shape, cfg.capacity_factor)
+    nbytes = ssm_decode_bytes(cfg, batch, prompt + gen // 2)
+    return {"arch": cfg.name, "layers": cfg.num_layers, "mesh": list(shape),
+            "transport": transport, "batch": batch, "prompt": prompt,
+            "gen": gen, "params": cfg.param_count(),
+            "param_bytes": param_bytes(cfg),
+            **mesh_cell_summary(cell, stats, batch, gen, card),
+            "prefill_flops_needed": fl["need"],
+            "prefill_bound_ms": fl["need"] / BF16_FLOPS * 1e3,
+            "decode_bound_bytes": nbytes,
+            "decode_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+def serve_launch_cell(torch, cfg, argv: list, shape, batch: int,
+                      prompt: int, gen: int, card: str) -> dict:
+    """One serving cell through ``repro_torch.launch.serve``'s main on a
+    mesh (``--mesh host``): ``serve_cell_summary`` of its timed parts."""
+    from repro_torch.launch import serve as serve_launch
+    t0 = time.perf_counter()
+    res = serve_launch.main(argv)
+    cell = dict(res.mesh["timed"], tokens=res.out)
+    return dict(serve_cell_summary(cfg, cell, res.mesh["stats"],
+                                   res.mesh["transport"], shape, batch,
+                                   prompt, gen, card),
+                launcher_s=time.perf_counter() - t0,
+                launcher_generate_s=res.seconds,
+                mesh_start_s=res.mesh["start_s"], load_s=res.mesh["load_s"])
+
+
+def train_launch_cell(torch, cfg, argv: list, shape, batch: int, seq: int,
+                      card: str) -> dict:
+    """One training cell through ``repro_torch.launch.train``'s main on a
+    mesh (a step logged each step): ``train_cell_summary``'s checks and
+    numbers."""
+    from repro_torch.launch import train as train_launch
+    t0 = time.perf_counter()
+    res = train_launch.main(argv)
+    out = train_cell_summary(cfg, res.tc, res.mesh["init"], res.history,
+                             res.mesh["ranks"], shape, batch, seq, card)
+    out.update(transport=res.mesh["transport"],
+               launcher_s=time.perf_counter() - t0,
+               mesh_start_s=res.mesh["start_s"])
+    return out
+
+
+def log_serve_cell(tag: str, c: dict, card: str) -> None:
+    calls = sum(v["calls"] for v in
+                c["decode_collectives_per_step"]["by_tag"].values())
+    log(f"[{tag}] {card}: {c['arch']} ({c['layers']} layers) "
+        f"{c['mesh'][0]} x {c['mesh'][1]} ({c['transport']}) serving "
+        f"{c['batch']} x {c['prompt']}: prefill {c['prefill_ms']:.1f} ms "
+        f"(bound {c['prefill_bound_ms']:.2f}), decode step "
+        f"{c['decode_step_ms_median']:.2f} ms median (bound "
+        f"{c['decode_bound_ms']:.3f}), {c['tokens_per_s']:.1f} tokens/s; "
+        f"collectives' share prefill {c['prefill_collective_share']:.3f}, "
+        f"decode {c['decode_collective_share']:.3f} ("
+        f"{c['decode_collectives_per_step']['ms']:.1f} ms, "
+        f"{calls:.0f} calls a step); rank peak memory "
+        f"{c['rank_peak_mem_gb']} GB")
+
+
+def log_train_cell(tag: str, c: dict, card: str) -> None:
+    log(f"[{tag}] {card}: {c['arch']} ({c['layers']} layers) "
+        f"{c['mesh'][0]} x {c['mesh'][1]} ({c['transport']}) training "
+        f"{c['batch']} x {c['seq']}, microbatch {c['microbatch']}: step "
+        f"{c['step_ms_median']:.1f} ms median ({c['step_ms']}), "
+        f"{c['tokens_per_s']:.1f} tokens/s (bound {c['bound_ms']:.2f} ms); "
+        f"collectives {c['collectives_ms_per_step']:.1f} ms and "
+        f"{c['collectives_gb_per_step']:.2f} GB a step, share "
+        f"{c['collectives_share']:.3f}; peak {c['rank_peak_mem_gb']} GB; "
+        f"loss {c['loss']}")
+
+
+def lm_mesh_ssm(torch, seed: int, card: str, device: str = "cuda",
+                layers: int = 0, train_layers: int = LM_SSM_TRAIN_LAYERS,
+                hymba_layers: int = LM_HY_SERVE_LAYERS,
+                hymba_train_layers: int = LM_HY_TRAIN_LAYERS,
+                batch: int = LM_SSM_BATCH, prompt: int = LM_SSM_PROMPT,
+                gen: int = LM_SSM_GEN, hymba_gen: int = LM_HY_GEN,
+                seq: int = LM_SSM_SEQ,
+                check_prompt: int = LM_MESH_CHECK_PROMPT,
+                check_steps: int = LM_CHECK_STEPS,
+                check_seq: int = LM_SSM_CHECK_SEQ) -> dict:
+    """The SSM families on a model axis above 1, 4 gloo ranks sharing the
+    card.  (a) mamba2-370m at full width (d_model 1,024, 32 SSD heads,
+    state 128, vocab 50,280, bf16): served at its 48 layers (``layers``
+    cuts them for a CPU rehearsal) on data 1 x model 4 (8 heads a rank)
+    through ``launch.serve --mesh host``, batch 4, prompt 2,048, ``gen``
+    greedy tokens; trained at ``train_layers`` on 2 x 2 through
+    ``launch.train --mesh host``, 4 x 2,048, microbatch 2, remat, 2 steps.
+    (b) hymba-1.5b at full width on one 2 x 2 mesh ("heads" SSM, "gather"
+    attention, the sequence-parallel prefill): served at
+    ``hymba_layers``, batch 4, prompt 2,048, ``hymba_gen`` tokens; trained
+    at ``hymba_train_layers``, 4 x 2,048, microbatch 2, 2 steps (layer 0,
+    global, kept in both).  (c) mamba2-370m as served, in float32, on 1 x
+    4 against one device from the same seed, after the mesh has gone: the
+    prefill's and ``check_steps`` teacher-forced decode steps' logits
+    (LM_MESH_TOL), one train step's loss, gradient, moments and parameters
+    (``mesh_vs_single``)."""
+    from repro_torch import rng as jrng
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.lm_data import LMDataConfig, MarkovZipfSource
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.mesh_worker import LMTrainRun
+
+    mamba, hymba = registry.get(LM_SSM_ARCH), registry.get(LM_HY_ARCH)
+    full_config(mamba, (48, 1024, 0, 0, 32, 128, 50_280, "bfloat16"))
+    full_config(hymba, (32, 1600, 25, 5, 50, 16, 32_001, "bfloat16"))
+    if layers:
+        mamba = dataclasses.replace(mamba, num_layers=layers)
+    mamba_t = dataclasses.replace(mamba, num_layers=min(train_layers,
+                                                        mamba.num_layers))
+    hymba_s, hymba_t = (dataclasses.replace(hymba, num_layers=n)
+                        for n in (hymba_layers, hymba_train_layers))
+    common = ["--seed", str(seed), "--device", device, "--mesh", "host"]
+    summary = {"card": card}
+
+    def batches(cfg, n):
+        return list(MarkovZipfSource(LMDataConfig(
+            vocab_size=cfg.vocab_size, seq_len=seq, batch_size=batch,
+            seed=seed)).batches(n))
+
+    # (a) through the launchers
+    t = time.perf_counter()
+    data, m = LM_SSM_SERVE_SHAPE
+    summary["mamba_serve"] = serve_launch_cell(
+        torch, mamba, ["--arch", LM_SSM_ARCH, "--layers",
+                       str(mamba.num_layers), "--batch", str(batch),
+                       "--prompt-len", str(prompt), "--gen", str(gen),
+                       *common, "--devices", str(data * m), "--mesh-model",
+                       str(m)],
+        LM_SSM_SERVE_SHAPE, batch, prompt, gen, card)
+    summary["mamba_serve"]["cell_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    data, m = LM_SSM_TRAIN_SHAPE
+    summary["mamba_train"] = train_launch_cell(
+        torch, mamba_t, ["--arch", LM_SSM_ARCH, "--layers",
+                         str(mamba_t.num_layers), "--batch", str(batch),
+                         "--seq", str(seq), "--microbatch", str(LM_SSM_MB),
+                         "--steps", str(LM_SSM_STEPS), "--log-every", "1",
+                         "--lr", str(LM_MT_LR), "--out", "", *common,
+                         "--devices", str(data * m), "--mesh-model", str(m)],
+        LM_SSM_TRAIN_SHAPE, batch, seq, card)
+    summary["mamba_train"]["cell_s"] = time.perf_counter() - t
+
+    # (b) one mesh serves and trains hymba
+    t = time.perf_counter()
+    data, m = LM_HY_SHAPE
+    tc_b = TrainConfig(learning_rate=LM_MT_LR, warmup_steps=1,
+                       total_steps=LM_HY_STEPS, microbatch=LM_SSM_MB,
+                       seed=seed)
+    prompts = jrng.randint(jrng.PRNGKey(seed), (batch, prompt), 0,
+                           hymba.vocab_size)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    with LMTrainRun({"data": data, "model": m}, torch.device(device)) as run:
+        transport = run.transport
+        run.call("load", hymba_s, seed=seed, max_seq=prompt + hymba_gen + 1)
+        run.call("reset_peak")
+        cell = run.call("generate", prompts, hymba_gen, timed=True)
+        stats = run.call("stats")
+        run.call("release")
+        serve_s = time.perf_counter() - t
+        init = run.call("train_init", hymba_t, tc_b, seed=seed)
+        fit = run.call("train_fit", batches(hymba_t, LM_HY_STEPS), 1)
+        run.call("release")
+    summary["hymba_serve"] = dict(serve_cell_summary(
+        hymba_s, cell, stats, transport, LM_HY_SHAPE, batch, prompt,
+        hymba_gen, card), cell_s=serve_s)
+    summary["hymba_train"] = dict(train_cell_summary(
+        hymba_t, tc_b, init, fit["history"], fit["ranks"], LM_HY_SHAPE,
+        batch, seq, card), transport=transport,
+        cell_s=time.perf_counter() - t - serve_s)
+
+    # (c) float32 on 1 x 4 against one device, the mesh gone first
+    cfg32 = dataclasses.replace(mamba, dtype="float32")
+    tokens_c = jrng.randint(jrng.PRNGKey(seed), (batch, check_prompt
+                                                  + check_steps), 0,
+                            mamba.vocab_size)
+    tc_c = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10,
+                       microbatch=LM_SSM_MB, seed=seed)
+    batch_c = next(MarkovZipfSource(LMDataConfig(
+        vocab_size=mamba.vocab_size, seq_len=check_seq, batch_size=batch,
+        seed=seed + 1)).batches(1))
+    data, m = LM_SSM_SERVE_SHAPE
+    t = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    with LMTrainRun({"data": data, "model": m}, torch.device(device)) as run:
+        run.call("load", cfg32, seed=seed)
+        logits_c = run.call("logits", tokens_c, check_steps, None, False)
+        run.call("release")
+        mesh_c = mesh_step_arrays(run, cfg32, tc_c, batch_c, seed=seed)
+    mesh_s = time.perf_counter() - t
+    t = time.perf_counter()
+    got = mesh_logical(torch, logits_c["logits"], cfg32, LM_SSM_SERVE_SHAPE)
+    want = single_logits(torch, cfg32, seed, tokens_c, check_steps, device)
+    rel = row_rel(got, want)
+    if not rel <= LM_MESH_TOL:
+        raise AssertionError(f"{mamba.name} float32 mesh logits differ from "
+                             f"one device by {rel:.4g} of the row's largest")
+    single = tfm.init_params(seed, cfg32, device=device)
+    check = mesh_vs_single(torch, mesh_c, single, tc_c, batch_c, device,
+                           f"{mamba.name} float32")
+    del single, mesh_c
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    summary["check_c"] = dict(
+        check, arch=mamba.name, layers=mamba.num_layers,
+        mesh=list(LM_SSM_SERVE_SHAPE), prompt=check_prompt,
+        steps=check_steps, logits_max_rel_err=rel,
+        logits_tolerance=LM_MESH_TOL,
+        argmax_agree=float((got.argmax(-1) == want.argmax(-1)).float()
+                           .mean()),
+        seq=check_seq, mesh_s=mesh_s, single_s=time.perf_counter() - t)
+    for key in ("mamba_serve", "hymba_serve"):
+        log_serve_cell("lm_mesh_ssm", summary[key], card)
+    for key in ("mamba_train", "hymba_train"):
+        log_train_cell("lm_mesh_ssm", summary[key], card)
+    c = summary["check_c"]
+    log(f"[lm_mesh_ssm] {card}: check (c) {mamba.name} float32 1 x 4 = one "
+        f"device: logits {rel:.4g} of the row's largest (tol "
+        f"{LM_MESH_TOL:.4g}); train step loss {c['loss']:.6f} / "
+        f"{c['loss_single']:.6f}, gradient {c['grads']['max_rel_err']:.3g},"
+        f" m {c['m']['max_rel_err']:.3g}, v {c['v']['max_rel_err']:.3g}, "
+        f"params {c['params']['max_rel_err']:.3g} of the leaf's largest "
+        f"({c['params']['band_elements']} elements in their first-step "
+        f"band)")
+    log(json.dumps({"lm_mesh_ssm": summary}))
+    return summary
+
+
+def lm_mesh_long(torch, seed: int, card: str, device: str = "cuda",
+                 layers: int = LM_LONG_LAYERS,
+                 hymba_layers: int = LM_LONG_HY_LAYERS,
+                 slots: int = LM_LONG_SLOTS, prompt: int = LM_LONG_PROMPT,
+                 gen: int = LM_LONG_GEN,
+                 check_slots: int = LM_LONG_CHECK_SLOTS,
+                 check_prompt: int = LM_LONG_CHECK_PROMPT,
+                 check_steps: int = LM_CHECK_STEPS,
+                 widths: bool = True) -> dict:
+    """The sequence-sharded decode cache, batch 1 on data 2 x model 2 (4
+    gloo ranks sharing the card; every data rank runs the whole prompt
+    and holds its half of each attention cache's slots).  (d) gemma3-4b
+    at full width, ``layers`` (one 5 local : 1 global period), a cache of
+    ``slots``, a prompt of ``prompt`` and ``gen`` greedy tokens: the
+    global layer reads both data ranks' blocks, the window-1,024 layers one
+    rank's.  (e) hymba-1.5b at full width, the same batch, cache, prompt
+    and tokens (``hymba_layers`` cuts its depth, keeping layer 0, which is
+    global).  (f) gemma3-4b in float32, the same layers, ``check_slots``
+    slots, a prompt of ``check_prompt`` and ``check_steps`` teacher-forced
+    decode steps against one device (LM_MESH_TOL), every rank's logits the
+    same bits.  ``widths=False`` (a CPU rehearsal) runs smoke widths."""
+    from repro_torch import rng as jrng
+    from repro_torch.configs import registry
+    from repro_torch.serve.mesh_worker import LMMeshRun
+
+    get = registry.get if widths else registry.smoke_variant
+    gemma = dataclasses.replace(get("gemma3-4b"), num_layers=layers)
+    hymba = get(LM_HY_ARCH)
+    if hymba_layers:
+        hymba = dataclasses.replace(hymba, num_layers=hymba_layers)
+    if widths:
+        full_config(gemma, (layers, 2560, 8, 4, 0, 0, 262_144, "bfloat16"))
+        if not hymba_layers:
+            full_config(hymba, (32, 1600, 25, 5, 50, 16, 32_001,
+                                "bfloat16"))
+    data, m = LM_LONG_SHAPE
+    gemma32 = dataclasses.replace(gemma, dtype="float32")
+    tokens_f = jrng.randint(jrng.PRNGKey(seed), (1, check_prompt
+                                                  + check_steps), 0,
+                            gemma.vocab_size)
+    cells = {}
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with LMMeshRun({"data": data, "model": m}, torch.device(device)) as run:
+        transport = run.transport
+        for key, cfg in (("gemma3_4b", gemma), ("hymba", hymba)):
+            t = time.perf_counter()
+            prompts = jrng.randint(jrng.PRNGKey(seed + 1), (1, prompt), 0,
+                                   cfg.vocab_size)
+            run.call("load", cfg, seed=seed, max_seq=slots)
+            run.call("reset_peak")
+            cell = run.call("generate", prompts, gen, timed=True)
+            stats = run.call("stats")
+            run.call("release")
+            cells[key] = (cfg, cell, stats, time.perf_counter() - t)
+        t = time.perf_counter()
+        run.call("load", gemma32, seed=seed)
+        f = run.call("logits", tokens_f, check_steps, None, False,
+                     max_seq=check_slots, per_rank=True)
+        run.call("release")
+        check_mesh_s = time.perf_counter() - t
+    mesh_s = time.perf_counter() - t0
+    summary = {"card": card, "transport": transport, "mesh": list(
+        LM_LONG_SHAPE), "slots": slots, "prompt": prompt, "gen": gen,
+        "mesh_s": mesh_s}
+    for key, (cfg, cell, stats, secs) in cells.items():
+        out = cell["tokens"]
+        if tuple(out.shape) != (1, gen) or int(out.min()) < 0 or \
+                int(out.max()) >= cfg.vocab_size:
+            raise AssertionError(f"{cfg.name}: tokens {tuple(out.shape)} "
+                                 "out of range")
+        fl = mesh_flops(cfg, 1, prompt, LM_LONG_SHAPE, cfg.capacity_factor)
+        pos = prompt + gen // 2
+        nbytes = ssm_decode_bytes(cfg, 1, pos)
+        # the work this port does: each data rank runs the whole prompt
+        # and reads every weight and SSM state, the batch replicated
+        rep_bytes = ssm_decode_bytes(cfg, 1, pos, data)
+        summary[key] = {
+            "arch": cfg.name, "layers": cfg.num_layers,
+            "mesh": list(LM_LONG_SHAPE), "transport": transport, "batch": 1,
+            "prompt": prompt, "gen": gen, "slots": slots,
+            "slots_per_data_rank": -(-slots // data),
+            "params": cfg.param_count(), "param_bytes": param_bytes(cfg),
+            "cell_s": secs, **mesh_cell_summary(cell, stats, 1, gen, card),
+            "prefill_flops_needed": fl["need"],
+            "prefill_bound_ms": fl["need"] / BF16_FLOPS * 1e3,
+            "decode_bound_bytes": nbytes,
+            "decode_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "prefill_replicated_bound_ms": fl["need"] * data / BF16_FLOPS
+            * 1e3,
+            "decode_replicated_bound_ms": rep_bytes / HBM_BYTES_PER_S
+            * 1e3}
+    ranks = f["rank_logits"]
+    same = all(torch.equal(r, ranks[0]) for r in ranks[1:])
+    if not same:
+        raise AssertionError("the data ranks' logits differ")
+    t = time.perf_counter()
+    got = mesh_logical(torch, f["logits"], gemma32, LM_LONG_SHAPE)
+    want = single_logits(torch, gemma32, seed, tokens_f, check_steps, device)
+    rel = row_rel(got, want)
+    if not rel <= LM_MESH_TOL:
+        raise AssertionError(f"gemma3-4b float32 sequence-sharded logits "
+                             f"differ from one device by {rel:.4g} of the "
+                             "row's largest")
+    summary["check_f"] = {
+        "arch": gemma.name, "layers": layers, "slots": check_slots,
+        "prompt": check_prompt, "steps": check_steps, "max_rel_err": rel,
+        "max_rel_err_by_position": [row_rel(got[:, i], want[:, i])
+                                    for i in range(got.shape[1])],
+        "tolerance": LM_MESH_TOL, "ranks_bitwise_equal": same,
+        "argmax_agree": float((got.argmax(-1) == want.argmax(-1)).float()
+                              .mean()),
+        "mesh_s": check_mesh_s, "single_s": time.perf_counter() - t}
+    for key in ("gemma3_4b", "hymba"):
+        log_serve_cell("lm_mesh_long", dict(summary[key]), card)
+    log(f"[lm_mesh_long] {card}: check (f) gemma3-4b float32 {data} x {m}, "
+        f"{check_slots} slots, prompt {check_prompt}: {rel:.4g} of the "
+        f"row's largest logit against one device (tol {LM_MESH_TOL:.4g}); "
+        f"every rank's logits the same bits: {same}")
+    log(json.dumps({"lm_mesh_long": summary}))
     return summary
 
 
@@ -5888,6 +6360,8 @@ def main(argv=None) -> int:
     phase("lm_mesh_serve", lm_mesh_serve, torch, args.seed, card)
     phase("lm_mesh_dp", lm_mesh_dp, torch, args.seed, card)
     phase("lm_mesh_train", lm_mesh_train, torch, args.seed, card)
+    phase("lm_mesh_ssm", lm_mesh_ssm, torch, args.seed, card)
+    phase("lm_mesh_long", lm_mesh_long, torch, args.seed, card)
     serve = phase("serve", serve_slice, torch, args.seed, card)
     train = phase("train", train_slice, torch, args.seed, card)
     phase("card_vs_cpu", card_vs_cpu, torch, args.seed)

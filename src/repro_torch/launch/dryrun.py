@@ -13,6 +13,17 @@ axes) and ``cache_specs`` (the prefill and decode caches) -- to give the
 bytes one rank holds.  A split dim that does not divide is padded, as a
 ``NamedSharding`` pads it.
 
+These are the rules' bytes.  The port's own blocks differ in two places,
+each documented where it is made: where KV heads do not tile the model
+axis its caches hold whole KV heads (``sharding.specs.cache_specs``), and
+an SSM mixer whose heads tile the axis holds its ``in_proj`` columns
+regrouped as ``[z | x of its heads | B | C]`` and its conv channels as
+``[x of its heads | B | C]`` (``models/ssm.py``): ``2 N (1 - 1/M)`` more
+columns of ``in_proj`` and as many more conv channels a rank than the
+rules' contiguous block (mamba2-370m on a model axis of 16: 512 of
+``in_proj``'s 4,352 columns against the rules' 272), while its per-head
+leaves split by heads where the rules replicate them.
+
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch yi-6b --shape decode_32k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all            # 16 x 16
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multi-pod # 2 x 16 x 16

@@ -93,13 +93,16 @@ def make_host_mesh(model: int = 1, data: Optional[int] = None,
 
 def make_production_mesh(*, multi_pod: bool = False):
     """The reference's production pods, (data=16, model=16) = 256 chips or
-    (pod=2, data=16, model=16) = 512: the port has no such mesh (it
-    serves and trains on the host's cards, ROADMAP A.8.3)."""
+    (pod=2, data=16, model=16) = 512: a TPU pod layout with no host
+    counterpart (the port serves and trains on a host mesh of the local
+    cards); ``repro_torch.launch.dryrun`` gives a rank's bytes on it."""
     shape = "2 x 16 x 16 (512 chips)" if multi_pod else "16 x 16 (256 chips)"
     raise NotImplementedError(
-        f"the production mesh {shape} is the JAX package's TPU pod layout; "
-        "the port serves and trains on a host mesh of the local cards "
-        "(make_host_mesh; ROADMAP A.8.3)")
+        f"the production mesh {shape} is the JAX package's TPU pod layout, "
+        "which has no host counterpart: the port serves and trains on a "
+        "host mesh of the local cards (--mesh host, make_host_mesh); "
+        "python -m repro_torch.launch.dryrun gives the bytes a rank holds "
+        "on the pod mesh")
 
 
 def ctx_for(mesh):

@@ -16,9 +16,14 @@ reference's ``make_host_mesh``: by default data = the cards, model = 1
 none``); ``--devices N --mesh-model M`` runs N rank processes in an
 ``N/M x M`` mesh that share the cards (or the CPU), as ``launch.lda``'s
 do: NCCL when each rank has a card of its own, else gloo.  Rank 0 is
-this process (``serve.mesh_worker``).  ``--mesh pod|multipod`` (the
-reference's TPU pods) and the SSM families on a model axis above 1 are
-ROADMAP A.8.3.
+this process (``serve.mesh_worker``).  Every arch serves on any such
+mesh: the SSM families split their mixer by heads or gather it
+(``sharding.specs.ssm_split``), and a ``--batch`` smaller than the data
+axis is served with the attention caches sequence-sharded over the data
+ranks (``serve.engine``), e.g. ``--batch 1 --mesh host --devices 2``.
+``--mesh pod|multipod`` (the reference's TPU pods) exits 2: that layout
+has no host counterpart; ``repro_torch.launch.dryrun`` gives the bytes a
+rank holds on it.
 """
 from __future__ import annotations
 
@@ -45,6 +50,8 @@ class ServeResult:
     cond: Optional[torch.Tensor]
     out: torch.Tensor
     seconds: float
+    # on a mesh: rank 0's timed parts of generate, every rank's stats
+    mesh: Optional[dict] = None
 
 
 def main(argv=None) -> ServeResult:
@@ -68,8 +75,10 @@ def main(argv=None) -> ServeResult:
     args = ap.parse_args(argv)
 
     if args.mesh in ("pod", "multipod"):
-        ap.error(f"--mesh {args.mesh}: the reference's TPU pod mesh is "
-                 "ROADMAP A.8.3; the port serves on --mesh host")
+        try:
+            mesh_mod.make_production_mesh(multi_pod=args.mesh == "multipod")
+        except NotImplementedError as e:
+            ap.error(f"--mesh {args.mesh}: {e}")
     try:
         device = resolve_device(args.device)
     except RuntimeError:
@@ -88,9 +97,6 @@ def main(argv=None) -> ServeResult:
                                          else 1))
         except ValueError as e:
             ap.error(str(e))
-        if cfg.ssm_state > 0 and layout.model > 1:
-            ap.error(f"{cfg.name} on a model axis of {layout.model}: the SSM "
-                     "families' tensor-parallel in_proj is ROADMAP A.8.3")
 
     prompts = rng.randint(rng.PRNGKey(args.seed),
                           (args.batch, args.prompt_len), 0,
@@ -101,9 +107,10 @@ def main(argv=None) -> ServeResult:
         cond = torch.randn((args.batch, cfg.cond_len, cfg.cond_dim_),
                            generator=g, device=device)
     max_seq = args.prompt_len + args.gen + 1
+    mesh = None
     if layout is not None:
-        out, dt = _serve_on_mesh(layout, cfg, args, device, prompts, cond,
-                                 max_seq)
+        out, dt, mesh = _serve_on_mesh(layout, cfg, args, device, prompts,
+                                       cond, max_seq)
         engine = None
     else:
         model = tfm.init_params(args.seed, cfg, device=device)
@@ -119,26 +126,42 @@ def main(argv=None) -> ServeResult:
     tps = args.batch * args.gen / dt
     print(f"[serve] {cfg.name}: generated {tuple(out.shape)} tokens in "
           f"{dt:.2f}s ({tps:.1f} tok/s, batch={args.batch})")
+    if mesh is not None:
+        t = mesh["timed"]
+        steps = sorted(t["step_ms"])
+        print(f"[serve] rank 0: prefill {t['prefill_ms']:.1f} ms, decode "
+              f"step {steps[len(steps) // 2] if steps else 0.0:.2f} ms "
+              "median")
     print("[serve] sample:", out[0, :16].tolist())
-    return ServeResult(engine, prompts, cond, out, dt)
+    return ServeResult(engine, prompts, cond, out, dt, mesh)
 
 
 def _serve_on_mesh(layout, cfg, args, device, prompts, cond, max_seq):
-    """``generate`` on every rank of the mesh; returns rank 0's tokens (on
-    ``device``) and the seconds it took."""
+    """``Engine.generate`` on every rank of the mesh, each part timed
+    (``op_generate(timed=True)``); returns rank 0's tokens (on
+    ``device``), the seconds it took, and the mesh's numbers: rank 0's
+    timed parts, every rank's ``op_stats``, and the seconds the ranks took
+    to start and rank 0 to build its blocks."""
     from repro_torch.serve.mesh_worker import LMMeshRun
 
     spec = {"data": layout.data, "model": layout.model}
+    c = None if cond is None else cond.cpu()
+    t0 = time.perf_counter()
     with LMMeshRun(spec, device) as run:
+        start_s = time.perf_counter() - t0
         print(f"[serve] mesh {layout.data} x {layout.model} over "
               f"{run.transport} ({run.world} ranks)")
-        run.call("load", cfg, seed=args.seed, max_seq=max_seq,
-                 temperature=args.temperature)
+        load = run.call("load", cfg, seed=args.seed, max_seq=max_seq,
+                        temperature=args.temperature)
+        run.call("reset_peak")
         t0 = time.perf_counter()
-        out = run.call("generate", prompts.cpu(), args.gen,
-                       None if cond is None else cond.cpu())
+        timed = run.call("generate", prompts.cpu(), args.gen, c, timed=True)
+        out = timed.pop("tokens")
         dt = time.perf_counter() - t0
-    return out.to(device), dt
+        mesh = {"timed": timed, "stats": run.call("stats"),
+                "transport": run.transport, "start_s": start_s,
+                "load_s": load["load_s"]}
+    return out.to(device), dt, mesh
 
 
 if __name__ == "__main__":

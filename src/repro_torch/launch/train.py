@@ -26,9 +26,12 @@ gloo (``train.mesh_worker``; rank 0 is this process).  Every rank draws
 its blocks of the single-device weights of ``--seed`` and takes the
 same steps as ``--mesh none`` on the same batches (parameters split by
 the rules, AdamW moments ZeRO-split over the data axis); rank 0 writes
-the npz, gathered to the JAX layout.  ``--layers`` cuts the depth (the
-widths stay the config's).  ``--mesh pod|multipod`` (the reference's TPU
-pods) and the SSM families on a model axis above 1 are ROADMAP A.8.3.
+the npz, gathered to the JAX layout.  Every arch trains on any such
+mesh (the SSM families split their mixer by heads or gather it,
+``sharding.specs.ssm_split``).  ``--layers`` cuts the depth (the widths
+stay the config's).  ``--mesh pod|multipod`` (the reference's TPU pods)
+exits 2: that layout has no host counterpart; ``repro_torch.launch.dryrun``
+gives the bytes a rank holds on it.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ import dataclasses
 import json
 import os
 import sys
+import time
 from typing import List, Optional
 
 from repro_torch import convert
@@ -62,6 +66,10 @@ class TrainResult:
     history: List[dict]
     cfg: ModelConfig
     tc: TrainConfig
+    # on a mesh: rank 0's ``op_train_init`` result, every rank's from
+    # ``op_train_fit`` (collectives, peak memory, blocks that moved), the
+    # ranks' start seconds
+    mesh: Optional[dict] = None
 
 
 def build_cfg(args) -> ModelConfig:
@@ -122,9 +130,6 @@ def main(argv=None) -> TrainResult:
                                          else 1))
         except ValueError as e:
             ap.error(str(e))
-        if cfg.ssm_state > 0 and layout.model > 1:
-            ap.error(f"{cfg.name} on a model axis of {layout.model}: the SSM "
-                     "families' tensor-parallel in_proj is ROADMAP A.8.3")
 
     tc = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                      warmup_steps=max(args.steps // 10, 5), seed=args.seed,
@@ -140,10 +145,11 @@ def main(argv=None) -> TrainResult:
         cond_len=cfg.cond_len if cfg.cross_attn_mode else 0,
         cond_dim=cfg.cond_dim_ if cfg.cross_attn_mode else 0))
 
+    mesh = None
     if layout is not None:
         state = None
-        history, final = _train_on_mesh(layout, cfg, tc, args, device,
-                                        list(src.batches(args.steps)))
+        history, final, mesh = _train_on_mesh(
+            layout, cfg, tc, args, device, list(src.batches(args.steps)))
     else:
         state = train_loop.init_state(args.seed, cfg, device=device)
         state, history = train_loop.fit(state, src.batches(args.steps), cfg,
@@ -161,22 +167,28 @@ def main(argv=None) -> TrainResult:
     first, last = history[0]["loss"], history[-1]["loss"]
     print(f"[train] loss {first:.4f} -> {last:.4f} "
           f"({'improved' if last < first else 'NO IMPROVEMENT'})")
-    return TrainResult(state, history, cfg, tc)
+    return TrainResult(state, history, cfg, tc, mesh)
 
 
 def _train_on_mesh(layout, cfg, tc, args, device, batches):
-    """``fit`` on every rank of the mesh; returns rank 0's history and,
-    when ``--out`` asks for it, the final parameters in the JAX layout."""
+    """``fit`` on every rank of the mesh; returns rank 0's history, when
+    ``--out`` asks for it the final parameters in the JAX layout, and the
+    mesh's numbers (``TrainResult.mesh``; ``start_s``: the seconds the
+    ranks took to start)."""
     from repro_torch.train.mesh_worker import LMTrainRun
 
     spec = {"data": layout.data, "model": layout.model}
+    t0 = time.perf_counter()
     with LMTrainRun(spec, device) as run:
+        start_s = time.perf_counter() - t0
         print(f"[train] mesh {layout.data} x {layout.model} over "
               f"{run.transport} ({run.world} ranks)")
-        run.call("train_init", cfg, tc, seed=args.seed)
-        history = run.call("train_fit", batches, args.log_every)["history"]
+        init = run.call("train_init", cfg, tc, seed=args.seed)
+        res = run.call("train_fit", batches, args.log_every)
         final = run.arrays(cfg, "params")["params"] if args.out else None
-    return history, final
+    return res["history"], final, {"init": init, "ranks": res["ranks"],
+                                   "transport": run.transport,
+                                   "start_s": start_s}
 
 
 if __name__ == "__main__":

@@ -49,9 +49,9 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (RMSNorm, _bmm_f32, apply_rope, block,
-                                       dtype_of, full_shape, model_copy,
-                                       model_gather, normal_, param,
-                                       rms_norm, row_parallel)
+                                       dtype_of, full_shape, lse_combine,
+                                       model_copy, model_gather, normal_,
+                                       param, rms_norm, row_parallel)
 from repro_torch.sharding.specs import SINGLE, MeshCtx
 
 _NEG = -1e30
@@ -153,23 +153,58 @@ def _attend_chunked(q, k, v, q_pos, kv_pos, *, causal: bool, window: int,
     return torch.cat(outs, dim=1)[:, :tq].to(q.dtype)
 
 
-def _attend_decode(q, k, v, kv_pos, pos, window: int) -> torch.Tensor:
-    """One-token decode: q [B, 1, KV, G, hd] vs cache k/v [B, S, KV, hd].
-    ``kv_pos`` [S] marks each cache slot's position; ``pos`` is the query's.
-    K and V stay in the cache dtype; the products accumulate in float32."""
+def _softmax_part(s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """The softmax over the last dim of float32 scores of live slots alone,
+    with its statistics: ``(m, l, p)``, the scores' max, the sum of
+    ``exp(s - m)`` and ``p = exp(s - m) / l``.  With no slot (a
+    sequence-sharded rank's empty part) ``m = -1e30``, ``l = 0`` and ``p``
+    is empty, so its weighted sums are 0."""
+    if s.shape[-1] == 0:
+        return (torch.full(s.shape[:-1], _NEG, dtype=s.dtype,
+                           device=s.device),
+                s.new_zeros(s.shape[:-1]), s)
+    m = s.amax(-1)
+    e = torch.exp(s - m[..., None])
+    l = e.sum(-1)
+    return m, l, e / l[..., None]
+
+
+def _attend_decode(q, k, v) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """One-token decode over live slots alone: q [B, 1, KV, G, hd] vs k/v
+    [B, n, KV, hd] (every slot live, ``n`` possibly 0).  K and V stay in
+    the cache dtype; the products accumulate in float32.  Returns float32
+    ``(m [B, KV, G], l, out [B, KV, G, hd])`` (``_softmax_part``'s
+    statistics and the softmax-weighted values): the answer itself, or a
+    data rank's part of a sequence-sharded cache for
+    ``layers.lse_combine``."""
     b, _, nkv, g, hd = q.shape
-    s_len = k.shape[1]
+    n = k.shape[1]
     qm = q.reshape(b * nkv, g, hd)
-    km = k.permute(0, 2, 3, 1).reshape(b * nkv, hd, s_len)
-    s = _bmm_f32(qm, km).view(b, nkv, g, s_len) * hd ** -0.5
-    ok = kv_pos <= pos
-    if window > 0:
-        ok = ok & (pos - kv_pos < window)
-    s = torch.where(ok, s, _NEG)
-    p = torch.softmax(s, dim=-1)
-    vm = v.permute(0, 2, 1, 3).reshape(b * nkv, s_len, hd)
-    out = _bmm_f32(p.to(v.dtype).reshape(b * nkv, g, s_len), vm)
-    return out.view(b, 1, nkv, g, hd).to(q.dtype)
+    km = k.permute(0, 2, 3, 1).reshape(b * nkv, hd, n)
+    s = _bmm_f32(qm, km).view(b, nkv, g, n) * hd ** -0.5
+    m, l, p = _softmax_part(s)
+    if n == 0:
+        return m, l, q.new_zeros((b, nkv, g, hd), dtype=torch.float32)
+    vm = v.permute(0, 2, 1, 3).reshape(b * nkv, n, hd)
+    out = _bmm_f32(p.to(v.dtype).reshape(b * nkv, g, n), vm)
+    return m, l, out.view(b, nkv, g, hd)
+
+
+def seq_block(cache: torch.Tensor, ctx: MeshCtx, lo: int, hi: int,
+              seq_shard: bool = True) -> Tuple[int, int, int]:
+    """The part of ``cache`` (slot dim 1) that a decode on this rank reads:
+    the position of its first slot, ``base``, and the live range ``[lo,
+    hi)`` clipped to it, as positions (empty, ``lo >= hi``, where none is
+    live here).  Unsharded: the whole cache, ``base`` 0; sequence-sharded:
+    this data rank's block."""
+    if not seq_shard:
+        return 0, lo, hi
+    n = cache.shape[1]
+    base = ctx.comm.data_idx * n
+    lo = max(lo, base)
+    return base, lo, max(lo, min(hi, base + n))
 
 
 def live_range(pos: int, window: int) -> Tuple[int, int]:
@@ -364,25 +399,31 @@ class Attention(nn.Module):
 
     def decode(self, x: torch.Tensor, cache_k: torch.Tensor,
                cache_v: torch.Tensor, pos: int, *, window: int,
-               theta: float) -> torch.Tensor:
+               theta: float, seq_shard: bool = False) -> torch.Tensor:
         """One decode step.  x: [B, 1, D]; cache k/v: [B, S, KV, hd] (this
         rank's KV heads), written at ``pos`` in place; attends over the
-        live slots only."""
+        live slots only.  ``seq_shard``: the cache is this data rank's
+        block of the sequence (``seq_block``): the rank that owns slot
+        ``pos`` writes it, each attends over its live slots and the parts
+        meet in ``layers.lse_combine``."""
         cfg = self.cfg
         b = x.shape[0]
         hd = cfg.head_dim_
         positions = torch.tensor([pos], dtype=torch.int64, device=x.device)
         w = self.weights()
         q, k_new, v_new = self.qkv(x, x, positions, theta, w)
-        _write_slot(cache_k, k_new, pos)
-        _write_slot(cache_v, v_new, pos)
-        lo, hi = live_range(pos, window)
-        kv_pos = torch.arange(lo, hi, device=x.device)
+        base, lo, hi = seq_block(cache_k, self.ctx, *live_range(pos, window),
+                                 seq_shard)
+        if lo <= pos < hi:
+            _write_slot(cache_k, k_new, pos - base)
+            _write_slot(cache_v, v_new, pos - base)
         nkv = k_new.shape[2]
         qg = q.reshape(b, 1, nkv, q.shape[2] // nkv, hd)
-        out = _attend_decode(qg, cache_k[:, lo:hi], cache_v[:, lo:hi],
-                             kv_pos, pos, window)
-        return self._out(out, w[3])
+        live = slice(lo - base, hi - base)
+        out = lse_combine(*_attend_decode(qg, cache_k[:, live],
+                                          cache_v[:, live]),
+                          self.ctx.comm if seq_shard else None, "lse")
+        return self._out(out.view(b, 1, nkv, -1, hd).to(q.dtype), w[3])
 
 
 # ---------------------------------------------------------------------------
@@ -480,12 +521,17 @@ class MLA(nn.Module):
         return out, (ckv, krope)
 
     def decode(self, x: torch.Tensor, cache_ckv: torch.Tensor,
-               cache_krope: torch.Tensor, pos: int) -> torch.Tensor:
+               cache_krope: torch.Tensor, pos: int,
+               seq_shard: bool = False) -> torch.Tensor:
         """Absorbed-matmul MLA decode: scores and context in the latent
         space, so a step costs O(S * (r + dr)) whatever the head count.
 
           scores[b,h,s] = (q_nope[b,h] @ W_uk[h]) . ckv[b,s] + q_rope[b,h] . krope[b,s]
           ctx[b,h]      = (sum_s p[b,h,s] ckv[b,s]) @ W_uv[h]
+
+        ``seq_shard``: the latent cache is this data rank's block of the
+        sequence; each rank's ``sum_s p ckv`` over its live slots meets the
+        others' in ``layers.lse_combine``.
         """
         cfg = self.cfg
         b = x.shape[0]
@@ -496,18 +542,21 @@ class MLA(nn.Module):
         qn, qr = self._q(x, positions, wq)
         h = qn.shape[2]
         ckv_new, krope_new = self._compress(x, positions)
-        _write_slot(cache_ckv, ckv_new, pos)
-        _write_slot(cache_krope, krope_new, pos)
+        base, lo, hi = seq_block(cache_ckv, self.ctx, 0, pos + 1, seq_shard)
+        if lo <= pos < hi:
+            _write_slot(cache_ckv, ckv_new, pos - base)
+            _write_slot(cache_krope, krope_new, pos - base)
         f32 = torch.float32
-        ckv = cache_ckv[:, :pos + 1].to(f32)
-        krope = cache_krope[:, :pos + 1].to(f32)
+        ckv = cache_ckv[:, lo - base:hi - base].to(f32)
+        krope = cache_krope[:, lo - base:hi - base].to(f32)
         w_uk = w_uk.reshape(r, h, dn).to(f32)
         w_uv = w_uv.reshape(r, h, dv).to(f32)
         q_eff = torch.einsum("bqhd,rhd->bhr", qn.to(f32), w_uk)  # absorb W_uk
         scores = (torch.einsum("bhr,bsr->bhs", q_eff, ckv)
                   + torch.einsum("bqhd,bsd->bhs", qr.to(f32), krope))
-        p = torch.softmax(scores * (dn + dr) ** -0.5, dim=-1)
-        ctx_lat = torch.einsum("bhs,bsr->bhr", p, ckv)
+        m, l, p = _softmax_part(scores * (dn + dr) ** -0.5)
+        ctx_lat = lse_combine(m, l, torch.einsum("bhs,bsr->bhr", p, ckv),
+                              self.ctx.comm if seq_shard else None, "lse")
         ctx = torch.einsum("bhr,rhd->bhd", ctx_lat, w_uv)
         return self._out(ctx.reshape(b, 1, h * dv).to(x.dtype), wo)
 

@@ -59,6 +59,13 @@ def normal_(t: torch.Tensor, std: float, g: torch.Generator) -> torch.Tensor:
         full = torch.randn(full_shape(t), generator=g, device=t.device,
                            dtype=torch.float32)
         full.mul_(std)
+    return fill_(t, full)
+
+
+def fill_(t: torch.Tensor, full: torch.Tensor) -> torch.Tensor:
+    """``t`` set from its single-device value ``full``: the whole of it,
+    or on a mesh the rank's block of it (``_mesh_fill``)."""
+    with torch.no_grad():
         fill = getattr(t, "_mesh_fill", None)
         t.copy_(full if fill is None else fill(full))
     return t
@@ -105,13 +112,19 @@ def block(n: int, m: int, what: str) -> int:
 F32 = torch.float32
 
 
+def wide(dt: torch.dtype) -> torch.dtype:
+    """The dtype sums and norms run in: float32, or ``dt`` where it is
+    wider (float64, the finite-difference tests)."""
+    return torch.promote_types(dt, F32)
+
+
 def _model_comm(ctx: MeshCtx):
     comm = ctx.comm if ctx is not None else None
     return comm if comm is not None and comm.model > 1 else None
 
 
 def _sum_f32(comm, g: torch.Tensor, axis, tag: str) -> torch.Tensor:
-    return comm.all_reduce(g.to(F32), axis, tag).to(g.dtype)
+    return comm.all_reduce(g.to(wide(g.dtype)), axis, tag).to(g.dtype)
 
 
 class _Sum(torch.autograd.Function):
@@ -219,7 +232,7 @@ def model_sum(x: torch.Tensor, ctx: MeshCtx, tag: str = "all_reduce",
     dtype = dtype or x.dtype
     if comm is None:
         return x.to(dtype)
-    return mesh_sum(x.to(F32), comm, "model", tag).to(dtype)
+    return mesh_sum(x.to(wide(x.dtype)), comm, "model", tag).to(dtype)
 
 
 def model_copy(x: torch.Tensor, ctx: MeshCtx,
@@ -275,7 +288,7 @@ def mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` accumulated and returned in float32: a row-parallel
     rank's partial product, kept unrounded until the ranks' sum (on the
     card a bf16 ``bmm`` with a float32 output; the CPU widens first)."""
-    if x.dtype == torch.float32:
+    if x.dtype == wide(x.dtype):
         return x @ w
     out = _bmm_f32(x.reshape(1, -1, x.shape[-1]), w[None])
     return out.reshape(*x.shape[:-1], w.shape[-1])
@@ -321,11 +334,57 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     return (x * (1.0 + scale.to(torch.float32))).to(dt)
 
 
+def rms_norm_sharded(x: torch.Tensor, scale: torch.Tensor, eps: float,
+                     ctx: MeshCtx, d_full: int) -> torch.Tensor:
+    """``rms_norm`` over a feature dim split over the model ranks: ``x``
+    and ``scale`` are this rank's ``d_full / M`` features.  The float32
+    sum of squares is summed over the model ranks and the mean divides by
+    ``d_full``.  Each rank normalises its own slice, so the sum's
+    consumers differ by rank: its backward all-reduces too (``model_sum``
+    then ``model_copy``)."""
+    dt = x.dtype
+    x = x.to(wide(dt))
+    ss = torch.sum(x * x, dim=-1, keepdim=True)
+    if _model_comm(ctx) is not None:
+        ss = model_copy(model_sum(ss, ctx, "norm"), ctx, "norm")
+    x = x * torch.rsqrt(ss / d_full + eps)
+    return (x * (1.0 + scale.to(x.dtype))).to(dt)
+
+
+def lse_combine(m: torch.Tensor, l: torch.Tensor, out: torch.Tensor,
+                comm, tag: str = "lse") -> torch.Tensor:
+    """The softmax-weighted sum over every data rank's cache slots from
+    each rank's part over its own (serving only, no backward): the max
+    ``m`` of its scores, the sum ``l`` of ``exp(s - m)`` and its
+    softmax-weighted values ``out [..., D]``, all float32.  Without a
+    ``comm`` (or with one data rank) that part is the answer.  Else the
+    parts are all-gathered over the data axis (one call) and combined in
+    rank order on every rank, so every data rank holds the same bits.  A
+    rank with no live slot passes ``m = -1e30``, ``l = out = 0``: its
+    weight ``l exp(m - max)`` is exactly 0, never NaN."""
+    if comm is None or comm.data == 1:
+        return out
+    part = torch.cat([out, m[..., None], l[..., None]], dim=-1)
+    parts = comm.all_gather_dim(part.unsqueeze(0), "data", 0, tag)
+    top = parts[..., -2].amax(0)
+    num = den = None
+    for j in range(comm.data):
+        w = parts[j, ..., -1] * torch.exp(parts[j, ..., -2] - top)
+        nj = parts[j, ..., :-2] * w[..., None]
+        num, den = (nj, w) if num is None else (num + nj, den + w)
+    return num / torch.clamp(den, min=1e-30)[..., None]
+
+
 class RMSNorm(nn.Module):
-    def __init__(self, d: int, eps: float, device=None):
+    """``full``: the single-device width where ``d`` is a mesh rank's
+    slice of it (an SSM gate norm split by heads)."""
+
+    def __init__(self, d: int, eps: float, device=None,
+                 full: Optional[int] = None):
         super().__init__()
         self.eps = eps
-        self.scale = param((d,), torch.float32, device)
+        self.scale = param((d,), torch.float32, device,
+                           full=None if full is None else (full,))
 
     def reset_parameters(self, g: torch.Generator) -> None:
         nn.init.zeros_(self.scale)

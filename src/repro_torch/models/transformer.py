@@ -22,11 +22,17 @@ drops in the first run only.
 
 On a mesh (a ``MeshCtx`` over a rank's ``launch.mesh.Mesh``) the model
 holds this rank's block of every parameter (``sharding.specs`` rules, the
-vocab tables and expert stacks in the mesh's cyclic order), its batch
-slice of the hidden, and its cache (``allocate_cache(..., ctx)``); the
-logits it returns are its vocab shard (``layers.gather_vocab`` makes the
-row).  ``init_params`` draws each leaf whole in the single-device order
-and keeps the rank's block, so a mesh of any shape holds the same logical
+vocab tables and expert stacks in the mesh's cyclic order, an SSM mixer
+split by heads in its regrouped columns: ``specs.port_spec``,
+``models/ssm.py``), its batch slice of the hidden, and its cache
+(``allocate_cache(..., ctx)``); the logits it returns are its vocab shard
+(``layers.gather_vocab`` makes the row).  A batch smaller than the data
+axis is served with a sequence-sharded cache (``Caches.seq_shard``):
+every data rank holds the whole batch and its block of each attention
+cache's slots (prefill writes the positions of its block, decode's slot
+is written by its owner).
+``init_params`` draws each leaf whole in the single-device order and
+keeps the rank's block, so a mesh of any shape holds the same logical
 weights as the single-device model of that seed.
 
 Entry points:
@@ -54,6 +60,7 @@ from repro_torch.models.layers import (MLP, Embedding, RMSNorm, VocabLayout,
                                        dtype_of, lm_head_logits, param,
                                        softmax_xent_physical,
                                        softmax_xent_sharded)
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import SSM
 from repro_torch.sharding import specs
@@ -122,13 +129,13 @@ class Block(nn.Module):
             return
         self.ssm_only = cfg.ssm_state > 0 and not cfg.hybrid
         if self.ssm_only and not cfg.has_attention:
-            self.ssm = SSM(cfg, device)
+            self.ssm = SSM(cfg, device, ctx=ctx)
             return                  # mamba2 block: norm + mixer only
         if cfg.has_attention:
             self.attn = (MLA(cfg, device, ctx=ctx) if cfg.use_mla
                          else Attention(cfg, device=device, ctx=ctx))
         if cfg.hybrid:
-            self.ssm = SSM(cfg, device)
+            self.ssm = SSM(cfg, device, ctx=ctx)
             self.attn_out_norm = RMSNorm(d, eps, device)
             self.ssm_out_norm = RMSNorm(d, eps, device)
             self.mix_attn = param((), torch.float32, device)
@@ -205,9 +212,10 @@ class Block(nn.Module):
     # -- one token ---------------------------------------------------------
 
     def decode(self, x, cache: Dict[str, torch.Tensor], pos: int, *,
-               window: int, theta: float, cond):
+               window: int, theta: float, cond, seq_shard: bool = False):
         """One-token block; ``cache`` holds this layer's views, updated in
-        place.  Returns (x, aux)."""
+        place (``seq_shard``: its attention slots are this data rank's
+        block of the sequence).  Returns (x, aux)."""
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
         if self.kind == "cross":
             return self._cross_layer(x, cond), zero
@@ -215,10 +223,12 @@ class Block(nn.Module):
         if self.ssm_only:
             return x + self.ssm.decode(h, cache["ssm"], cache["conv"]), zero
         if self.cfg.use_mla:
-            a_out = self.attn.decode(h, cache["ckv"], cache["krope"], pos)
+            a_out = self.attn.decode(h, cache["ckv"], cache["krope"], pos,
+                                     seq_shard=seq_shard)
         else:
             a_out = self.attn.decode(h, cache["k"], cache["v"], pos,
-                                     window=window, theta=theta)
+                                     window=window, theta=theta,
+                                     seq_shard=seq_shard)
         if self.cfg.hybrid:
             s_out = self.ssm.decode(h, cache["ssm"], cache["conv"])
             x = self._mix(x, a_out, s_out)
@@ -240,10 +250,6 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, ctx: MeshCtx = SINGLE,
                  device: Device = None, rank: Optional[int] = None):
         super().__init__()
-        if cfg.ssm_state > 0 and ctx.model_size > 1:
-            raise NotImplementedError(
-                f"{cfg.name} on a model axis of {ctx.model_size}: the SSM "
-                "families' tensor-parallel in_proj is ROADMAP A.8.3")
         dev = resolve_device(device)
         plan = layer_plan(cfg)
         self.cfg, self.plan, self.ctx = cfg, plan, ctx
@@ -341,7 +347,8 @@ class Transformer(nn.Module):
         ``(logits_physical [B, S', Vpad], aux)``, S' the positions
         ``head_at`` selects (all by default).  With ``caches`` (an
         ``allocate_cache`` dict with at least S slots) each layer's K/V and
-        SSM state are written into it.  ``remat`` (default ``cfg.remat``)
+        SSM state are written into it (a sequence-sharded one: the positions
+        of this rank's slot block).  ``remat`` (default ``cfg.remat``)
         checkpoints each layer while gradients are recorded; no cache is
         written then."""
         b, s = tokens.shape
@@ -354,6 +361,7 @@ class Transformer(nn.Module):
             # the modality frontend is a stub: no gradient flows to it
             # (the reference's stop_gradient)
             cond = cond.detach()
+        seq_shard = getattr(caches, "seq_shard", False)
         positions = torch.arange(s, dtype=torch.int64, device=tokens.device)
         x = self._embed(tokens)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -371,7 +379,14 @@ class Transformer(nn.Module):
             if caches is not None and stack is not None:
                 for name, val in entry.items():
                     dst = caches[stack][name][i]
-                    (dst[:, :s] if name in SEQ_LEAVES else dst).copy_(val)
+                    if name not in SEQ_LEAVES:
+                        dst.copy_(val)
+                    elif not seq_shard:
+                        dst[:, :s].copy_(val)
+                    else:
+                        base = self.ctx.comm.data_idx * dst.shape[1]
+                        n = max(0, min(s, base + dst.shape[1]) - base)
+                        dst[:, :n].copy_(val[:, base:base + n])
         x = self.final_norm(x if head_at is None else x[:, head_at])
         return lm_head_logits(self.head, x), aux
 
@@ -379,12 +394,15 @@ class Transformer(nn.Module):
                     cond: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One decode step.  token: [B] int; ``pos`` (a Python int) is the
         position being written.  Returns logits [B, Vpad]; the caches are
-        updated in place."""
+        updated in place (sequence-sharded ones: by the data rank that owns
+        slot ``pos``)."""
+        seq_shard = getattr(caches, "seq_shard", False)
         x = self._embed(token[:, None])
         for stack, i, blk, win, th in self.schedule():
             view = ({} if stack is None else
                     {name: t[i] for name, t in caches[stack].items()})
-            x, _ = blk.decode(x, view, pos, window=win, theta=th, cond=cond)
+            x, _ = blk.decode(x, view, pos, window=win, theta=th, cond=cond,
+                              seq_shard=seq_shard)
         return lm_head_logits(self.head, self.final_norm(x))[:, 0]
 
 
@@ -406,14 +424,19 @@ def _cyclic_kind(name: str) -> Optional[str]:
 def shard_leaf(name: str, full: torch.Tensor, cfg: ModelConfig,
                ctx: MeshCtx, rank: int) -> torch.Tensor:
     """Rank ``rank``'s block of parameter ``name`` from its single-device
-    (logical) value ``full``: the rules' block, the vocab table's rows and
-    the expert stack's experts taken in the mesh's cyclic order (logical
-    row ``v`` of ``M`` shards lives on shard ``v mod M``; a vocab shard's
-    rows past the vocabulary are zero)."""
+    (logical) value ``full``: the block of ``specs.port_spec`` (the rules'
+    but for an SSM mixer split by heads, whose per-head leaves split by
+    heads and whose ``in_proj``/``conv_w``/``conv_b`` columns are
+    regrouped, ``ssm.to_rank_columns``), the vocab table's rows and the
+    expert stack's experts taken in the mesh's cyclic order (logical row
+    ``v`` of ``M`` shards lives on shard ``v mod M``; a vocab shard's rows
+    past the vocabulary are zero)."""
     m = ctx.model_size
-    spec = specs.spec_for(specs.path_str(name), full.dim(), ctx)
+    spec = specs.port_spec(specs.path_str(name), full.dim(), ctx, cfg)
     kind = _cyclic_kind(name)
     if kind is None:
+        if ssm_mod.regrouped(name, cfg, m):
+            full = ssm_mod.to_rank_columns(name, full, cfg, m)
         return specs.local_shard(full, spec, ctx.mesh, rank)
     i = specs.axis_coords(ctx.mesh, rank)[ctx.model]
     if kind == "vocab":
@@ -435,11 +458,12 @@ def unshard_leaf(name: str, blocks: List[torch.Tensor], cfg: ModelConfig,
                  ctx: MeshCtx, spec=None) -> torch.Tensor:
     """The inverse of ``shard_leaf``: the single-device (logical) value of
     parameter ``name`` from every rank's block, in rank order; ``spec``
-    places the blocks (the rules' by default; a ZeRO moment's are its
-    ``opt_state_specs``)."""
+    places the blocks (``specs.port_spec`` by default; a ZeRO moment's
+    are its ``opt_state_specs``)."""
     mesh = ctx.mesh
     if spec is None:
-        spec = specs.spec_for(specs.path_str(name), blocks[0].dim(), ctx)
+        spec = specs.port_spec(specs.path_str(name), blocks[0].dim(), ctx,
+                               cfg)
     kind = _cyclic_kind(name)
     shape = list(blocks[0].shape)
     grid = [specs.shard_grid(spec, mesh, r) for r in range(len(blocks))]
@@ -450,6 +474,8 @@ def unshard_leaf(name: str, blocks: List[torch.Tensor], cfg: ModelConfig,
         index = tuple(slice(i * blk.shape[d], (i + 1) * blk.shape[d])
                       for d, (_, i) in enumerate(grid[r]))
         phys[index] = blk
+    if ssm_mod.regrouped(name, cfg, ctx.model_size):
+        return ssm_mod.from_rank_columns(name, phys, cfg, ctx.model_size)
     return phys if kind is None else \
         from_cyclic_rows(name, phys, cfg, ctx.model_size)
 
@@ -487,8 +513,9 @@ def to_cyclic_rows(name: str, logical: torch.Tensor, cfg: ModelConfig,
 
 def _attach_fill(name: str, p: torch.Tensor, cfg: ModelConfig,
                  ctx: MeshCtx, rank: int) -> None:
-    """Check that ``p`` is the rules' block of its single-device leaf, and
-    let ``layers.normal_`` fill it from a whole draw."""
+    """Check that ``p`` is ``shard_leaf``'s block of its single-device
+    leaf (the rules', or the SSM's regrouped columns), and let
+    ``layers.normal_``/``fill_`` fill it from a whole value."""
     probe = torch.empty(p._full_shape, device="meta")
     want = tuple(shard_leaf(name, probe, cfg, ctx, rank).shape)
     if want != tuple(p.shape):
@@ -537,30 +564,55 @@ def init_params(seed, cfg: ModelConfig, ctx: MeshCtx = SINGLE,
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, seq_len: int,
-                 ctx: MeshCtx = SINGLE) -> dict:
+                 ctx: MeshCtx = SINGLE, seq_shard: bool = False) -> dict:
     """``registry.cache_shapes`` of one rank: on a mesh ``batch`` is its
-    data slice and the KV leaves hold its KV heads
-    (``attention.cache_kv_heads``); the MLA latent and the SSM state stay
-    whole."""
+    data slice (``seq_shard``: the whole batch, and each attention and MLA
+    leaf holds the rank's ``ceil(seq_len / dp)`` slots), the KV leaves
+    hold its KV heads (``attention.cache_kv_heads``), the SSM state and
+    conv tail its heads and channels (``ssm.SSM``: split by heads, or
+    whole); the MLA latent stays whole."""
+    if seq_shard:
+        seq_len = -(-seq_len // ctx.dp_size)
     out = registry.cache_shapes(cfg, batch, seq_len)
     heads = cache_kv_heads(cfg, ctx.model_size)
+    m = ctx.model_size
+    tp = cfg.ssm_state > 0 and m > 1 and specs.ssm_split(cfg, m) == "heads"
     for leaves in out.values():
         for name in ("k", "v"):
             if name in leaves:
                 shape, dt = leaves[name]
                 leaves[name] = (shape[:3] + (heads,) + shape[4:], dt)
+        if tp and "ssm" in leaves:
+            (n, b, h, p, st), dt = leaves["ssm"]
+            leaves["ssm"] = ((n, b, h // m, p, st), dt)
+            (n, b, w, _), dt = leaves["conv"]
+            leaves["conv"] = ((n, b, w, cfg.d_inner // m + 2 * cfg.ssm_state),
+                              dt)
     return out
 
 
+class Caches(dict):
+    """Decode caches, ``{stack: {leaf: [L, B, ...]}}`` (``allocate_cache``).
+    ``seq_shard``: sequence-sharded over the data axis, each attention and
+    MLA leaf holding this data rank's block of the slots; the model reads
+    it from here, so a cache and its layout cannot disagree."""
+
+    def __init__(self, stacks=(), seq_shard: bool = False):
+        super().__init__(stacks)
+        self.seq_shard = seq_shard
+
+
 def allocate_cache(cfg: ModelConfig, batch: int, seq_len: int,
-                   device: Device = None, ctx: MeshCtx = SINGLE) -> dict:
+                   device: Device = None, ctx: MeshCtx = SINGLE,
+                   seq_shard: bool = False) -> Caches:
     """Zeroed decode caches of ``seq_len`` slots, shaped by
     ``cache_shapes``."""
     dev = resolve_device(device)
-    return {stack: {name: torch.zeros(shape, dtype=dt, device=dev)
-                    for name, (shape, dt) in leaves.items()}
-            for stack, leaves in cache_shapes(cfg, batch, seq_len,
-                                              ctx).items()}
+    return Caches({stack: {name: torch.zeros(shape, dtype=dt, device=dev)
+                           for name, (shape, dt) in leaves.items()}
+                   for stack, leaves in cache_shapes(cfg, batch, seq_len, ctx,
+                                                     seq_shard).items()},
+                  seq_shard)
 
 
 def forward(model: Transformer, tokens: torch.Tensor,

@@ -11,17 +11,23 @@ Gumbel-max form.
 **On a mesh** (the model's ``ctx`` over a rank's ``launch.mesh.Mesh``)
 every rank runs the same ``generate`` on the whole batch of prompts: it
 takes its data slice of the batch, holds its cache (1/``model`` of each
-KV leaf where KV heads tile the model axis, the whole latent for MLA:
-``transformer.cache_shapes``), gathers the physical logits row over the
-model group before sampling, and returns the whole batch's tokens
-(all-gathered over the data axis).  A batch smaller than the data axis
-would need the sequence-sharded cache of ``specs.cache_specs``.
+KV leaf where KV heads tile the model axis, the whole latent for MLA,
+its SSM heads' state: ``transformer.cache_shapes``), gathers the physical
+logits row over the model group before sampling, and returns the whole
+batch's tokens (all-gathered over the data axis).  A batch smaller than
+the data axis (the reference's condition, long_500k) is **sequence-
+sharded** instead: every data rank takes the whole batch, holds its block
+of ``ceil(max_seq / dp)`` slots of each attention and MLA cache (a
+``max_seq`` that does not split is padded, as a ``NamedSharding`` pads;
+the padding slots are never live), and each decode step combines the
+ranks' partial softmax statistics (``layers.lse_combine``), so every data
+rank computes the same tokens and returns them without a gather.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -46,17 +52,21 @@ class Engine:
         self.comm = self.ctx.comm
         self.layout = model.layout
         self._valid = self.layout.valid_columns(model.device)
-        self._rows = slice(None)          # this rank's rows of the batch
+        # the request ``generate`` serves: this rank's rows, the batch size
+        self._rows, self._batch = slice(None), None
+
+    def seq_sharded(self, batch: int) -> bool:
+        """Whether a ``batch``-row request is served with the caches
+        sequence-sharded: on a mesh, a batch smaller than the data axis
+        (the reference's ``cache_specs`` condition)."""
+        return self.comm is not None and batch < self.comm.data
 
     def local_batch(self, batch: int) -> slice:
-        """This rank's rows of a ``batch``-row request: its data slice."""
-        if self.comm is None:
+        """This rank's rows of a ``batch``-row request: its data slice, or
+        the whole batch where it is sequence-sharded."""
+        if self.comm is None or self.seq_sharded(batch):
             return slice(None)
         dp = self.comm.data
-        if batch < dp:
-            raise NotImplementedError(
-                f"a batch of {batch} on {dp} data ranks needs the "
-                "sequence-sharded cache (specs.cache_specs), ROADMAP A.8.3")
         if batch % dp:
             raise ValueError(f"batch {batch} does not split over {dp} data "
                              "ranks")
@@ -77,9 +87,7 @@ class Engine:
             phys = torch.argmax(logits_phys, dim=-1)
         else:
             # the whole batch's noise, this rank's rows of it
-            rows = logits_phys.shape[0]
-            if self.comm is not None:
-                rows *= self.comm.data
+            rows = self._batch or logits_phys.shape[0]
             noise = rng.gumbel(key.to(logits_phys.device),
                                (rows,) + tuple(logits_phys.shape[1:])
                                )[self._rows]
@@ -90,14 +98,15 @@ class Engine:
         return self.layout.cyclic.to_logical(phys).to(torch.int32)
 
     def prefill(self, prompts: torch.Tensor,
-                cond: Optional[torch.Tensor] = None):
+                cond: Optional[torch.Tensor] = None, seq_shard: bool = False):
         """Allocate the ``max_seq`` cache and run the prompt through it.
         Returns ``(last-position logits [B, Vpad], caches)`` (on a mesh:
         ``prompts`` and ``cond`` are this rank's rows, the logits their
-        whole physical rows)."""
+        whole physical rows; ``seq_shard``: the caches are sequence-sharded,
+        which they record for ``step``)."""
         caches = tfm.allocate_cache(self.cfg, prompts.shape[0],
                                     self.scfg.max_seq, self.model.device,
-                                    self.ctx)
+                                    self.ctx, seq_shard)
         with torch.no_grad():
             logits, caches = tfm.prefill(self.model, prompts, cond, caches)
         return gather_vocab(logits, self.ctx), caches
@@ -110,21 +119,29 @@ class Engine:
                                                        cond), self.ctx)
 
     def generate(self, prompts: torch.Tensor, num_tokens: int,
-                 cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 cond: Optional[torch.Tensor] = None,
+                 mark: Optional[Callable[[str], None]] = None
+                 ) -> torch.Tensor:
         """prompts: [B, S_prompt] int.  Returns [B, num_tokens] int32 (on a
-        mesh every rank passes the whole batch and gets it back)."""
+        mesh every rank passes the whole batch and gets it back).
+        ``mark``, if given, is called with ``"prefill"`` once the prefill
+        and its token are done and with ``"step"`` after each decode step
+        and its token (``serve.mesh_worker`` times the parts with it)."""
         b, sp = prompts.shape
         if sp + num_tokens > self.scfg.max_seq:
             raise ValueError(f"prompt {sp} + {num_tokens} tokens exceed "
                              f"max_seq {self.scfg.max_seq}")
-        self._rows = rows = self.local_batch(b)
+        rows = self.local_batch(b)
+        self._rows, self._batch = rows, b
         prompts = prompts[rows]
         cond = None if cond is None else cond[rows]
         key = rng.PRNGKey(self.scfg.seed)
-        logits, caches = self.prefill(prompts, cond)
+        logits, caches = self.prefill(prompts, cond, self.seq_sharded(b))
         out = []
         key, sub = rng.split(key)
         tok = self.sample(logits, sub)
+        if mark is not None:
+            mark("prefill")
         for i in range(num_tokens):
             out.append(tok)
             if i + 1 == num_tokens:
@@ -132,7 +149,9 @@ class Engine:
             logits = self.step(tok, caches, sp + i, cond)
             key, sub = rng.split(key)
             tok = self.sample(logits, sub)
+            if mark is not None:
+                mark("step")
         out = torch.stack(out, dim=1)
-        if self.comm is not None and self.comm.data > 1:
+        if out.shape[0] < b:             # this rank's data slice
             out = self.comm.all_gather(out, "data", tag="tokens")
         return out

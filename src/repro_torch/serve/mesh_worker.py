@@ -106,75 +106,84 @@ class LMRankProgram:
 
     # -- serving -------------------------------------------------------------
     def op_generate(self, prompts: torch.Tensor, num_tokens: int,
-                    cond: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """``Engine.generate`` on every rank (the whole batch in, the
-        whole batch's tokens out, on the CPU)."""
-        eng = self.engine
+                    cond: Optional[torch.Tensor] = None,
+                    timed: bool = False):
+        """``Engine.generate`` on every rank: the whole batch in, the whole
+        batch's tokens out, on the CPU.  ``timed``: a dict instead, with
+        the tokens, the prefill's ms (with its token), each decode step's
+        ms (with its token), each part's collectives (this rank's ms,
+        bytes and counts by tag) and each MoE layer's (dropped, routed)
+        pairs of the prefill over every rank -- rank 0's is returned."""
+        eng, mesh = self.engine, self.mesh
         eng.scfg.max_seq = max(eng.scfg.max_seq,
                                prompts.shape[1] + num_tokens)
+        p = prompts.to(self.dev)
         c = None if cond is None else cond.to(self.dev)
-        return eng.generate(prompts.to(self.dev), num_tokens, c).cpu()
+        if not timed:
+            return eng.generate(p, num_tokens, c).cpu()
+        rec = {"step_ms": [], "decode_collectives": {}}
 
-    def op_timed(self, prompts: torch.Tensor, num_tokens: int) -> dict:
-        """The engine's loop with each part timed on every rank: prefill
-        (and its first token), then one decode step a token; the tokens
-        (greedy), the ms, and each part's collectives (this rank's ms,
-        bytes and counts by tag) -- rank 0's are returned."""
-        eng, mesh = self.engine, self.mesh
-        rows = eng.local_batch(prompts.shape[0])
-        p = prompts[rows].to(self.dev)
-        eng.scfg.max_seq = max(eng.scfg.max_seq, p.shape[1] + num_tokens)
+        def mark(part: str) -> None:
+            self._sync()
+            ms = (time.perf_counter() - rec.pop("t0")) * 1e3
+            if part == "prefill":
+                rec.update(prefill_ms=ms, prefill_collectives=_coll(mesh),
+                           prefill_drops=self._drops())
+                mesh.reset_stats()
+            else:
+                rec["step_ms"].append(ms)
+                rec["decode_collectives"] = _coll(mesh)
+            rec["t0"] = time.perf_counter()
+
         self._sync()
         mesh.reset_stats()
         self.model.moe_drops(reset=True)
-        t0 = time.perf_counter()
-        logits, caches = eng.prefill(p)
-        tok = eng.sample(logits, None)
-        self._sync()
-        prefill_ms = (time.perf_counter() - t0) * 1e3
-        prefill_coll = _coll(mesh)
-        # each MoE layer's (dropped, routed) pairs over every rank
-        per_rank = mesh.gather_object([list(d) for d in
-                                       self.model.moe_drops()])
-        drops = None if per_rank is None else [
+        rec["t0"] = time.perf_counter()
+        out = eng.generate(p, num_tokens, c, mark=mark)
+        del rec["t0"]
+        return dict(rec, tokens=out.cpu())
+
+    def _drops(self) -> Optional[list]:
+        """Each MoE layer's (dropped, routed) pairs since the last reset,
+        summed over every rank (rank 0's view)."""
+        per_rank = self.mesh.gather_object([list(d) for d in
+                                            self.model.moe_drops()])
+        return None if per_rank is None else [
             [sum(r[i][0] for r in per_rank), sum(r[i][1] for r in per_rank)]
             for i in range(len(per_rank[0]))]
-        mesh.reset_stats()
-        toks, step_ms = [tok], []
-        for i in range(num_tokens - 1):
-            t = time.perf_counter()
-            logits = eng.step(tok, caches, p.shape[1] + i)
-            tok = eng.sample(logits, None)
-            self._sync()
-            step_ms.append((time.perf_counter() - t) * 1e3)
-            toks.append(tok)
-        decode_coll = _coll(mesh)
-        out = torch.stack(toks, dim=1)
-        if mesh.data > 1:
-            out = mesh.all_gather(out, "data", tag="tokens")
-        del caches
-        return {"tokens": out.cpu(), "prefill_ms": prefill_ms,
-                "step_ms": step_ms, "prefill_collectives": prefill_coll,
-                "decode_collectives": decode_coll, "prefill_drops": drops}
+
+    def op_generate_ranks(self, prompts: torch.Tensor, num_tokens: int,
+                          cond: Optional[torch.Tensor] = None
+                          ) -> Optional[list]:
+        """``op_generate`` on every rank; rank 0 gets every rank's tokens,
+        in rank order."""
+        return self.mesh.gather_object(self.op_generate(prompts, num_tokens,
+                                                        cond))
 
     def op_logits(self, tokens: torch.Tensor, steps: int,
                   cond: Optional[torch.Tensor] = None,
-                  all_positions: bool = True) -> dict:
+                  all_positions: bool = True, max_seq: int = 0,
+                  per_rank: bool = False) -> dict:
         """Teacher-forced logits of the whole batch: the prompt
         ``tokens[:, :S - steps]`` through the full-sequence forward (every
         position's logits, or the last one's), then ``steps`` decode steps
-        fed ``tokens[:, S - steps + i]``.  Physical rows of the mesh's
-        vocab layout, float32, on the CPU (rank 0's result)."""
+        fed ``tokens[:, S - steps + i]``, in a cache of ``max_seq`` slots
+        (default S; sequence-sharded where the batch is smaller than the
+        data axis).  Physical rows of the mesh's vocab layout, float32, on
+        the CPU (rank 0's result; ``per_rank``: also every data rank's own,
+        ``rank_logits``)."""
         from repro_torch.models import transformer as tfm
         from repro_torch.models.layers import gather_vocab
 
-        model, mesh = self.model, self.mesh
-        rows = self.engine.local_batch(tokens.shape[0])
+        model, mesh, eng = self.model, self.mesh, self.engine
+        b = tokens.shape[0]
+        rows = eng.local_batch(b)
         tok = tokens[rows].to(self.dev)
         c = None if cond is None else cond[rows].to(self.dev)
         sp = tok.shape[1] - steps
-        caches = tfm.allocate_cache(model.cfg, tok.shape[0], tok.shape[1],
-                                    self.dev, self.ctx)
+        caches = tfm.allocate_cache(model.cfg, tok.shape[0],
+                                    max_seq or tok.shape[1], self.dev,
+                                    self.ctx, eng.seq_sharded(b))
         head_at = None if all_positions else slice(-1, None)
         model.moe_drops(reset=True)
         with torch.no_grad():
@@ -185,12 +194,11 @@ class LMRankProgram:
                 lg = model.decode_step(tok[:, sp + i], caches, sp + i, c)
                 outs.append(gather_vocab(lg, self.ctx).float()[:, None])
         out = torch.cat(outs, dim=1)
-        if mesh.data > 1:
+        ranks = mesh.gather_object(out.cpu()) if per_rank else None
+        if out.shape[0] < b:             # this rank's data slice
             out = mesh.all_gather(out, "data", tag="logits")
-        drops = mesh.gather_object([list(d) for d in model.moe_drops()])
-        return {"logits": out.cpu(), "drops": None if drops is None else [
-            [sum(r[i][0] for r in drops), sum(r[i][1] for r in drops)]
-            for i in range(len(drops[0]))]}
+        return {"logits": out.cpu(), "rank_logits": ranks,
+                "drops": self._drops()}
 
     # -- the MoE check ---------------------------------------------------------
     def op_moe_check(self, shape, seed: int) -> Optional[dict]:

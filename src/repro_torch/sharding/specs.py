@@ -157,6 +157,38 @@ def _param_rules(model_axis: str):
     ]
 
 
+def ssm_split(cfg: ModelConfig, m: int) -> str:
+    """How the port splits an SSM mixer over a model axis of ``m``:
+    ``"heads"`` where the SSD heads tile the axis (mamba2-370m's 32 heads
+    on 2 or 4, hymba-1.5b's 50 on 2): each rank runs its heads, holding
+    its ``z``/``x`` columns and the shared ``B``/``C`` ones regrouped
+    (``models/ssm.py``); else ``"gather"`` (hymba's 50 on 4): the rules'
+    contiguous blocks, all-gathered per use, the whole mixer on every
+    rank -- the split ``models/attention.attn_split`` makes for heads."""
+    return "heads" if m == 1 or cfg.ssm_heads % m == 0 else "gather"
+
+
+# the SSM leaves the port splits over the model axis by heads in "heads"
+# mode, where the rules replicate them (the port's own layout)
+_SSM_HEAD_LEAVES = re.compile(
+    r"ssm/(dt_proj|A_log|D|dt_bias|gate_norm/scale)$")
+
+
+def port_spec(path: str, ndim: int, ctx: MeshCtx, cfg=None) -> P:
+    """The spec of the block a port module holds: the rules' (``spec_for``)
+    but for an SSM mixer split by heads (``ssm_split``), whose per-head
+    leaves (``dt_proj``'s columns, ``A_log``, ``D``, ``dt_bias``, the
+    gate norm's scale) split over the model axis on their last dim.
+    Its ``in_proj``/``conv_w``/``conv_b`` keep the rules' spec over the
+    port's regrouped columns (``models/ssm.py``)."""
+    spec = spec_for(path, ndim, ctx)
+    if (cfg is not None and cfg.ssm_state and ctx.model_size > 1
+            and ssm_split(cfg, ctx.model_size) == "heads"
+            and _SSM_HEAD_LEAVES.search(path)):
+        return P(*([None] * (ndim - 1) + [ctx.model]))
+    return spec
+
+
 def path_str(name: str) -> str:
     """A module's parameter name (``blocks.0.attn.wq``) as a rule path."""
     return name.replace(".", "/")
@@ -181,6 +213,10 @@ def _tree_map(fn, tree, path=()):
 
 
 class _Shape(tuple):
+    """A module leaf's shape and the spec of its blocks."""
+
+    spec = None
+
     @property
     def shape(self):
         return tuple(self)
@@ -189,20 +225,30 @@ class _Shape(tuple):
 def _leaves(params, ctx: "MeshCtx"):
     """``params`` as a nested dict (the JAX tree's layout) or a module,
     whose parameters become ``{'/'-path: shape}``: on a mesh the shape of
-    the leaf the blocks make up (a block's shape times its split), the
-    shape the reference's specs see."""
+    the leaf the blocks make up (a block's shape times its split under
+    ``port_spec``), which is the reference's leaf but for an SSM mixer
+    split by heads (its regrouped columns)."""
     if not hasattr(params, "named_parameters"):
         return params
+    cfg = getattr(params, "cfg", None)
     out = {}
     for n, p in params.named_parameters():
         path = path_str(n)
         shape = tuple(p.shape)
+        spec = port_spec(path, len(shape), ctx, cfg)
         if ctx.mesh is not None:
-            grid = shard_grid(spec_for(path, len(shape), ctx), ctx.mesh, 0)
+            grid = shard_grid(spec, ctx.mesh, 0)
             shape = tuple(s * g[0] for s, g in zip(shape, grid)) + \
                 shape[len(grid):]
-        out[path] = _Shape(shape)
+        leaf = _Shape(shape)
+        leaf.spec = spec
+        out[path] = leaf
     return out
+
+
+def _leaf_spec(path: str, leaf, ctx: MeshCtx) -> P:
+    spec = getattr(leaf, "spec", None)
+    return spec_for(path, len(leaf.shape), ctx) if spec is None else spec
 
 
 # a module's layer-stack leaves (``blocks/3/attn/wq``): the reference
@@ -219,7 +265,7 @@ def param_specs(params, ctx: MeshCtx):
     """Spec tree matching ``params``: a nested dict of leaves with
     ``.ndim`` (numpy arrays, tensors, ``jax.ShapeDtypeStruct``), or a
     module (then ``{path: spec}``)."""
-    return _tree_map(lambda p, leaf: spec_for(p, len(leaf.shape), ctx),
+    return _tree_map(lambda p, leaf: _leaf_spec(p, leaf, ctx),
                      _leaves(params, ctx))
 
 
@@ -238,7 +284,7 @@ def opt_state_specs(params, ctx: MeshCtx):
 
     def widen(path, leaf):
         shape = tuple(leaf.shape)
-        spec = spec_for(path, len(shape), ctx)
+        spec = _leaf_spec(path, leaf, ctx)
         parts = list(spec) + [None] * (len(shape) - len(spec))
         used = set()
         for p in parts:
@@ -354,12 +400,22 @@ def cache_specs(cfg: ModelConfig, shape: InputShape, ctx: MeshCtx):
     For a batch smaller than the dp size (long_500k) the attention caches
     are sequence-sharded over the data axes, else batch-sharded; the
     reference splits ``head_dim`` (KV), the latent (MLA) and the SSM head
-    dim over the model axis.  The port's engine holds the same per-rank
-    bytes by another split: whole KV heads over the model axis where they
-    tile it (``models/attention.py``); the MLA latent and, where KV heads
-    do not tile the axis, the KV heads are kept whole on every model rank
-    (their absorbed decode reads all of the latent per local head).  The
-    sequence-sharded case is not served by the port (ROADMAP A.8.3)."""
+    dim ``P`` over the model axis.  The port's engine holds the same
+    per-rank bytes by other splits (``transformer.cache_shapes``): whole
+    KV heads over the model axis where they tile it
+    (``models/attention.py``); the MLA latent and, where KV heads do not
+    tile the axis, the KV heads are kept whole on every model rank (their
+    absorbed decode reads all of the latent per local head).  An SSM
+    mixer split by heads (``ssm_split``) holds its heads' state ``[B,
+    H/M, P, N]`` -- the reference's bytes, split over ``H`` instead of
+    ``P`` -- and its conv tail ``[B, W-1, d_inner/M + 2N]`` (its
+    channels and the shared ``B``/``C`` ones); split by ``"gather"`` it
+    holds both whole.  The sequence-sharded case is served: data rank
+    ``j`` of ``dp`` holds slots ``[j S', (j+1) S')`` of every attention
+    and MLA cache, ``S' = ceil(S / dp)`` (padded as a ``NamedSharding``
+    pads), the batch and the SSM state whole on every data rank, and a
+    decode step combines the ranks' partial softmax statistics
+    (``layers.lse_combine``)."""
     if ctx.mesh is None:
         none = P()
         return {"kv": none, "mla": none, "ssm_state": none, "conv": none,

@@ -25,8 +25,9 @@ spec already splits over data, the experts, whose gather's backward did
 the sum); AdamW updates the rank's slice of the parameter, and an
 all-gather over the data axis rebuilds the block.  The global norm adds
 each leaf's squares once: a block's local sum is divided by the number
-of ranks that hold the same block, and one all-reduce over the world
-adds them.
+of ranks that hold the same block (the SSM's shared ``B``/``C`` columns,
+held alike by every model rank, once more by the model size), and one
+all-reduce over the world adds them.
 """
 from __future__ import annotations
 
@@ -64,6 +65,7 @@ class ZeroLeaf(NamedTuple):
     dim: Optional[int]           # the dim ZeRO splits over data, or None
     in_param: bool               # the parameter's own spec splits over data
     copies: int                  # ranks that hold the same moment block
+    shared: int = 0              # trailing columns every model rank holds
 
 
 class Zero:
@@ -92,7 +94,9 @@ class Zero:
                                       else (part,)))
             shards = math.prod(n for n, _ in specs.shard_grid(
                 ospecs[path], ctx.mesh, 0))
-            self.leaves[name] = ZeroLeaf(dim, in_param, world // shards)
+            self.leaves[name] = ZeroLeaf(dim, in_param, world // shards,
+                                         getattr(p, "_model_shared", 0))
+        self.model = ctx.model_size
 
     def local(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """This rank's ZeRO slice of a parameter-block-shaped ``t`` (a
@@ -125,6 +129,15 @@ class Zero:
         with torch.no_grad():
             p.copy_(self.comm.all_gather_dim(self.local(name, p), "data",
                                              dim, "param_gather"))
+
+    def sum_sq(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """A block's local sum of squares, its trailing ``shared`` columns
+        (the SSM's ``B``/``C``, the same on every model rank: ``models/
+        ssm.py``) counted once over the model axis."""
+        k = self.leaves[name].shared
+        if not k:
+            return _sum_sq(x)
+        return _sum_sq(x[..., :-k]) + _sum_sq(x[..., -k:]) / self.model
 
     def norm(self, sq: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The global norm from each leaf's local sum of squares."""
@@ -181,7 +194,7 @@ def global_norm(tree: Dict[str, torch.Tensor],
     at a time, so a bf16 leaf is never widened whole).  With ``zero`` the
     leaves are a rank's ZeRO slices: each counted once over the mesh."""
     if zero is not None:
-        return zero.norm({n: _sum_sq(x) for n, x in tree.items()})
+        return zero.norm({n: zero.sum_sq(n, x) for n, x in tree.items()})
     sq = None
     for x in tree.values():
         s = _sum_sq(x)

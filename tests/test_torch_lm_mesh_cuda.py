@@ -5,6 +5,7 @@ it runs where only PyTorch is installed:
 
     PYTHONPATH=src python3 -m pytest -q --noconftest -m cuda tests/test_torch_lm_mesh_cuda.py
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -113,3 +114,62 @@ def test_launcher_mesh_host_on_the_card_prints_the_same_tokens(card):
     assert run("--mesh", "host") == want
     assert run("--mesh", "host", "--devices", "4", "--mesh-model",
                "2") == want
+
+
+def _cpu_weights(cfg, seed):
+    """A model's weights drawn on the CPU, its constant leaves perturbed
+    (so that norm scales, gates and ``D`` matter), as the JAX layout's
+    numpy pytree: what a mesh on the card and one CPU device both load."""
+    from repro_torch import convert
+    model = tfm.init_params(seed, cfg, device="cpu")
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for p in model.parameters():
+            flat = p.reshape(-1)
+            if flat.numel() and bool((flat == flat[0]).all()):
+                p.add_(0.3 * torch.randn(p.shape, generator=g).to(p))
+    return model, convert.lm_arrays_from_params(model)
+
+
+def _cpu_logits(model, tokens, steps):
+    sp = tokens.shape[1] - steps
+    caches = tfm.allocate_cache(model.cfg, tokens.shape[0], tokens.shape[1],
+                                "cpu")
+    with torch.no_grad():
+        full, _ = model(tokens[:, :sp], caches=caches, remat=False)
+        outs = [full.float()]
+        for i in range(steps):
+            outs.append(model.decode_step(tokens[:, sp + i], caches,
+                                          sp + i).float()[:, None])
+    return torch.cat(outs, dim=1)
+
+
+@pytest.mark.parametrize("case", [("mamba2-370m", (1, 4), {}),
+                                  ("gemma3-4b", (2, 1),
+                                   {"window_pattern": (4, 0)})])
+def test_ssm_and_sequence_sharded_mesh_on_the_card_equal_the_cpu(card,
+                                                                  case):
+    """A smoke SSM on 1 x 4 (its mixer split by heads), and a smoke
+    gemma3-4b (a window of 4 and a global layer) serving a batch of 1 on 2
+    x 1 with its caches sequence-sharded (32 slots, decode positions
+    crossing the blocks' boundary), 4 gloo ranks sharing the card: the
+    prompt's logits and 4 decode steps equal one CPU device's from the
+    same weights (float32, rtol 1e-4, atol 1e-5 of the row's largest),
+    every rank's the same bits."""
+    from repro_torch.serve.mesh_worker import LMMeshRun
+
+    arch, shape, over = case
+    cfg = dataclasses.replace(registry.smoke_variant(arch), **over)
+    model, params = _cpu_weights(cfg, 0)
+    batch = 4 if shape[0] == 1 else 1
+    tokens = rng.randint(rng.PRNGKey(0), (batch, 16), 0, cfg.vocab_size)
+    with LMMeshRun({"data": shape[0], "model": shape[1]}, card) as run:
+        run.call("load", cfg, params=params)
+        res = run.call("logits", tokens, 4, max_seq=32, per_rank=True)
+    ranks = res["rank_logits"]
+    assert all(torch.equal(r, ranks[0]) for r in ranks[1:])
+    got = _logical(res["logits"], cfg, shape)
+    want = _cpu_logits(model, tokens, 4)
+    scale = want.abs().amax(-1, keepdim=True)
+    assert bool(((got - want).abs() <= RTOL * want.abs() + ATOL * scale)
+                .all()), float(((got - want).abs() / scale).max())

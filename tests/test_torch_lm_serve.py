@@ -229,14 +229,26 @@ def test_launcher_mesh_of_four_ranks_prints_the_same_tokens():
 
 
 @pytest.mark.parametrize("args", [
-    ["--mesh", "pod"], ["--mesh", "multipod"],
+    ["--mesh", "pod"], ["--mesh", "multipod"]])
+def test_launcher_refuses_what_the_port_does_not_serve_on_a_mesh(args):
+    """The reference's TPU pods exit 2: that layout has no host
+    counterpart, and the message points at the dry run's per-rank
+    bytes."""
+    out = _run(["--smoke", "--device", "cpu", *args])
+    assert out.returncode == 2
+    assert "no host counterpart" in out.stderr and out.stdout == ""
+    assert "repro_torch.launch.dryrun" in out.stderr
+
+
+@pytest.mark.parametrize("args", [
     ["--arch", "mamba2-370m", "--mesh", "host", "--devices", "2",
      "--mesh-model", "2"],
     ["--arch", "hymba-1.5b", "--mesh", "host", "--devices", "4",
      "--mesh-model", "2"]])
-def test_launcher_refuses_what_the_port_does_not_serve_on_a_mesh(args):
-    """The reference's TPU pods, and the SSM families on a model axis
-    above 1, exit 2 naming ROADMAP A.8.3."""
-    out = _run(["--smoke", "--device", "cpu", *args])
-    assert out.returncode == 2
-    assert "ROADMAP A.8.3" in out.stderr and out.stdout == ""
+def test_launcher_serves_the_ssm_families_on_a_model_axis(args):
+    """The SSM families on a model axis above 1 (the mixer split by
+    heads) serve ``--mesh none``'s greedy tokens."""
+    arch = args[:2]
+    want = _tokens(_run(SERVE + ["--seed", "3", *arch]))
+    out = _run(SERVE + ["--seed", "3", *args])
+    assert _tokens(out) == want and want

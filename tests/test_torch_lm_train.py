@@ -547,15 +547,15 @@ def test_launcher_batches_equal_jax_launcher_data():
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["--mesh", "pod", "--device", "cpu"], "A.8.3"),
+    (["--mesh", "pod", "--device", "cpu"], "no host counterpart"),
     (["--smoke", "--device", "cuda"], "--device cpu")])
 def test_launcher_refusals_exit_2(argv, what):
-    """``--mesh pod`` (the reference's TPU pod) names A.8.3; without a card
-    ``--device cuda`` names ``--device cpu`` (the cuda case runs only where
-    there is no card)."""
+    """``--mesh pod`` (the reference's TPU pod) says that layout has no
+    host counterpart; without a card ``--device cuda`` names ``--device
+    cpu`` (the cuda case runs only where there is no card)."""
     if "cuda" in argv and torch.cuda.is_available():
         argv = ["--mesh", "pod"]
-        what = "A.8.3"
+        what = "no host counterpart"
     out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
                           *argv], capture_output=True, text=True, timeout=120,
                          cwd=str(ROOT), env={"PYTHONPATH": str(ROOT / "src"),
