@@ -35,7 +35,7 @@ Phases (any failure raises and the script exits non-zero):
                  the card is empty: deepseek-v2-lite-16b at its full
                  config (27 layers, MLA, 64 experts top-6, bf16, 15.72 B
                  parameters from --seed) on data 1 x model 4, batch 4,
-                 prompt 2,048, 16 greedy tokens at capacity factor 1.25:
+                 prompt 2,048, 8 greedy tokens at capacity factor 1.25:
                  (a) at capacity factor 16 (no drops, asserted) the
                  prefill's and 8 teacher-forced decode steps' logits
                  against the single-device run of the same seed after
@@ -61,7 +61,7 @@ Phases (any failure raises and the script exits non-zero):
                  single device's step of the same seed after the mesh
                  has gone; then bf16 cells from the seed, 4 x 2,048,
                  microbatch 2, remat: deepseek 3 layers (capacity factor
-                 1.25, 3 steps) and gemma3-4b 6 layers (2 steps): (b)
+                 1.25, 2 steps) and gemma3-4b 6 layers (2 steps): (b)
                  finite losses and grad norms, every rank's parameter
                  and moment blocks moved; step ms, tokens/s, peak memory
                  a rank, the collectives by tag and their share, the
@@ -73,7 +73,7 @@ Phases (any failure raises and the script exits non-zero):
                  mamba2-370m at its full config served on data 1 x model
                  4 through repro_torch.launch.serve --mesh host (4 x
                  2,048, 8 greedy tokens) and trained on 2 x 2 through
-                 repro_torch.launch.train --mesh host (8 layers, 4 x
+                 repro_torch.launch.train --mesh host (4 layers, 4 x
                  2,048, microbatch 2, 2 steps); (b) hymba-1.5b at full
                  width on 2 x 2 ("heads" SSM, "gather" attention), served
                  at 4 layers and trained at 2; (c) mamba2-370m in
@@ -156,9 +156,10 @@ Phases (any failure raises and the script exits non-zero):
  12. net      -- the network parameter server on the training corpus in
                  stream_train's shards, stream_train's snapshot job: one
                  worker process for 2 epochs (n_wk, n_k and every z file
-                 equal the stream plane's bitwise), two workers (exact
-                 conservation against the z files' histogram, falling
-                 perplexity, each worker's own launch counters: one
+                 equal the stream plane's bitwise), two workers for 1
+                 epoch (exact conservation against the z files'
+                 histogram, falling perplexity, each worker's own launch
+                 counters: one
                  mh_draws_train, mh_sample and delta_push a group and one
                  alias_build a visit); tokens/s, the per-visit split and
                  the server's commit ms; repro_torch.launch.net_smoke
@@ -185,7 +186,7 @@ Phases (any failure raises and the script exits non-zero):
                  (34 layers, d_model 2,560, vocab 262,144, bf16, weights
                  drawn from --seed on the card) through
                  repro_torch.launch.serve's main: batch 4, prompt 2,048,
-                 128 greedy tokens; the output's shape and range, a
+                 64 greedy tokens; the output's shape and range, a
                  second generate equal to the first, a timed prefill and
                  decode loop equal to generate, the first 8 decode steps'
                  logits against one full-sequence forward (within
@@ -198,7 +199,7 @@ Phases (any failure raises and the script exits non-zero):
                  the same weights;
  15. lm_train -- the LM training path through repro_torch.launch.train's
                  main: lm100m (the JAX launcher's end-to-end preset,
-                 100.7 M parameters, float32) for 300 steps of 8 x 256,
+                 100.7 M parameters, float32) for 50 steps of 8 x 256,
                  its loss falling by more than 0.5 and its final npz
                  (the JAX package's layout) equal to the model; gemma3-4b
                  at full width and depth (bf16, remat) for 6 steps of
@@ -246,13 +247,27 @@ Phases (any failure raises and the script exits non-zero):
                  coordinate parts) a group that holds a token, each phase
                  span's median ms,
                  and the trace rendered by launch.obs_report; its merge
-                 kernels held bitwise and timed at a group's shapes; one
-                 JSON line with each kernel's launches, error, times and
-                 bound, then the device line last.
+                 kernels held bitwise and timed at a group's shapes;
+ 19. examples -- the six user examples' twins (examples/*_torch.py) at the
+                 JAX examples' own sizes: quickstart and stream_train in
+                 this process between reads of the launch counters
+                 (mh_draws, mh_sample, alias_build and delta_push
+                 launched; quickstart's counts equal the same main on the
+                 CPU bitwise, its printed top words and best docs equal),
+                 then serve_topics, lda_distributed (8 gloo ranks on the
+                 card; its ranks' delta_push and delta_apply_coo launches
+                 from launch.lda's counter line), serve_lm and train_lm
+                 (--steps 50) as subprocesses, all at once, each checked
+                 by its printed lines; an {"examples": ...} line; then
+                 the JSON line of each kernel's launches, error, times
+                 and bound, then the device line last.
 
-Imports nothing of JAX or of the JAX package.  Writes profiles to
-chiprun_out/serving_profile.txt and chiprun_out/training_profile.txt, the
-training run's trace and metrics to chiprun_out/train_obs/, the streamed
+The 2 x 2 LM mesh stays open from lm_mesh_dp's checks through
+lm_mesh_train, and from lm_mesh_ssm's (b) through lm_mesh_long
+(``MeshPool``).  Imports nothing of JAX or of the JAX package.  Writes
+profiles to chiprun_out/serving_profile.txt and
+chiprun_out/training_profile.txt, the training run's trace and metrics to
+chiprun_out/train_obs/, the streamed
 runs' to chiprun_out/stream_obs/, the service's to
 chiprun_out/service_obs/, the tiered runs' to chiprun_out/tiered_obs/, the
 Table 1 LightLDA run's to chiprun_out/baselines_obs/ and the replay's to
@@ -266,9 +281,12 @@ removed at exit.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
+import os
+import re
 import shutil
 import subprocess
 import sys
@@ -2036,6 +2054,8 @@ def autotune_fit(torch, seed: int, card: str, corp, device: str = "cuda",
 # -- phase 12: the network parameter server ----------------------------------
 
 NET_WORKERS = 2
+NET_EPOCHS = 1                  # the 2-worker run's (b)
+NET_SMALL = (3000, 64)          # (d)'s V and K
 
 
 def worker_launches(stats: dict, groups_per_visit: int) -> dict:
@@ -2071,8 +2091,8 @@ def net_summary(info: dict, n_tokens: int) -> dict:
 def net_train(torch, seed: int, card: str, corp, device: str = "cuda",
               v: int = V_FULL, k: int = K_FULL,
               tokens_per_shard: int = STREAM_SHARD_TOKENS,
-              block_tokens: int = 8192, reference: Optional[dict] = None,
-              small_v: int = 3000, small_k: int = 64) -> dict:
+              block_tokens: int = 8192,
+              reference: Optional[dict] = None) -> dict:
     """Training through the network parameter server at (v, k) on ``corp``
     in shards of ``tokens_per_shard``, the job of stream_train's snapshot
     run (hot words 2,000, committed as the dense prefix; the same seed):
@@ -2080,15 +2100,19 @@ def net_train(torch, seed: int, card: str, corp, device: str = "cuda",
       (a) one worker, 2 epochs: n_wk, n_k and every z file equal the
           in-process stream plane's (``reference``: stream_train's result,
           or a run made here) bitwise;
-      (b) two workers, 2 epochs, dynamic leases: exact conservation (the
-          server's counts are the z files' histogram, the token mass
-          unchanged), the perplexity falling, and each worker's own launch
-          counters: one mh_draws_train, mh_sample and delta_push a group
-          and one alias_build a visit, on the card;
+      (b) two workers, 1 epoch (2 before the examples joined the
+          script: its time, PERF.md section 4), dynamic leases, the
+          perplexity taken after half the shard visits and after all:
+          exact conservation (the server's counts are the z files'
+          histogram, the token mass unchanged), the perplexity falling,
+          and each worker's own launch counters: one mh_draws_train,
+          mh_sample and delta_push a group and one alias_build a visit,
+          on the card;
       (c) ``python -m repro_torch.launch.net_smoke --device <device>
           --workers 2``: faults on every op, one worker SIGKILLed; exit 0;
-      (d) on the card only: a 1-worker job at (small_v, small_k) on the
-          card and on the CPU, counts and z files bitwise equal.
+      (d) on the card only: a 1-worker job at NET_SMALL's (V, K) on the
+          card and on the CPU, counts and z files bitwise equal (the CPU's
+          job in a process of its own, ``--net-cpu``, beside (c)).
 
     Prints tokens/s with 1 and 2 workers (first granted lease to last
     commit), each worker's median host ms per part of a visit, the
@@ -2098,7 +2122,6 @@ def net_train(torch, seed: int, card: str, corp, device: str = "cuda",
 
     from repro_torch.api import APSLDA, LDAJob
     from repro_torch.data import stream
-    from repro_torch.data.corpus import synthetic_corpus
     from repro_torch.kernels import ops
 
     out = {}
@@ -2155,7 +2178,8 @@ def net_train(torch, seed: int, card: str, corp, device: str = "cuda",
 
         # (b) two workers, dynamic leases
         job2 = dataclasses.replace(job, stream_dir=dirs["two"],
-                                   workers=NET_WORKERS, eval_every=n_shards)
+                                   workers=NET_WORKERS, epochs=NET_EPOCHS,
+                                   eval_every=n_shards // 2)
         ops.reset_launch_counts()
         # ------------------------------------------------------- main path
         est = APSLDA(job2, log_fn=log, device=device)
@@ -2173,8 +2197,8 @@ def net_train(torch, seed: int, card: str, corp, device: str = "cuda",
                   "perplexity_falls": len(ppl) == 2 and ppl[1] < ppl[0],
                   "all_visits": sum(st["visits"] for st in
                                     res.info["worker_stats"])
-                  == 2 * n_shards}
-        two = net_summary(res.info, 2 * meta.num_tokens)
+                  == NET_EPOCHS * n_shards}
+        two = net_summary(res.info, NET_EPOCHS * meta.num_tokens)
         out["two_workers"] = dict(two, perplexity=ppl, checks=checks,
                                   parent_launches=parent)
         log(json.dumps({"net": dict(out["two_workers"], run="2 workers",
@@ -2191,47 +2215,85 @@ def net_train(torch, seed: int, card: str, corp, device: str = "cuda",
                                      f"card: {st}")
         del est, res, model, nwk, rw
 
-    # (c) the fault drill, as a user runs it
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.net_smoke", "--device",
-         device, "--workers", "2"], capture_output=True, text=True,
-        timeout=900, cwd=str(ROOT),
-        env=dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src")))
-    tail = proc.stdout.strip().splitlines()[-1:] or [""]
-    out["net_smoke"] = {"rc": proc.returncode,
-                        "s": time.perf_counter() - t0, "last": tail[0]}
-    log(json.dumps({"net_smoke": dict(out["net_smoke"], card=card)}))
-    if proc.returncode != 0:
-        raise AssertionError(f"net_smoke failed (rc {proc.returncode}):\n"
-                             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
-
-    # (d) card against CPU at a small width
+    # (d)'s CPU job beside (c)
+    cpu_dir = tempfile.mkdtemp()
+    cpu_proc = None
     if device == "cuda":
-        small = synthetic_corpus(300, small_v, true_topics=16, seed=seed)
-        sjob = LDAJob(corpus=small, num_topics=small_k, vocab_size=small_v,
-                      backend="net", workers=1, hot_words=200, sweeps=2,
-                      block_tokens=1024, eval_every=0, seed=seed)
-        runs = {}
-        for dev in ("cuda", "cpu"):
-            est = APSLDA(sjob, log_fn=lambda m: None, device=dev)
-            est.fit()
-            r = est.result_
-            runs[dev] = (r.nwk.value.cpu().numpy(), r.nk.value.cpu().numpy(),
-                         [r.reader.read_z(s)
-                          for s in range(r.reader.num_shards)])
-        equal = {"nwk": bool(np.array_equal(runs["cuda"][0],
-                                            runs["cpu"][0])),
-                 "nk": bool(np.array_equal(runs["cuda"][1], runs["cpu"][1])),
-                 "z_files": all(np.array_equal(a, b) for a, b in
-                                zip(runs["cuda"][2], runs["cpu"][2]))}
-        log(json.dumps({"check": "net_card_vs_cpu", "V": small_v,
-                        "K": small_k, "tokens": small.num_tokens,
-                        "equal": equal}))
-        if not all(equal.values()):
-            raise AssertionError(f"net training on the card differs from "
-                                 f"the CPU: {equal}")
+        with open(Path(cpu_dir) / "cpu.log", "w") as cpu_log:
+            cpu_proc = subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--seed",
+                 str(seed), "--net-cpu", cpu_dir], cwd=str(ROOT),
+                stdin=subprocess.DEVNULL, stdout=cpu_log,
+                stderr=subprocess.STDOUT)
+    try:
+        # (c) the fault drill, as a user runs it
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.net_smoke", "--device",
+             device, "--workers", "2"], capture_output=True, text=True,
+            timeout=900, cwd=str(ROOT),
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        tail = proc.stdout.strip().splitlines()[-1:] or [""]
+        out["net_smoke"] = {"rc": proc.returncode,
+                            "s": time.perf_counter() - t0, "last": tail[0]}
+        log(json.dumps({"net_smoke": dict(out["net_smoke"], card=card)}))
+        if proc.returncode != 0:
+            raise AssertionError(
+                f"net_smoke failed (rc {proc.returncode}):\n"
+                f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+
+        # (d) card against CPU at a small width
+        if device == "cuda":
+            small_v, small_k = NET_SMALL
+            nwk, nk, z, tokens = net_small_run(seed, "cuda", small_v, small_k)
+            if cpu_proc.wait(timeout=600) != 0:
+                raise AssertionError(
+                    f"the CPU's net job failed:\n"
+                    f"{(Path(cpu_dir) / 'cpu.log').read_text()[-4000:]}")
+            with np.load(Path(cpu_dir) / "net_cpu.npz") as ref:
+                equal = {"nwk": bool(np.array_equal(nwk, ref["nwk"])),
+                         "nk": bool(np.array_equal(nk, ref["nk"])),
+                         "z_files": len(z) == len(ref.files) - 2 and all(
+                             np.array_equal(a, ref[f"z{i}"])
+                             for i, a in enumerate(z))}
+            log(json.dumps({"check": "net_card_vs_cpu", "V": small_v,
+                            "K": small_k, "tokens": tokens, "equal": equal}))
+            if not all(equal.values()):
+                raise AssertionError(f"net training on the card differs from "
+                                     f"the CPU: {equal}")
+    finally:
+        if cpu_proc is not None and cpu_proc.poll() is None:
+            cpu_proc.kill()
+            cpu_proc.wait(timeout=30)
+        shutil.rmtree(cpu_dir, ignore_errors=True)
     return out
+
+
+def net_small_run(seed: int, device: str, v: int, k: int) -> tuple:
+    """net_train's (d): a 1-worker job at (v, k) on ``device``; its n_wk,
+    n_k and z files as numpy."""
+    from repro_torch.api import APSLDA, LDAJob
+    from repro_torch.data.corpus import synthetic_corpus
+
+    small = synthetic_corpus(300, v, true_topics=16, seed=seed)
+    sjob = LDAJob(corpus=small, num_topics=k, vocab_size=v, backend="net",
+                  workers=1, hot_words=200, sweeps=2, block_tokens=1024,
+                  eval_every=0, seed=seed)
+    est = APSLDA(sjob, log_fn=lambda m: None, device=device)
+    est.fit()
+    r = est.result_
+    return (r.nwk.value.cpu().numpy(), r.nk.value.cpu().numpy(),
+            [r.reader.read_z(s) for s in range(r.reader.num_shards)],
+            small.num_tokens)
+
+
+def net_cpu_run(seed: int, out_dir: str) -> None:
+    """net_train's (d) on the CPU, saved to ``out_dir/net_cpu.npz``
+    (``chip_smoke.py --net-cpu DIR``: a process of its own, so that it
+    runs beside the card's work)."""
+    nwk, nk, z, _ = net_small_run(seed, "cpu", *NET_SMALL)
+    np.savez(Path(out_dir) / "net_cpu.npz", nwk=nwk, nk=nk,
+             **{f"z{i}": a for i, a in enumerate(z)})
 
 
 # -- phase 13: the SPMD parameter server ------------------------------------
@@ -2562,7 +2624,9 @@ QUALITY_GAP = 0.15              # EM vs LightLDA (tests/test_lda_baselines)
 
 BF16_FLOPS = 989e12            # H100 SXM bf16 dense, tensor cores
 LM_ARCH = "gemma3-4b"
-LM_BATCH, LM_PROMPT, LM_GEN, LM_CHECK_STEPS = 4, 2048, 128, 8
+# the greedy tokens cut from 128 to 64 when the examples joined the
+# script (its time; PERF.md section 4)
+LM_BATCH, LM_PROMPT, LM_GEN, LM_CHECK_STEPS = 4, 2048, 64, 8
 # cache against full forward, bf16: a decode step and the full forward
 # round the same values through other kernels (a [B, 1] against a
 # [B, S] product, other accumulation orders), so each of the 34 layers'
@@ -2801,15 +2865,64 @@ def lm_serve(torch, seed: int, card: str, device: str = "cuda",
 
 
 
+# -- one LM mesh kept open across phases -------------------------------------
+
+class MeshPool:
+    """An LM mesh (``LMTrainRun``, whose ranks also serve) kept open from
+    one phase to the next of the same shape, so that the script starts it
+    once: ``use(shape)`` hands out the open mesh of that shape, or closes
+    the open one and starts another.  A launcher cell starts a mesh of its
+    own with this process as its rank 0, and a process joins one process
+    group at a time: ``close()`` first.  With ``keep=False`` (a phase run
+    alone) each ``use`` closes its mesh at the end."""
+
+    def __init__(self, torch, device: str, keep: bool = True):
+        self.torch, self.device, self.keep = torch, device, keep
+        self.run, self.shape = None, None
+        self.starts, self.reuses = [], 0
+
+    @contextlib.contextmanager
+    def use(self, shape):
+        if self.run is not None and self.shape == tuple(shape):
+            self.reuses += 1
+        else:
+            self.close()
+            from repro_torch.train.mesh_worker import LMTrainRun
+            if self.device == "cuda":
+                self.torch.cuda.empty_cache()
+            t = time.perf_counter()
+            run = LMTrainRun({"data": shape[0], "model": shape[1]},
+                             self.torch.device(self.device))
+            run.start()
+            self.run, self.shape = run, tuple(shape)
+            self.starts.append({"shape": list(shape),
+                                "s": time.perf_counter() - t})
+        try:
+            yield self.run
+        except BaseException:
+            self.close()
+            raise
+        if not self.keep:
+            self.close()
+
+    def close(self) -> None:
+        run, self.run, self.shape = self.run, None, None
+        if run is not None:
+            try:
+                run.finish()
+            finally:
+                run.close()
+
+
 # -- LM serving on a device mesh (deepseek-v2-lite-16b 1 x 4, gemma3-4b 2 x 2)
 
 LM_MESH_ARCH = "deepseek-v2-lite-16b"
 LM_MESH_SHAPE = (1, 4)            # data x model: 4 gloo ranks share the card
 # the timed greedy tokens cut from 64 to 16 when the SSM and long-context
-# mesh phases joined the script (its 1,200 s limit; PERF.md section 4):
-# the config, check (a) and the prefill stay whole, the decode median is
-# over 15 steps
-LM_MESH_BATCH, LM_MESH_PROMPT, LM_MESH_GEN = 4, 2048, 16
+# mesh phases joined the script, and to 8 when the examples did (its
+# 1,200 s limit; PERF.md section 4): the config, check (a) and the prefill
+# stay whole, the decode median is over 7 steps
+LM_MESH_BATCH, LM_MESH_PROMPT, LM_MESH_GEN = 4, 2048, 8
 LM_MESH_CF = 1.25                 # the config's capacity factor
 LM_MESH_CHECK_PROMPT = 64         # check (a): prompt, then LM_CHECK_STEPS
 # check (a): mesh logits against the single-device run of the same seed on
@@ -3125,7 +3238,8 @@ def lm_mesh_dp(torch, seed: int, card: str, device: str = "cuda",
                layers: int = LM_DP_LAYERS, batch: int = LM_DP_BATCH,
                prompt: int = LM_DP_PROMPT, gen: int = LM_DP_GEN,
                check_prompt: int = LM_MESH_CHECK_PROMPT,
-               check_steps: int = LM_CHECK_STEPS, smoke: bool = True) -> dict:
+               check_steps: int = LM_CHECK_STEPS, smoke: bool = True,
+               pool: Optional[MeshPool] = None) -> dict:
     """gemma3-4b at full width, depth cut to one 5 local : 1 global period,
     on a data 2 x model 2 mesh (the data axis, the sequence-parallel
     prefill: kv 4 on a model axis of 2, the 262,144-row vocab split):
@@ -3134,12 +3248,14 @@ def lm_mesh_dp(torch, seed: int, card: str, device: str = "cuda",
     then on a second mesh the prefill and 8 teacher-forced decode steps
     against the single-device run; then the eight attention
     architectures' smoke variants (float32) on the same mesh against the
-    single-device run on the card."""
+    single-device run on the card.  The second mesh is ``pool``'s (kept
+    open for the next phase of its shape)."""
     from repro_torch import rng as jrng
     from repro_torch.configs import registry
     from repro_torch.launch import serve as serve_launch
-    from repro_torch.serve.mesh_worker import LMMeshRun
 
+    pool = pool or MeshPool(torch, device, keep=False)
+    pool.close()                 # the launcher's rank 0 is this process
     cfg = dataclasses.replace(registry.get(LM_DP_ARCH), num_layers=layers)
     data, m = LM_DP_SHAPE
     argv = ["--arch", LM_DP_ARCH, "--layers", str(layers), "--batch",
@@ -3158,7 +3274,7 @@ def lm_mesh_dp(torch, seed: int, card: str, device: str = "cuda",
              if registry.get(n).has_attention
              and registry.get(n).ssm_state == 0]
     smoke_cases = {}
-    with LMMeshRun({"data": data, "model": m}, torch.device(device)) as run:
+    with pool.use(LM_DP_SHAPE) as run:
         run.call("load", cfg, seed=seed, max_seq=prompt + gen + 1)
         a = run.call("logits", tokens_a, check_steps, None, False)
         for name in names if smoke else []:
@@ -3175,6 +3291,7 @@ def lm_mesh_dp(torch, seed: int, card: str, device: str = "cuda",
             run.call("load", scfg, seed=seed, capacity_factor=cf)
             got = run.call("logits", toks, LM_MESH_SMOKE_STEPS, cond, True)
             smoke_cases[name] = (scfg, toks, cond, got)
+        run.call("release")
         transport = run.transport
     got = mesh_logical(torch, a["logits"], cfg, LM_DP_SHAPE)
     want = single_logits(torch, cfg, seed, tokens_a, check_steps, device)
@@ -3224,7 +3341,9 @@ def lm_mesh_dp(torch, seed: int, card: str, device: str = "cuda",
 # -- LM training on a device mesh ---------------------------------------------
 
 LM_MT_SHAPE = (2, 2)              # data x model: 4 gloo ranks share the card
-LM_MT_ARCH, LM_MT_LAYERS, LM_MT_STEPS = "deepseek-v2-lite-16b", 3, 3
+# deepseek's steps cut from 3 to 2 when the examples joined the script (its
+# time; PERF.md section 4): the step median is the second step's
+LM_MT_ARCH, LM_MT_LAYERS, LM_MT_STEPS = "deepseek-v2-lite-16b", 3, 2
 LM_MT_DP_ARCH, LM_MT_DP_LAYERS, LM_MT_DP_STEPS = "gemma3-4b", 6, 2
 LM_MT_BATCH, LM_MT_SEQ, LM_MT_MB = 4, 2048, 2
 # check (a): float32, a capacity factor at which no pair drops (asserted:
@@ -3342,6 +3461,7 @@ def mesh_step_arrays(run, cfg, tc, batch: dict, **init) -> dict:
         return out
 
     from repro_torch import convert
+    run.call("reset_peak")
     timed("train_init", cfg, tc, **init)
     out = {"grad_metrics": timed("train_grads", batch)}
     t = time.perf_counter()
@@ -3512,7 +3632,8 @@ def train_cell_summary(cfg, tc, init: dict, hist: list, ranks: list, shape,
 def lm_mesh_train(torch, seed: int, card: str, device: str = "cuda",
                   smoke: bool = False, seq: int = LM_MT_SEQ,
                   check_seq: int = LM_MT_CHECK_SEQ,
-                  names: Optional[list] = None) -> dict:
+                  names: Optional[list] = None,
+                  pool: Optional[MeshPool] = None) -> dict:
     """LM training on a data 2 x model 2 mesh of gloo ranks sharing the
     card (``train.mesh_worker``), right after the serving mesh phases.
     (a) deepseek-v2-lite-16b at full width, depth 3 (the dense layer and
@@ -3526,16 +3647,17 @@ def lm_mesh_train(torch, seed: int, card: str, device: str = "cuda",
     losses and grad norms, every block moved; step ms, tokens/s, peak
     memory a rank, the collectives and the bound.  (c) the eight
     attention archs' smoke variants (float32, remat, capacity factor 16)
-    on the mesh against one device on the card.  One mesh serves (a), the
-    cells and (c); the single device's halves of (a) and (c) run after
-    it.  ``smoke`` (a CPU rehearsal) runs the cells at the smoke
-    variants' widths."""
+    on the mesh against one device on the card.  One mesh (``pool``'s)
+    serves (a), the cells and (c); the single device's halves of (a) and
+    (c) run after it, its ranks idle, their models released.  ``smoke`` (a
+    CPU rehearsal) runs the cells at the smoke variants' widths."""
     from repro_torch import convert
     from repro_torch.configs import registry
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.lm_data import LMDataConfig, MarkovZipfSource
     from repro_torch.models import transformer as tfm
-    from repro_torch.train.mesh_worker import LMTrainRun
+
+    pool = pool or MeshPool(torch, device, keep=False)
 
     def get(name, layers):
         c = registry.smoke_variant(name) if smoke else registry.get(name)
@@ -3553,12 +3675,10 @@ def lm_mesh_train(torch, seed: int, card: str, device: str = "cuda",
             2048, 16, True, 64, 6, 2, 102_400, "bfloat16", 1):
         raise AssertionError(f"not deepseek-v2-lite-16b's widths: {ds}")
     gemma = get(LM_MT_DP_ARCH, LM_MT_DP_LAYERS)
-    spec = {"data": LM_MT_SHAPE[0], "model": LM_MT_SHAPE[1]}
-    dev = torch.device(device)
     summary = {"card": card, "mesh": list(LM_MT_SHAPE)}
 
     # one mesh for (a)'s mesh half, the cells (b) and (c)'s mesh halves;
-    # then, the mesh gone, the single device's halves on the emptied card
+    # then, its models released, the single device's halves
     ds32 = dataclasses.replace(ds, dtype="float32",
                                capacity_factor=LM_MT_CHECK_CF)
     tc_a = TrainConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10,
@@ -3574,7 +3694,7 @@ def lm_mesh_train(torch, seed: int, card: str, device: str = "cuda",
     if device == "cuda":
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    with LMTrainRun(spec, dev) as run:
+    with pool.use(LM_MT_SHAPE) as run:
         transport = run.transport
         t = time.perf_counter()
         mesh_a = mesh_step_arrays(run, ds32, tc_a, batch_a, seed=seed)
@@ -3657,11 +3777,11 @@ LM_HY_SHAPE = (2, 2)               # "heads" SSM, "gather" attention
 # cut to fit the script's time beside the earlier mesh cells (PERF.md
 # section 4; whole-script runs were slower than a phase alone by up to 2x,
 # gloo's calls): mamba2-370m's tokens from 64 to 8 and its training depth
-# from 48 to 8 layers and steps from 3 to 2; hymba-1.5b's serving depth
-# from 32 to 4 (layer 0, global, kept) and tokens from 32 to 8, its
-# training depth to 2
+# from 48 to 8 layers (to 4 when the examples joined the script) and steps
+# from 3 to 2; hymba-1.5b's serving depth from 32 to 4 (layer 0, global,
+# kept) and tokens from 32 to 8, its training depth to 2
 LM_SSM_BATCH, LM_SSM_PROMPT, LM_SSM_GEN = 4, 2048, 8
-LM_SSM_TRAIN_LAYERS, LM_HY_SERVE_LAYERS, LM_HY_TRAIN_LAYERS = 8, 4, 2
+LM_SSM_TRAIN_LAYERS, LM_HY_SERVE_LAYERS, LM_HY_TRAIN_LAYERS = 4, 4, 2
 LM_HY_GEN = 8
 LM_SSM_SEQ, LM_SSM_MB, LM_SSM_STEPS, LM_HY_STEPS = 2048, 2, 2, 2
 # check (c): mamba2-370m in float32 on 1 x 4 against one device, the
@@ -3810,7 +3930,8 @@ def lm_mesh_ssm(torch, seed: int, card: str, device: str = "cuda",
                 seq: int = LM_SSM_SEQ,
                 check_prompt: int = LM_MESH_CHECK_PROMPT,
                 check_steps: int = LM_CHECK_STEPS,
-                check_seq: int = LM_SSM_CHECK_SEQ) -> dict:
+                check_seq: int = LM_SSM_CHECK_SEQ,
+                pool: Optional[MeshPool] = None) -> dict:
     """The SSM families on a model axis above 1, 4 gloo ranks sharing the
     card.  (a) mamba2-370m at full width (d_model 1,024, 32 SSD heads,
     state 128, vocab 50,280, bf16): served at its 48 layers (``layers``
@@ -3823,16 +3944,19 @@ def lm_mesh_ssm(torch, seed: int, card: str, device: str = "cuda",
     ``hymba_layers``, batch 4, prompt 2,048, ``hymba_gen`` tokens; trained
     at ``hymba_train_layers``, 4 x 2,048, microbatch 2, 2 steps (layer 0,
     global, kept in both).  (c) mamba2-370m as served, in float32, on 1 x
-    4 against one device from the same seed, after the mesh has gone: the
-    prefill's and ``check_steps`` teacher-forced decode steps' logits
-    (LM_MESH_TOL), one train step's loss, gradient, moments and parameters
-    (``mesh_vs_single``)."""
+    4 against one device from the same seed, its mesh idle: the prefill's
+    and ``check_steps`` teacher-forced decode steps' logits (LM_MESH_TOL),
+    one train step's loss, gradient, moments and parameters
+    (``mesh_vs_single``).  (c) runs before (b), so that (b)'s mesh, from
+    ``pool``, stays open for the next phase of its shape."""
     from repro_torch import rng as jrng
     from repro_torch.configs import registry
     from repro_torch.configs.base import TrainConfig
     from repro_torch.data.lm_data import LMDataConfig, MarkovZipfSource
     from repro_torch.models import transformer as tfm
-    from repro_torch.train.mesh_worker import LMTrainRun
+
+    pool = pool or MeshPool(torch, device, keep=False)
+    pool.close()                 # the launchers' rank 0 is this process
 
     mamba, hymba = registry.get(LM_SSM_ARCH), registry.get(LM_HY_ARCH)
     full_config(mamba, (48, 1024, 0, 0, 32, 128, 50_280, "bfloat16"))
@@ -3874,36 +3998,7 @@ def lm_mesh_ssm(torch, seed: int, card: str, device: str = "cuda",
         LM_SSM_TRAIN_SHAPE, batch, seq, card)
     summary["mamba_train"]["cell_s"] = time.perf_counter() - t
 
-    # (b) one mesh serves and trains hymba
-    t = time.perf_counter()
-    data, m = LM_HY_SHAPE
-    tc_b = TrainConfig(learning_rate=LM_MT_LR, warmup_steps=1,
-                       total_steps=LM_HY_STEPS, microbatch=LM_SSM_MB,
-                       seed=seed)
-    prompts = jrng.randint(jrng.PRNGKey(seed), (batch, prompt), 0,
-                           hymba.vocab_size)
-    if device == "cuda":
-        torch.cuda.empty_cache()
-    with LMTrainRun({"data": data, "model": m}, torch.device(device)) as run:
-        transport = run.transport
-        run.call("load", hymba_s, seed=seed, max_seq=prompt + hymba_gen + 1)
-        run.call("reset_peak")
-        cell = run.call("generate", prompts, hymba_gen, timed=True)
-        stats = run.call("stats")
-        run.call("release")
-        serve_s = time.perf_counter() - t
-        init = run.call("train_init", hymba_t, tc_b, seed=seed)
-        fit = run.call("train_fit", batches(hymba_t, LM_HY_STEPS), 1)
-        run.call("release")
-    summary["hymba_serve"] = dict(serve_cell_summary(
-        hymba_s, cell, stats, transport, LM_HY_SHAPE, batch, prompt,
-        hymba_gen, card), cell_s=serve_s)
-    summary["hymba_train"] = dict(train_cell_summary(
-        hymba_t, tc_b, init, fit["history"], fit["ranks"], LM_HY_SHAPE,
-        batch, seq, card), transport=transport,
-        cell_s=time.perf_counter() - t - serve_s)
-
-    # (c) float32 on 1 x 4 against one device, the mesh gone first
+    # (c) float32 on 1 x 4 against one device
     cfg32 = dataclasses.replace(mamba, dtype="float32")
     tokens_c = jrng.randint(jrng.PRNGKey(seed), (batch, check_prompt
                                                   + check_steps), 0,
@@ -3913,11 +4008,8 @@ def lm_mesh_ssm(torch, seed: int, card: str, device: str = "cuda",
     batch_c = next(MarkovZipfSource(LMDataConfig(
         vocab_size=mamba.vocab_size, seq_len=check_seq, batch_size=batch,
         seed=seed + 1)).batches(1))
-    data, m = LM_SSM_SERVE_SHAPE
     t = time.perf_counter()
-    if device == "cuda":
-        torch.cuda.empty_cache()
-    with LMTrainRun({"data": data, "model": m}, torch.device(device)) as run:
+    with pool.use(LM_SSM_SERVE_SHAPE) as run:
         run.call("load", cfg32, seed=seed)
         logits_c = run.call("logits", tokens_c, check_steps, None, False)
         run.call("release")
@@ -3944,6 +4036,32 @@ def lm_mesh_ssm(torch, seed: int, card: str, device: str = "cuda",
         argmax_agree=float((got.argmax(-1) == want.argmax(-1)).float()
                            .mean()),
         seq=check_seq, mesh_s=mesh_s, single_s=time.perf_counter() - t)
+
+    # (b) one mesh serves and trains hymba
+    t = time.perf_counter()
+    tc_b = TrainConfig(learning_rate=LM_MT_LR, warmup_steps=1,
+                       total_steps=LM_HY_STEPS, microbatch=LM_SSM_MB,
+                       seed=seed)
+    prompts = jrng.randint(jrng.PRNGKey(seed), (batch, prompt), 0,
+                           hymba.vocab_size)
+    with pool.use(LM_HY_SHAPE) as run:
+        transport = run.transport
+        run.call("load", hymba_s, seed=seed, max_seq=prompt + hymba_gen + 1)
+        run.call("reset_peak")
+        cell = run.call("generate", prompts, hymba_gen, timed=True)
+        stats = run.call("stats")
+        run.call("release")
+        serve_s = time.perf_counter() - t
+        init = run.call("train_init", hymba_t, tc_b, seed=seed)
+        fit = run.call("train_fit", batches(hymba_t, LM_HY_STEPS), 1)
+        run.call("release")
+    summary["hymba_serve"] = dict(serve_cell_summary(
+        hymba_s, cell, stats, transport, LM_HY_SHAPE, batch, prompt,
+        hymba_gen, card), cell_s=serve_s)
+    summary["hymba_train"] = dict(train_cell_summary(
+        hymba_t, tc_b, init, fit["history"], fit["ranks"], LM_HY_SHAPE,
+        batch, seq, card), transport=transport,
+        cell_s=time.perf_counter() - t - serve_s)
     for key in ("mamba_serve", "hymba_serve"):
         log_serve_cell("lm_mesh_ssm", summary[key], card)
     for key in ("mamba_train", "hymba_train"):
@@ -3969,7 +4087,8 @@ def lm_mesh_long(torch, seed: int, card: str, device: str = "cuda",
                  check_slots: int = LM_LONG_CHECK_SLOTS,
                  check_prompt: int = LM_LONG_CHECK_PROMPT,
                  check_steps: int = LM_CHECK_STEPS,
-                 widths: bool = True) -> dict:
+                 widths: bool = True,
+                 pool: Optional[MeshPool] = None) -> dict:
     """The sequence-sharded decode cache, batch 1 on data 2 x model 2 (4
     gloo ranks sharing the card; every data rank runs the whole prompt
     and holds its half of each attention cache's slots).  (d) gemma3-4b
@@ -3981,10 +4100,12 @@ def lm_mesh_long(torch, seed: int, card: str, device: str = "cuda",
     global).  (f) gemma3-4b in float32, the same layers, ``check_slots``
     slots, a prompt of ``check_prompt`` and ``check_steps`` teacher-forced
     decode steps against one device (LM_MESH_TOL), every rank's logits the
-    same bits.  ``widths=False`` (a CPU rehearsal) runs smoke widths."""
+    same bits.  ``widths=False`` (a CPU rehearsal) runs smoke widths.  The
+    mesh is ``pool``'s: the one lm_mesh_ssm's (b) left open."""
     from repro_torch import rng as jrng
     from repro_torch.configs import registry
-    from repro_torch.serve.mesh_worker import LMMeshRun
+
+    pool = pool or MeshPool(torch, device, keep=False)
 
     get = registry.get if widths else registry.smoke_variant
     gemma = dataclasses.replace(get("gemma3-4b"), num_layers=layers)
@@ -4002,10 +4123,8 @@ def lm_mesh_long(torch, seed: int, card: str, device: str = "cuda",
                                                   + check_steps), 0,
                             gemma.vocab_size)
     cells = {}
-    if device == "cuda":
-        torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    with LMMeshRun({"data": data, "model": m}, torch.device(device)) as run:
+    with pool.use(LM_LONG_SHAPE) as run:
         transport = run.transport
         for key, cfg in (("gemma3_4b", gemma), ("hymba", hymba)):
             t = time.perf_counter()
@@ -4087,7 +4206,10 @@ def lm_mesh_long(torch, seed: int, card: str, device: str = "cuda",
 
 # -- the LM training path (lm100m, gemma3-4b at full width) ------------------
 
-LM100M_STEPS, LM100M_BATCH, LM100M_SEQ = 300, 8, 256
+# lm100m's steps cut from 300 to 50 when the examples joined the script
+# (its time; PERF.md section 4): the train_lm twin runs the same preset
+# through the same launcher, and the loss falls by 9 within 50 steps
+LM100M_STEPS, LM100M_BATCH, LM100M_SEQ = 50, 8, 256
 LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_MB = 6, 2, 2048, 2
 # card against CPU, one train step of each smoke arch (float32, TF32 off),
 # with the bounds tests/test_torch_lm_grads.py holds the port to the JAX
@@ -5114,6 +5236,234 @@ def tiered_kernel_rows(torch, timer: Timer, tiered: dict, card: str) -> list:
         "mh_sample_ms": ms, "merge_ms": mms, "bitwise": True,
         "card": card}}}))
     return rows
+
+
+# -- the six user examples' twins (examples/*_torch.py) ----------------------
+
+EXAMPLES = ROOT / "examples"
+# the kernels each in-process twin must launch on the card: the draws, B1,
+# B2 and B3 (its in-process merge); B4 is the SPMD wrapper's
+EXAMPLE_KERNELS = ("mh_draws_train", "mh_sample", "alias_build",
+                   "delta_push")
+EXAMPLE_TIMEOUT = 600
+THROUGHPUT = ("tok/s", "docs/s", "tokens/s")
+
+
+class Tee:
+    """A stdout that also keeps what is written."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def example_module(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_torch", EXAMPLES / f"{name}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def throughput_lines(text: str) -> list:
+    return [ln.strip() for ln in text.splitlines()
+            if any(u in ln for u in THROUGHPUT)]
+
+
+def in_process_twin(torch, name: str, device: str):
+    """``examples/<name>_torch.py``'s ``main(device)`` in this process,
+    between a reset and a read of the launch counters; returns what
+    ``main`` returned, its stdout, its wall seconds and the launches."""
+    from repro_torch.kernels import ops
+
+    mod = example_module(name)
+    tee = Tee(sys.stdout)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    # --------------------------------------------------------------- main path
+    with contextlib.redirect_stdout(tee):
+        res = mod.main(device)
+    sync(torch, device)
+    # ------------------------------------------------------- end of main path
+    return res, tee.text(), time.perf_counter() - t0, ops.launch_counts()
+
+
+def run_wrappers(*wrappers: tuple) -> dict:
+    """``python examples/<name>_torch.py ARGV`` for each ``(name, *argv)``
+    of ``wrappers``, as a user runs it, all at once; each one's output,
+    exit code and wall seconds (its start to its exit)."""
+    done = {}
+
+    def run(name, *argv):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(EXAMPLES / f"{name}_torch.py"), *argv],
+            cwd=str(ROOT), stdin=subprocess.DEVNULL, capture_output=True,
+            text=True, timeout=EXAMPLE_TIMEOUT)
+        done[name] = (proc, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=run, args=w) for w in wrappers]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(EXAMPLE_TIMEOUT + 60)
+    out = {}
+    for name, *argv in wrappers:
+        if name not in done:
+            raise AssertionError(f"examples/{name}_torch.py did not finish")
+        proc, s = done[name]
+        for ln in proc.stdout.splitlines()[-40:]:
+            log(f"[examples] {name}: {ln}")
+        if proc.returncode != 0:
+            raise AssertionError(
+                f"examples/{name}_torch.py {' '.join(argv)} exited "
+                f"{proc.returncode}: {proc.stderr[-4000:]}")
+        out[name] = {"argv": argv, "s": s, "stdout": proc.stdout,
+                     "throughput": throughput_lines(proc.stdout)}
+    return out
+
+
+def falling(values: list, what: str) -> None:
+    if len(values) < 2 or not all(math.isfinite(x) for x in values) or \
+            not values[-1] < values[0]:
+        raise AssertionError(f"{what} does not fall: {values}")
+
+
+def quickstart_cpu_reference(out_path: Path) -> subprocess.Popen:
+    """The quickstart on the CPU in a process of its own, beside the card's
+    run: its stdout, and n_wk and n_k in ``out_path``."""
+    code = ("import sys, numpy as np\n"
+            f"sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]\n"
+            "import chip_smoke as c\n"
+            "model, _, _ = c.example_module('quickstart').main('cpu')\n"
+            f"np.savez({str(out_path)!r}, nwk=model.nwk, nk=model.nk)\n")
+    env = dict(os.environ, OMP_NUM_THREADS="2")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT),
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def result_lines(text: str) -> list:
+    """The quickstart's printed results: the top words and best docs."""
+    return [ln for ln in text.splitlines()
+            if ln.startswith("  topic") or ln.startswith("  query")]
+
+
+def examples(torch, card: str, device: str = "cuda") -> dict:
+    """The six user examples' twins on the card, at the JAX examples' own
+    sizes: quickstart and stream_train in this process (launch counters:
+    mh_draws, B1, B2 and B3; quickstart's counts and printed results equal
+    the same ``main`` on the CPU, run in a process of its own meanwhile),
+    then the four wrappers as ``python examples/<name>_torch.py``
+    subprocesses, all four at once (train_lm with ``--steps 50``): the
+    snapshot published and queries scored, the SPMD ranks' perplexity
+    falling with their B3 and B4 launches, (8, 48) tokens generated, a
+    finite falling loss.  Each wrapper's seconds and throughput lines are
+    therefore those of four programs sharing the card and the host."""
+    import tempfile
+
+    out = {}
+    dev = [] if device == "cuda" else ["--device", device]
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = Path(tmp) / "quickstart_cpu.npz"
+        ref = quickstart_cpu_reference(ref_path) if device == "cuda" \
+            else None
+        (model, theta, scores), q_text, s, launches = in_process_twin(
+            torch, "quickstart", device)
+        ppl = [r["perplexity"] for r in model.history]
+        falling(ppl, "quickstart's perplexity")
+        out["quickstart"] = {"s": s, "launches": launches,
+                             "perplexity": ppl,
+                             "theta_shape": list(theta.shape),
+                             "scores_shape": list(scores.shape),
+                             "throughput": throughput_lines(q_text)}
+        st_model, text, s, launches = in_process_twin(torch, "stream_train",
+                                                      device)
+        if "conservation check OK" not in text:
+            raise AssertionError("stream_train: no conservation line")
+        out["stream_train"] = {"s": s, "launches": launches,
+                               "perplexity": [r["perplexity"]
+                                              for r in st_model.history],
+                               "throughput": throughput_lines(text)}
+        if device == "cuda":
+            for name, fold_in in (("quickstart", ("mh_draws_foldin",)),
+                                  ("stream_train", ())):
+                c = out[name]["launches"]
+                if not all(c[k] for k in EXAMPLE_KERNELS + fold_in):
+                    raise AssertionError(f"{name}: kernels not launched: "
+                                         f"{c}")
+        t0 = time.perf_counter()
+        out.update(run_wrappers(("serve_topics", *dev),
+                                ("lda_distributed", *dev),
+                                ("serve_lm", *dev),
+                                ("train_lm", "--steps", "50", *dev)))
+        wrappers_s = time.perf_counter() - t0
+        if ref is not None:
+            t0 = time.perf_counter()
+            ref_out, ref_err = ref.communicate(timeout=EXAMPLE_TIMEOUT)
+            wait_s = time.perf_counter() - t0
+            if ref.returncode != 0:
+                raise AssertionError(f"quickstart on the CPU failed: "
+                                     f"{ref_err[-4000:]}")
+            want = np.load(ref_path)
+            equal = (np.array_equal(model.nwk, want["nwk"])
+                     and np.array_equal(model.nk, want["nk"]))
+            same_lines = result_lines(q_text) == result_lines(ref_out)
+            if not (equal and same_lines):
+                raise AssertionError(
+                    f"quickstart on the card differs from the CPU: counts "
+                    f"equal {equal}, printed results equal {same_lines}:\n"
+                    f"{result_lines(q_text)}\n{result_lines(ref_out)}")
+            out["quickstart"]["card_vs_cpu"] = {
+                "counts_equal": equal, "results_equal": same_lines,
+                "wait_after_wrappers_s": wait_s}
+    r = out["serve_topics"]
+    if not ("published snapshot v5" in r["stdout"]
+            and r["stdout"].count("best docs") == 4):
+        raise AssertionError("serve_topics: no snapshot or no scores")
+    r = out["lda_distributed"]
+    ppl = [float(x) for x in re.findall(r"perplexity\s+([\d.]+)",
+                                        r["stdout"])]
+    falling(ppl, "lda_distributed's perplexity")
+    m = re.search(r"kernel launches over 8 ranks \((\w+)\): (.*)",
+                  r["stdout"])
+    if m is None:
+        raise AssertionError("lda_distributed: no launch line")
+    launches = {k: int(n) for k, n in (p.rsplit(" ", 1)
+                                       for p in m.group(2).split(", "))}
+    if device == "cuda" and not (launches["delta_push"]
+                                 and launches["delta_apply_coo"]):
+        raise AssertionError(f"lda_distributed: B3/B4 not launched: "
+                             f"{launches}")
+    r.update(perplexity=ppl, transport=m.group(1), launches=launches)
+    if "generated (8, 48) tokens" not in out["serve_lm"]["stdout"]:
+        raise AssertionError("serve_lm: not (8, 48) tokens")
+    r = out["train_lm"]
+    m = re.search(r"\[train\] loss (\S+) -> (\S+) ", r["stdout"])
+    if m is None:
+        raise AssertionError("train_lm: no loss line")
+    loss = [float(m.group(1)), float(m.group(2))]
+    falling(loss, "train_lm's loss")
+    r.update(loss=loss, steps=[ln for ln in r["stdout"].splitlines()
+                               if ln.startswith("step")])
+    for v in out.values():
+        v.pop("stdout", None)
+    summary = {"card": card, "wrappers_s": wrappers_s, **out}
+    log(f"[examples] {card}: " + ", ".join(
+        f"{k} {v['s']:.1f} s" for k, v in out.items())
+        + f"; the four wrappers at once {wrappers_s:.1f} s")
+    log(json.dumps({"examples": summary}))
+    return summary
 
 
 # -- phase 5: kernel times at the main path's shapes -------------------------
@@ -6320,12 +6670,17 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--spmd-cpu", default="",
                     help=argparse.SUPPRESS)   # spmd_card_vs_cpu's CPU jobs
+    ap.add_argument("--net-cpu", default="",
+                    help=argparse.SUPPRESS)   # net_train's (d) on the CPU
     args = ap.parse_args(argv)
 
     import torch
 
     if args.spmd_cpu:
         spmd_cpu_runs(torch, args.seed, args.spmd_cpu)
+        return 0
+    if args.net_cpu:
+        net_cpu_run(args.seed, args.net_cpu)
         return 0
 
     if not torch.cuda.is_available():
@@ -6347,9 +6702,9 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
 
-    def phase(name, fn, *a):
+    def phase(name, fn, *a, **kw):
         t = time.perf_counter()
-        out = fn(*a)
+        out = fn(*a, **kw)
         log(f"[phase] {name} {time.perf_counter() - t:.1f} s")
         return out
 
@@ -6358,10 +6713,20 @@ def main(argv=None) -> int:
     phase("check_draws", check_draws, torch)
     # the mesh phases first: the float32 check holds 63 GB on the card
     phase("lm_mesh_serve", lm_mesh_serve, torch, args.seed, card)
-    phase("lm_mesh_dp", lm_mesh_dp, torch, args.seed, card)
-    phase("lm_mesh_train", lm_mesh_train, torch, args.seed, card)
-    phase("lm_mesh_ssm", lm_mesh_ssm, torch, args.seed, card)
-    phase("lm_mesh_long", lm_mesh_long, torch, args.seed, card)
+    # one 2 x 2 mesh serves lm_mesh_dp's checks and lm_mesh_train, another
+    # lm_mesh_ssm's (b) and lm_mesh_long
+    pool = MeshPool(torch, "cuda")
+    try:
+        phase("lm_mesh_dp", lm_mesh_dp, torch, args.seed, card, pool=pool)
+        phase("lm_mesh_train", lm_mesh_train, torch, args.seed, card,
+              pool=pool)
+        phase("lm_mesh_ssm", lm_mesh_ssm, torch, args.seed, card, pool=pool)
+        phase("lm_mesh_long", lm_mesh_long, torch, args.seed, card,
+              pool=pool)
+    finally:
+        pool.close()
+    log(json.dumps({"mesh_pool": {"starts": pool.starts,
+                                  "reuses": pool.reuses}}))
     serve = phase("serve", serve_slice, torch, args.seed, card)
     train = phase("train", train_slice, torch, args.seed, card)
     phase("card_vs_cpu", card_vs_cpu, torch, args.seed)
@@ -6406,6 +6771,7 @@ def main(argv=None) -> int:
     replayed = phase("replay", replay, torch, args.seed, card, train)
     rows += phase("replay_kernels", replay_kernel_rows, torch, timer, rows,
                   train, groups, replayed, card)
+    phase("examples", examples, torch, card)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

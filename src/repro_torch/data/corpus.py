@@ -34,6 +34,14 @@ class Corpus:
     def num_docs(self) -> int:
         return int(self.doc_len.shape[0])
 
+    def subset(self, frac: float, seed: int = 0) -> "Corpus":
+        """Take the first ``frac`` of documents (the paper's 2.5%-10%
+        subset experiments scale the corpus this way).  ``seed`` is
+        unused: the subset is a prefix, as in the reference."""
+        ndocs = max(1, int(self.num_docs * frac))
+        end = int(self.doc_start[ndocs - 1] + self.doc_len[ndocs - 1])
+        return reindex(self.w[:end], self.d[:end], self.vocab_size)
+
 
 def reindex(w: np.ndarray, d: np.ndarray, vocab_size: int) -> Corpus:
     """Rebuild offsets + frequency ordering for a token list."""

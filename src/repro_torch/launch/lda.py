@@ -46,6 +46,8 @@ import json
 import os
 import sys
 
+import numpy as np
+
 from repro_torch import api
 from repro_torch.data import corpus as corpus_mod
 from repro_torch.data import stream as stream_mod
@@ -146,6 +148,18 @@ def run_distributed(corp, cfg, sweeps: int, seed: int, eval_every: int,
     return api.Session(job, device=device, devices=devices).run().history
 
 
+def rank_launches_line(info: dict) -> str:
+    """One line of an SPMD run's kernel launches, summed over its ranks
+    (each rank counts its own; a CPU rank launches none)."""
+    total: dict = {}
+    for r in info["ranks"]:
+        for name, n in r["launches"].items():
+            total[name] = total.get(name, 0) + n
+    return (f"[lda] kernel launches over {len(info['ranks'])} ranks "
+            f"({info['collective']}): "
+            + ", ".join(f"{k} {n}" for k, n in sorted(total.items())))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--docs", type=int, default=1000)
@@ -195,6 +209,9 @@ def main(argv=None) -> int:
                          "write a Perfetto-loadable trace.json + "
                          "metrics.jsonl under this directory")
     ap.add_argument("--out", default="experiments/lda")
+    ap.add_argument("--save-counts", default="",
+                    help="write the final n_wk and n_k (dense, logical "
+                         "rows) to this .npz")
     ap.add_argument("--checkpoint", default="")
     ap.add_argument("--stream-dir", default="",
                     help="out-of-core training: shard the corpus into (or "
@@ -241,6 +258,12 @@ def main(argv=None) -> int:
               f"executor); checkpoint at {job.checkpoint.path}")
     elif args.checkpoint and not args.devices and not args.stream_dir:
         print(f"[lda] checkpointed assignments to {args.checkpoint}")
+    if args.devices:
+        print(rank_launches_line(result.info))
+    if args.save_counts:
+        np.savez(args.save_counts,
+                 nwk=result.nwk.to_dense().cpu().numpy(),
+                 nk=result.nk.value.cpu().numpy())
 
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "history.json"), "w") as f:

@@ -30,12 +30,14 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import warnings
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch import obs as _obs
+from repro_torch import ps
 from repro_torch import rng as jrng
 from repro_torch.core import lightlda as lda
 from repro_torch.device import Device, resolve_device
@@ -76,8 +78,9 @@ class TrainingHandle:
 class TopicService:
     """``exec_cfg`` is the full training spec (``staleness`` /
     ``model_blocks`` / ``route`` -- ``train.async_exec.ExecConfig``),
-    identical to what the launcher passes.  ``publisher`` adopts an
-    external ``SnapshotPublisher`` (e.g. ``TopicModel.publisher()``)
+    identical to what the launcher passes; the legacy ``route`` kwarg is
+    deprecated and folded into it.  ``publisher`` adopts an external
+    ``SnapshotPublisher`` (e.g. ``TopicModel.publisher()``)
     instead of starting empty.  ``device`` is where training runs and the
     service's own snapshots live: the card unless the caller passes
     another."""
@@ -86,10 +89,19 @@ class TopicService:
     ecfg: EngineConfig = EngineConfig()
     state: Optional[lda.SamplerState] = None
     exec_cfg: ExecConfig = ExecConfig()
+    route: Optional[ps.PushRoute] = None
     publisher: Optional[SnapshotPublisher] = None
     device: Device = None
 
     def __post_init__(self):
+        if self.route is not None:
+            warnings.warn(
+                "TopicService(route=...) is deprecated: pass "
+                "exec_cfg=ExecConfig(route=...) (the launcher's spec)",
+                DeprecationWarning, stacklevel=2)
+            if self.exec_cfg.route is None:
+                self.exec_cfg = dataclasses.replace(self.exec_cfg,
+                                                    route=self.route)
         self.device = resolve_device(self.device)
         if self.publisher is None:
             self.publisher = SnapshotPublisher(self.cfg)

@@ -251,3 +251,36 @@ def test_obs_session_records_spans_and_metrics(tmp_path):
     assert any(e.get("name") == "snapshot.build" for e in events)
     rows = obs.load_jsonl(cfg.metrics_path)
     assert rows[0]["name"] == "serve.request_ms" and rows[0]["count"] == 1
+
+
+@pytest.mark.parametrize("frac", [0.001, 0.025, 0.1, 0.5, 1.0])
+def test_corpus_subset_matches_jax_package(frac):
+    """``Corpus.subset`` (the paper's 2.5 %-10 % subset scaling): the same
+    tokens, documents and vocabulary order as the JAX package's."""
+    from repro.data import corpus as jcorpus
+    from repro_torch.data import corpus as tcorpus
+    a = jcorpus.synthetic_corpus(200, 300, true_topics=6, seed=4)
+    b = tcorpus.synthetic_corpus(200, 300, true_topics=6, seed=4)
+    sa, sb = a.subset(frac, seed=1), b.subset(frac, seed=1)
+    for name in ("w", "d", "doc_start", "doc_len", "word_freq"):
+        np.testing.assert_array_equal(getattr(sb, name), getattr(sa, name))
+        assert getattr(sb, name).dtype == getattr(sa, name).dtype
+    assert (sb.num_docs, sb.num_tokens, sb.vocab_size) == (
+        sa.num_docs, sa.num_tokens, sa.vocab_size)
+    assert sb.num_docs == max(1, int(200 * frac))
+
+
+def test_examples_twins_import_neither_jax_nor_repro():
+    """The six ``examples/*_torch.py`` twins are the port's: none imports
+    jax or the JAX package (their wrappers' argv names ``repro_torch``)."""
+    pattern = re.compile(r"^\s*(import jax|from jax|import repro(\.|\s|$)|"
+                         r"from repro(\.| import))", re.M)
+    twins = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert [p.name for p in twins] == [
+        "lda_distributed_torch.py", "quickstart_torch.py",
+        "serve_lm_torch.py", "serve_topics_torch.py",
+        "stream_train_torch.py", "train_lm_torch.py"]
+    for p in twins:
+        text = p.read_text()
+        assert not pattern.search(text), p
+        assert '"repro.' not in text, p

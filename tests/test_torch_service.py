@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 import jax
 
 from repro.core import lightlda as jlda
+from repro import ps as jps
 from repro.data import corpus as jcorpus
 from repro.infer.engine import EngineConfig as JEngineConfig
 from repro.infer.foldin import FoldInConfig as JFoldInConfig
@@ -188,3 +189,38 @@ def test_service_defaults_to_the_card():
         pytest.skip("this host has a card: the default device is valid")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TopicService(_cfg(tlda))
+
+
+def test_route_keyword_is_deprecated_and_folded_into_exec_cfg(corpus):
+    """``TopicService(route=...)`` as the JAX shim does it: a
+    ``DeprecationWarning``, the route moved into an ``exec_cfg`` that names
+    none (one that names a route keeps it), and training equal to
+    ``exec_cfg=ExecConfig(route=...)`` and to the JAX shim's, bitwise."""
+    train, _ = corpus
+    route = tapi.HybridRoute(hot_words=40)
+    with pytest.warns(DeprecationWarning, match=r"exec_cfg=ExecConfig"):
+        old = TopicService(_cfg(tlda), _ecfg(EngineConfig, FoldInConfig),
+                           exec_cfg=ExecConfig(staleness=1), route=route,
+                           device="cpu")
+    assert old.exec_cfg == ExecConfig(staleness=1, route=route)
+    new = TopicService(_cfg(tlda), _ecfg(EngineConfig, FoldInConfig),
+                       exec_cfg=ExecConfig(staleness=1, route=route),
+                       device="cpu")
+    with pytest.warns(DeprecationWarning):
+        jold = JTopicService(_cfg(jlda), _ecfg(JEngineConfig, JFoldInConfig),
+                             exec_cfg=JExecConfig(staleness=1),
+                             route=jps.HybridRoute(hot_words=40))
+    jold.init_from_corpus(train, seed=1)
+    jold.train(2, jax.random.PRNGKey(3))
+    for svc in (old, new):
+        svc.init_from_corpus(train, seed=1)
+        svc.train(2, jrng.PRNGKey(3))
+    assert torch.equal(old.state.nwk.to_dense(), new.state.nwk.to_dense())
+    assert torch.equal(old.state.nk.value, new.state.nk.value)
+    assert torch.equal(old.state.z, new.state.z)
+    np.testing.assert_array_equal(old.state.nwk.to_dense().numpy(),
+                                  np.asarray(jold.state.nwk.to_dense()))
+    with pytest.warns(DeprecationWarning):
+        kept = TopicService(_cfg(tlda), exec_cfg=ExecConfig(
+            route=tapi.DenseRoute()), route=route, device="cpu")
+    assert kept.exec_cfg.route == tapi.DenseRoute()
