@@ -29,7 +29,13 @@ Phases (any failure raises and the script exits non-zero):
                  group's, a pipelined group's, a tiered block's and a stream
                  visit's slots, with empty and one-token documents and
                  padded slots; the fold-in entry point at serving's
-                 [32 x 1024] batch, sweeps 0 and 29;
+                 [32 x 1024] batch, sweeps 0 and 29; its two threefry
+                 entry points bitwise against rng's plain functions:
+                 threefry_keys at split(key, 244), split(keys, 2) of 32
+                 keys and the stream keys' fold-in chains,
+                 threefry_randint at serving's [32 x 1024] init draw
+                 (fold_in 0x1d4 folded in) at K in {7, 130, 1000} and a
+                 stream shard's 262,144 tokens;
   3b. lm_mesh -- LM serving on a device mesh of 4 gloo rank processes
                  sharing the card (serve.mesh_worker), run first while
                  the card is empty: deepseek-v2-lite-16b at its full
@@ -217,15 +223,17 @@ Phases (any failure raises and the script exits non-zero):
                  held bitwise at serving's φ and at each executor's
                  weights; the merge at each executor's group, also by
                  destination; mh_draws at a snapshot group, a pipelined
-                 group, a tiered block and a fold-in batch; the SPMD path's
+                 group, a tiered block and a fold-in batch, threefry_keys
+                 at a snapshot sweep's split and threefry_randint at
+                 serving's and training's init draws; the SPMD path's
                  rows, delta_apply_coo at its gathered COO), the whole
                  merge of one group as the
                  executors composed it before (route plan, token_deltas,
                  adds) against the one-launch merge, in turns, then one
                  pipelined sweep taken each way; a
                  profile of one fold-in batch and of one training sweep,
-                 the tensor operations of the key derivations that stay
-                 eager;
+                 the launches of the key derivations and init draws (at
+                 most 2 each, asserted);
  17. baselines -- paper Table 1 on the card on the training corpus at
                  V = 100,000 for K in {80, 1000}: Spark-EM (10 iterations),
                  Spark-Online (30 minibatches of 128 documents, densified
@@ -682,6 +690,50 @@ def check_draws(torch) -> None:
                                      f"plain version at K={k}, sweep {sweep}")
 
 
+def check_threefry(torch) -> None:
+    """mh_draws' threefry entry points against rng's plain functions on
+    the card, bitwise: threefry_keys at a snapshot sweep's split(key, 244),
+    split(keys, 2) of a [32 x 2] key batch and the stream keys' fold-in
+    chains; threefry_randint at serving's [32 x 1024] init draw (fold_in
+    0x1d4 folded in) at K in {7, 130, 1000} and a stream shard's 262,144
+    tokens from stream_init_key's chain."""
+    from repro_torch import rng as jrng
+    from repro_torch.kernels import mh_draws, ref
+
+    key = jrng.PRNGKey(7, "cuda")
+    keys = jrng.keys_from_seeds(range(1000, 1032), "cuda")
+    for what, kk, data, num in (("split", key, (), 244),
+                                ("split", keys, (), 2),
+                                ("fold_in", jrng.PRNGKey(0, "cuda"),
+                                 (1, 3, 17), 0),
+                                ("fold_in", keys, (0x1d4,), 0)):
+        got = mh_draws.threefry_keys_cuda(kk, data, num)
+        want = ref.threefry_keys_ref(kk, data, num)
+        torch.cuda.synchronize()
+        match = bool(torch.equal(got, want))
+        log(json.dumps({"check": "threefry_keys", "what": what,
+                        "keys": list(kk.shape[:-1]), "data": list(data),
+                        "num": num, "match": match}))
+        if not match:
+            raise AssertionError(f"threefry_keys differs from rng's {what} "
+                                 f"at {tuple(kk.shape)}, {data}, {num}")
+    for kk, shape, k, data in ((keys, (1024,), 7, (0x1d4,)),
+                               (keys, (1024,), 130, (0x1d4,)),
+                               (keys, (1024,), K_FULL, (0x1d4,)),
+                               (jrng.PRNGKey(0, "cuda"),
+                                (STREAM_SHARD_TOKENS,), K_FULL, (0, 5))):
+        got = mh_draws.threefry_randint_cuda(kk, shape, 0, k, data)
+        want = ref.threefry_randint_ref(kk, shape, 0, k, data)
+        torch.cuda.synchronize()
+        match = bool(torch.equal(got, want))
+        log(json.dumps({"check": "threefry_randint",
+                        "shape": list(got.shape), "K": k,
+                        "data": list(data), "match": match}))
+        if not match:
+            raise AssertionError(f"threefry_randint differs from rng's "
+                                 f"randint at {tuple(got.shape)}, K={k}")
+
+
 def merge_inputs(torch, rows: int, docs: int, k: int, t: int, seed: int,
                  changed_frac: float):
     """A group's reassignments for delta_push's merge form: the batch of
@@ -836,6 +888,12 @@ def serve_slice(torch, seed: int, card: str, device: str = "cuda",
                                      f"= {ecfg.foldin.num_sweeps * batches}")
         if transform_counts["mh_draws_train"]:
             raise AssertionError("serving launched the training draws")
+        inits = (transform_counts["threefry_randint"]
+                 - publish_counts["threefry_randint"])
+        if inits != batches:
+            raise AssertionError(f"threefry_randint launched {inits} times "
+                                 f"in transform, expected one a batch = "
+                                 f"{batches}")
     sums = theta.sum(1)
     if not (np.abs(sums - 1.0) <= 1e-3).all():
         raise AssertionError(f"θ rows do not sum to 1: {sums.min()} "
@@ -991,6 +1049,7 @@ def train_slice(torch, seed: int, card: str, device: str = "cuda",
         if device == "cuda" and counts[name] != n:
             raise AssertionError(f"snapshot executor: {name} launched "
                                  f"{counts[name]} times, expected {n}")
+    check_key_launches(counts, "snapshot executor", device)
     conservation(torch, est.result_.state, "snapshot executor")
     ppl = [row["perplexity"] for row in model.history]
     if not (len(ppl) == 3 and ppl[2] < ppl[0]):
@@ -1029,6 +1088,7 @@ def train_slice(torch, seed: int, card: str, device: str = "cuda",
         if device == "cuda" and pcounts[name] != n:
             raise AssertionError(f"pipelined executor: {name} launched "
                                  f"{pcounts[name]} times, expected {n}")
+    check_key_launches(pcounts, "pipelined executor", device)
     conservation(torch, pest.result_.state, "pipelined executor")
     row = pmodel.history[0]
     (sweep_ms, dispatch_ms), = sweep_spans(pobs / "trace.json")
@@ -1203,8 +1263,21 @@ def stream_launches(reader, visits: int, info: dict, block_tokens: int
 
 
 def check_launches(counts: dict, want: dict, what: str, device: str) -> None:
-    if device == "cuda" and counts != want:
+    """The kernels ``want`` names launched exactly so often (the threefry
+    kernels' counts, which follow the schedule's keys, are logged beside
+    them)."""
+    got = {name: counts[name] for name in want}
+    if device == "cuda" and got != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want}")
+
+
+def check_key_launches(counts: dict, what: str, device: str) -> None:
+    """A training run drew its keys (threefry_keys) and its initial
+    assignments (threefry_randint) on the card."""
+    if device == "cuda" and not (counts["threefry_keys"]
+                                 and counts["threefry_randint"]):
+        raise AssertionError(f"{what}: the threefry kernels were not "
+                             f"launched: {counts}")
 
 
 def visit_split(events) -> dict:
@@ -5242,9 +5315,10 @@ def tiered_kernel_rows(torch, timer: Timer, tiered: dict, card: str) -> list:
 
 EXAMPLES = ROOT / "examples"
 # the kernels each in-process twin must launch on the card: the draws, B1,
-# B2 and B3 (its in-process merge); B4 is the SPMD wrapper's
+# B2 and B3 (its in-process merge), the key derivations and the init draw;
+# B4 is the SPMD wrapper's
 EXAMPLE_KERNELS = ("mh_draws_train", "mh_sample", "alias_build",
-                   "delta_push")
+                   "delta_push", "threefry_keys", "threefry_randint")
 EXAMPLE_TIMEOUT = 600
 THROUGHPUT = ("tok/s", "docs/s", "tokens/s")
 
@@ -6276,19 +6350,22 @@ def kernel_report(torch, timer: Timer, serve: dict, train: dict,
 def draws_row(torch, timer: Timer, name: str, kernel, plain, launches: int,
               nbytes: int, hashes: int, reps: int, plain_reps: int,
               card: str) -> dict:
-    """One mh_draws row: the kernel held bitwise against its plain version
+    """One mh_draws row (an MHRandoms, or a tensor of threefry_keys or
+    threefry_randint): the kernel held bitwise against its plain version
     on the same inputs, both timed, the bound from ``hashes`` threefry
     hashes at the int32 rate or ``nbytes``, whichever is larger."""
     got, want = kernel(), plain()
-    if not draws_match(torch, got, want):
+    draws = isinstance(got, tuple)
+    if not (draws_match(torch, got, want) if draws
+            else bool(torch.equal(got, want))):
         raise AssertionError(f"{name} differs from its plain version at the "
                              f"main path's shapes")
-    slots = got.u_word.shape[1]
+    shape = list((got.u_word if draws else got).shape)
     del got, want
     ms = timer.ms(kernel, reps=reps)
     plain_ms = timer.ms(plain, reps=plain_reps, device_only=False)
     log(json.dumps({"timing": {name: {
-        "slots": slots, "hashes": hashes, "bytes": nbytes, "bitwise": True,
+        "shape": shape, "hashes": hashes, "bytes": nbytes, "bitwise": True,
         "ms": ms, "plain_ms": plain_ms, "card": card}}}))
     # no PyTorch call computes jax's threefry (torch.rand is Philox)
     return kernel_row(name, "src/repro_torch/kernels/csrc/mh_draws.cu",
@@ -6375,7 +6452,47 @@ def mh_draws_rows(torch, timer: Timer, serve: dict, train: dict,
         serve["counts"]["mh_draws_foldin"],
         16 * steps * b * bucket + 20 * b + 4 * tok,
         7 * steps * b * bucket + 10 * b, 100, 5, card))
-    return rows
+    return rows + threefry_rows(torch, timer, serve, train, keys, bucket,
+                                card)
+
+
+def threefry_rows(torch, timer: Timer, serve: dict, train: dict, keys,
+                  bucket: int, card: str) -> list:
+    """threefry_keys at a snapshot sweep's split(key, groups) and
+    threefry_randint at serving's [32 x 1024] init draw (``keys``, fold_in
+    0x1d4 folded in) and at training's init draw of the corpus' tokens
+    from one key, each with its launches on its main path.  The work:
+    a hash per fold-in datum per key, one per split key, two per drawn
+    value plus split(key, 2)'s two a key; the bytes: the keys read, the
+    keys or int32 values written."""
+    from repro_torch import rng as jrng
+    from repro_torch.kernels import mh_draws, ref
+
+    st, cfg, fcfg = train["state"], train["cfg"], serve["model"].cfg
+    key = jrng.PRNGKey(11, "cuda")
+    groups = st.w.shape[0] // cfg.block_tokens
+    b = keys.shape[0]
+    n = int(train["corpus"].num_tokens)
+    snap, served = train["snapshot_counts"], serve["counts"]
+    return [
+        draws_row(torch, timer, "threefry_keys",
+                  lambda: mh_draws.threefry_keys_cuda(key, (), groups),
+                  lambda: ref.threefry_keys_ref(key, (), groups),
+                  snap["threefry_keys"], 16 + 16 * groups, groups, 100, 5,
+                  card),
+        draws_row(torch, timer, "threefry_randint_foldin",
+                  lambda: mh_draws.threefry_randint_cuda(
+                      keys, (bucket,), 0, fcfg.K, (0x1d4,)),
+                  lambda: ref.threefry_randint_ref(keys, (bucket,), 0,
+                                                   fcfg.K, (0x1d4,)),
+                  served["threefry_randint"], 16 * b + 4 * b * bucket,
+                  3 * b + 2 * b * bucket, 100, 5, card),
+        draws_row(torch, timer, "threefry_randint_train_init",
+                  lambda: mh_draws.threefry_randint_cuda(key, (n,), 0,
+                                                         cfg.K),
+                  lambda: ref.threefry_randint_ref(key, (n,), 0, cfg.K),
+                  snap["threefry_randint"], 16 + 4 * n, 2 + 2 * n, 20, 2,
+                  card)]
 
 
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
@@ -6471,45 +6588,62 @@ def of_kernel(stats: dict, name: str) -> dict:
 
 
 def eager_key_ops(torch, card: str) -> dict:
-    """The tensor operations of the key derivations that stay eager (each
-    an operation PyTorch dispatches on the card; views not counted):
-    ``split(key, 244)`` a snapshot sweep, ``stream_sweep_key`` a stream or
-    net visit, the fold-in init draw of a [32 x 1024] batch, and a stream
-    shard's init draw of 262,144 tokens."""
+    """The launches of the key derivations and init draws, as the LDA paths
+    issue them: ``ops.split(key, 244)`` a snapshot sweep,
+    ``stream_sweep_key`` a stream or net visit, the fold-in init draw of a
+    [32 x 1024] batch, and a stream shard's init draw of 262,144 tokens
+    (``stream_init_key``, then ``ops.randint``).  For each: the tensor
+    operations PyTorch dispatches (views not counted), the allocations
+    among them (``empty``, which launch nothing), the hand-written
+    kernels' launches (``ops`` counters), and ``launches``, the work the
+    card is given: the dispatched operations less the allocations, plus
+    the kernels' launches.  Each must be at most 2."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     from repro_torch import rng as jrng
     from repro_torch.api.session import stream_init_key, stream_sweep_key
+    from repro_torch.kernels import ops
 
     views = {"view", "_unsafe_view", "reshape", "expand", "select", "slice",
              "unsqueeze", "squeeze", "t", "transpose", "as_strided",
              "alias", "detach", "lift_fresh"}
+    allocations = {"empty", "empty_strided", "empty_like"}
 
     class Count(TorchDispatchMode):
-        n = 0
+        n = allocs = 0
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            if func.overloadpacket.__name__ not in views:
+            name = func.overloadpacket.__name__
+            if name not in views:
                 self.n += 1
+                self.allocs += name in allocations
             return func(*args, **(kwargs or {}))
 
     key = jrng.PRNGKey(3, "cuda")
     keys = jrng.keys_from_seeds(range(32), "cuda")
     out = {}
     for name, fn in (
-            ("split_per_sweep", lambda: jrng.split(key, 244)),
+            ("split_per_sweep", lambda: ops.split(key, 244)),
             ("stream_sweep_key_per_visit",
              lambda: stream_sweep_key(0, 1, 3, "cuda")),
             ("foldin_init_draw_per_batch",
-             lambda: jrng.randint(jrng.fold_in(keys, 0x1d4), (1024,), 0,
-                                  K_FULL)),
+             lambda: ops.randint(keys, (1024,), 0, K_FULL,
+                                 fold_in=(0x1d4,))),
             ("stream_init_draw_per_shard",
-             lambda: jrng.randint(stream_init_key(0, 5, "cuda"),
-                                  (STREAM_SHARD_TOKENS,), 0, K_FULL))):
+             lambda: ops.randint(stream_init_key(0, 5, "cuda"),
+                                 (STREAM_SHARD_TOKENS,), 0, K_FULL))):
+        torch.cuda.synchronize()
+        before = sum(ops.launch_counts().values())
         with Count() as c:
             fn()
-        out[name] = c.n
+        kernels = sum(ops.launch_counts().values()) - before
+        out[name] = {"ops": c.n, "allocations": c.allocs,
+                     "kernel_launches": kernels,
+                     "launches": c.n - c.allocs + kernels}
     log(json.dumps({"eager_key_ops": dict(out, card=card)}))
+    over = {k: v for k, v in out.items() if v["launches"] > 2}
+    if over:
+        raise AssertionError(f"key derivations over 2 launches: {over}")
     return out
 
 
@@ -6538,10 +6672,15 @@ def profile_batch(torch, serve: dict, card: str) -> None:
         f"{profile_table(stats)}\n")
     mh = of_kernel(stats, "mh_sample")
     draws = of_kernel(stats, "mh_draws_foldin")
+    init = of_kernel(stats, "threefry_randint")
     if not busy_ms or not mh["count"] or not draws["count"]:
         raise AssertionError("the profile of a fold-in batch shows no device "
                              "time, or no mh_sample or mh_draws_foldin "
                              "launch")
+    if init["count"] not in (1, 2):
+        raise AssertionError(f"the fold-in batch's init draw took "
+                             f"{init['count']} threefry_randint launches, "
+                             f"not one or two")
     log(json.dumps({"profile": {
         "batch": [mb, bucket], "wall_ms_profiled": wall_ms,
         "device_busy_ms": busy_ms,
@@ -6550,7 +6689,8 @@ def profile_batch(torch, serve: dict, card: str) -> None:
         "launches_per_sweep": sum(n for n, _ in stats.values())
         / eng.ecfg.foldin.num_sweeps,
         "mh_sample_device_ms": mh["device_ms"],
-        "mh_draws_foldin": draws, "card": card}}))
+        "mh_draws_foldin": draws, "threefry_randint": init,
+        "card": card}}))
 
 
 def profile_sweep(torch, train: dict, card: str) -> None:
@@ -6585,7 +6725,8 @@ def profile_sweep(torch, train: dict, card: str) -> None:
     # profiler lost device events under the floods of launches that sweeps
     # made before the draws' repair) is taken again, three times at most.
     kernels = ("mh_draws_train_kernel", "mh_sample_kernel",
-               "delta_push_kernel", "alias_build_kernel")
+               "delta_push_kernel", "alias_build_kernel",
+               "threefry_keys_kernel")
     for attempt in range(1, 4):
         wall_ms, busy_ms, stats = device_profile(torch, sweep)
         missing = [n for n in kernels if not of_kernel(stats, n)["count"]]
@@ -6711,6 +6852,7 @@ def main(argv=None) -> int:
     phase("check_kernels", check_kernels, torch)
     phase("check_delta_kernels", check_delta_kernels, torch)
     phase("check_draws", check_draws, torch)
+    phase("check_threefry", check_threefry, torch)
     # the mesh phases first: the float32 check holds 63 GB on the card
     phase("lm_mesh_serve", lm_mesh_serve, torch, args.seed, card)
     # one 2 x 2 mesh serves lm_mesh_dp's checks and lm_mesh_train, another

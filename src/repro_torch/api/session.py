@@ -53,6 +53,7 @@ from repro_torch.core import lightlda as lda
 from repro_torch.core import perplexity as ppl
 from repro_torch.data import stream as stream_mod
 from repro_torch.device import Device, resolve_device
+from repro_torch.kernels import ops
 from repro_torch.train import async_exec
 from repro_torch.train import checkpoint as ckpt
 
@@ -85,15 +86,13 @@ def unported_planes(job: LDAJob) -> List[str]:
 def stream_init_key(seed: int, shard_id: int,
                     device: Device = "cpu") -> torch.Tensor:
     """Key for shard ``shard_id``'s initial topic assignment draw."""
-    base = jrng.fold_in(jrng.PRNGKey(seed, device), 0)
-    return jrng.fold_in(base, shard_id)
+    return ops.fold_in(jrng.PRNGKey(seed, device), 0, shard_id)
 
 
 def stream_sweep_key(seed: int, epoch: int, pos: int,
                      device: Device = "cpu") -> torch.Tensor:
     """Key for the sweep at schedule position (epoch, pos)."""
-    base = jrng.fold_in(jrng.PRNGKey(seed, device), 1)
-    return jrng.fold_in(jrng.fold_in(base, epoch), pos)
+    return ops.fold_in(jrng.PRNGKey(seed, device), 1, epoch, pos)
 
 
 def init_stream(reader, cfg, seed: int = 0, client=None,
@@ -112,8 +111,8 @@ def init_stream(reader, cfg, seed: int = 0, client=None,
     nk = np.zeros(k, np.int64)
     for sid in range(meta.num_shards):
         shard = reader.shard(sid, load_z=False)
-        z = jrng.randint(stream_init_key(seed, sid, dev),
-                         (meta.tokens_per_shard,), 0, k).cpu().numpy()
+        z = ops.randint(stream_init_key(seed, sid, dev),
+                        (meta.tokens_per_shard,), 0, k).cpu().numpy()
         z[shard.n_tokens:] = 0
         reader.write_z(sid, z)
         wv = np.asarray(shard.w[:shard.n_tokens])
@@ -209,7 +208,7 @@ def init_distributed_state(corp, cfg: "lda.LDAConfig", workers: int,
 
     w, d, valid = stack(0, npad), stack(1, npad), stack(2, npad)
     doc_start, doc_len = stack(3, dmax), stack(4, dmax)
-    z = jrng.randint(key.to(dev), (workers, npad), 0, cfg.K)
+    z = ops.randint(key.to(dev), (workers, npad), 0, cfg.K)
     # counts from the valid tokens of the global view
     m = valid.reshape(-1)
     wv, zv = w.reshape(-1)[m].long(), z.reshape(-1)[m].long()
@@ -324,7 +323,7 @@ class _MemoryPlane:
         return range(self.sweeps)
 
     def step(self, i: int):
-        self.key, sub = jrng.split(self.key)
+        self.key, sub = ops.split(self.key)
         self.state = self.step_fn(self.state, sub)
 
     def view(self, i: int) -> SweepView:
@@ -436,7 +435,7 @@ class _TieredPlane(_MemoryPlane):
         n = int(corp.w.shape[0])
         pad = (-n) % cfg.block_tokens
         w_np = np.asarray(corp.w, np.int32)
-        z = jrng.randint(key, (n,), 0, cfg.K)
+        z = ops.randint(key, (n,), 0, cfg.K)
         z_np = z.cpu().numpy()
 
         def padded(x: np.ndarray) -> torch.Tensor:
@@ -477,7 +476,7 @@ class _TieredPlane(_MemoryPlane):
         del nwk_np
         self.state = lda.SamplerState(w, d, z, valid, doc_start, doc_len,
                                       nwk, client.wrap_vector(nk), ndk)
-        _, self.key = jrng.split(key)
+        _, self.key = ops.split(key)
 
         self.step_fn, info = async_exec.make_tiered_executor(
             self.state, cfg, self.exec_cfg,
@@ -1445,7 +1444,7 @@ class Session:
         state = lda.init_state(key, torch.from_numpy(corp.w).to(dev),
                                torch.from_numpy(corp.d).to(dev),
                                corp.num_docs, cfg)
-        key, sub = jrng.split(key)
+        key, sub = ops.split(key)
         self._plane = _MemoryPlane(cfg, job.exec_config(), state, sub,
                                    job.sweeps, log_fn=self.log_fn)
         return self._plane

@@ -85,10 +85,12 @@ def init_state(key: torch.Tensor, w: torch.Tensor, d: torch.Tensor,
     tables rebuilt from it -- the same routine is the paper's
     fault-tolerance recovery (section 3.5).  The state lies on the device
     of ``w``."""
+    from repro_torch.kernels import ops
+
     dev = w.device
     n = w.shape[0]
     pad = (-n) % cfg.block_tokens
-    z = jrng.randint(key.to(dev), (n,), 0, cfg.K)
+    z = ops.randint(key.to(dev), (n,), 0, cfg.K)
 
     def padded(x, fill):
         return torch.cat([x, torch.full((pad,), fill, dtype=x.dtype,
@@ -352,8 +354,10 @@ def train(state: SamplerState, key: torch.Tensor, cfg: LDAConfig,
           num_sweeps: int) -> SamplerState:
     """Run ``num_sweeps`` Gibbs sweeps, ``key, sub = split(key)`` before
     each."""
+    from repro_torch.kernels import ops
+
     for _ in range(num_sweeps):
-        key, sub = jrng.split(key)
+        key, sub = ops.split(key)
         state = sweep(state, sub, cfg)
     return state
 
@@ -436,6 +440,7 @@ def sweep_blocked_ref(state: SamplerState, key: torch.Tensor,
       4. aggregate deltas densely [rpb, K] and push.
     """
     from repro_torch.core import alias as alias_mod
+    from repro_torch.kernels import ops
 
     rpb = rows_per_block
     layout = state.nwk.layout
@@ -445,7 +450,7 @@ def sweep_blocked_ref(state: SamplerState, key: torch.Tensor,
     dev = state.w.device
     nwk_phys = state.nwk.value.clone()
     nk, ndk, z_flat = state.nk.value, state.ndk, state.z.clone()
-    keys = jrng.split(key, n_blocks)
+    keys = ops.split(key, n_blocks)
     for blk in range(n_blocks):
         # 1. pull this block's rows (physical/cyclic order)
         rows = nwk_phys[blk * rpb:(blk + 1) * rpb].clone()

@@ -116,7 +116,7 @@ def fold_in_batch(model: lda.FrozenModel, w: torch.Tensor,
                           ).repeat_interleave(l)
     nd = valid.to(torch.int32).sum(1, dtype=torch.int32)              # [B]
 
-    z = jrng.randint(jrng.fold_in(doc_keys, 0x1d4), (l,), 0, cfg.K)
+    z = ops.randint(doc_keys, (l,), 0, cfg.K, fold_in=(0x1d4,))
     ndk_acc = torch.zeros((b, cfg.K), dtype=torch.int32, device=dev)
     for s in range(fcfg.num_sweeps):
         # _doc_randoms(fold_in(doc_keys, s), z, nd) as [S, B*L]

@@ -1,26 +1,33 @@
-"""Wrappers of the hand-written CUDA kernel that draws the MH chain's
-randoms (``csrc/mh_draws.cu``).
+"""Wrappers of the hand-written CUDA kernels that draw jax's threefry
+numbers on the LDA paths (``csrc/mh_draws.cu``).
 
 No TPU kernel is replaced: in the JAX package XLA fuses these threefry
 draws into the jitted sweep, outside Pallas.  Issued eagerly, they were
-about 2,100 small tensor ops per training group; each entry point here
-writes a whole ``MHRandoms`` in one launch:
+hundreds of small int64 tensor ops each; each entry point here is one
+launch:
 
   * ``mh_draws_train_cuda`` -- ``lightlda.draw_mh_randoms(key,
     make_doc_draw(d_b, z_snapshot, doc_start, doc_len, cfg), B, cfg)``
     for one group or block;
   * ``mh_draws_foldin_cuda`` -- serving's ``_doc_randoms(fold_in(doc_keys,
     sweep), z, nd, cfg)`` for a [B, L] batch, in the [S, B*L] layout the
-    chain reads.
+    chain reads;
+  * ``threefry_keys_cuda`` -- ``rng.split`` and a chain of
+    ``rng.fold_in`` over a batch of keys;
+  * ``threefry_randint_cuda`` -- ``rng.randint`` over a batch of keys,
+    after an optional chain of ``fold_in``.
 
 The keys stay on the card: the kernels read them through a pointer, so a
-group costs no host synchronisation.  The plain versions are
-``kernels.ref.mh_draws_train_ref`` and ``mh_draws_foldin_ref``; the two
-are bitwise equal.
+draw costs no host synchronisation.  The plain versions are
+``kernels.ref.mh_draws_train_ref``, ``mh_draws_foldin_ref``,
+``threefry_keys_ref`` and ``threefry_randint_ref``; each pair is bitwise
+equal.
 """
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -35,7 +42,14 @@ TRAIN_KERNEL = CudaKernel("mh_draws_train",
 FOLDIN_KERNEL = CudaKernel("mh_draws_foldin",
                            [_P] * 7 + [_I] * 5 + [_F, _U, _I, _P],
                            source="mh_draws")
+KEYS_KERNEL = CudaKernel("threefry_keys", [_P, _P, _L, _P, _I, _I, _I, _P],
+                         source="mh_draws")
+RANDINT_KERNEL = CudaKernel("threefry_randint",
+                            [_P, _P, _L, _L, _P, _I, _U, _U, _U, _I, _P],
+                            source="mh_draws")
 MAX_STEPS = 63          # the kernel keeps 4 keys per step in shared memory
+MAX_CHAIN = 8           # fold_in data a threefry launch takes
+MASK = 0xFFFFFFFF
 
 
 def randint_mult(k: int) -> int:
@@ -43,6 +57,12 @@ def randint_mult(k: int) -> int:
     mod k, as uint32."""
     m = (2 ** 16) % k
     return ((m * m) & 0xFFFFFFFF) % k
+
+
+def randint_span(minval: int, maxval: int) -> int:
+    """``rng.randint``'s span: ``maxval - minval`` modulo 2^32, or 1 where
+    the range is empty."""
+    return (maxval - minval) & MASK if maxval > minval else 1
 
 
 def k_alpha(cfg) -> float:
@@ -136,4 +156,72 @@ def mh_draws_foldin_cuda(doc_keys: torch.Tensor, sweep: int,
                          out.z_doc.data_ptr(), out.u_daccept.data_ptr(),
                          b, l, cfg.mh_steps, int(sweep), cfg.K,
                          k_alpha(cfg), randint_mult(cfg.K), device, stream)
+    return out
+
+
+def _key_batch(keys: torch.Tensor, name: str) -> torch.device:
+    dev = keys.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {dev}")
+    if keys.dtype != torch.int64 or keys.dim() < 1 or keys.shape[-1] != 2 \
+            or not keys.is_contiguous():
+        raise ValueError(f"{name}: keys must be a contiguous int64 tensor "
+                         f"[*B, 2] on {dev}; got {keys.dtype} "
+                         f"{tuple(keys.shape)}")
+    return dev
+
+
+def _chain(data: Sequence[int], name: str):
+    """The fold_in data as the uint32 array the launch copies, and its
+    length (the array is the caller's to keep alive over the call)."""
+    words = [int(x) & MASK for x in data]
+    if len(words) > MAX_CHAIN:
+        raise ValueError(f"{name}: at most {MAX_CHAIN} fold_in data a launch "
+                         f"(got {len(words)})")
+    return (ctypes.c_uint * max(len(words), 1))(*words), len(words)
+
+
+def threefry_keys_cuda(keys: torch.Tensor, data: Sequence[int] = (),
+                       num: int = 0) -> torch.Tensor:
+    """``fold_in(...fold_in(keys, data[0])..., data[-1])`` for a [*B, 2]
+    int64 key batch, then, with ``num`` > 0, ``split(., num)``: [*B, num,
+    2], else [*B, 2].  One launch."""
+    dev = _key_batch(keys, "threefry_keys_cuda")
+    if num < 0:
+        raise ValueError(f"threefry_keys: num must be >= 0 (got {num})")
+    if num == 0 and not data:
+        raise ValueError("threefry_keys: neither fold_in data nor a split")
+    lead = tuple(keys.shape[:-1])
+    out = torch.empty(lead + ((num,) if num else ()) + (2,),
+                      dtype=torch.int64, device=dev)
+    nkeys = math.prod(lead)
+    if out.numel() == 0:
+        return out
+    arr, n = _chain(data, "threefry_keys")
+    device, stream = stream_args(keys)
+    KEYS_KERNEL.launch(keys.data_ptr(), out.data_ptr(), nkeys,
+                       ctypes.addressof(arr), n, int(num), device, stream)
+    return out
+
+
+def threefry_randint_cuda(keys: torch.Tensor, shape, minval: int,
+                          maxval: int, data: Sequence[int] = ()
+                          ) -> torch.Tensor:
+    """``randint(fold_in(...(keys, data[0])..., data[-1]), shape, minval,
+    maxval)`` for a [*B, 2] int64 key batch: int32 [*B, *shape].  One
+    launch."""
+    dev = _key_batch(keys, "threefry_randint_cuda")
+    shape = (int(shape),) if isinstance(shape, int) else tuple(
+        int(x) for x in shape)
+    lead = tuple(keys.shape[:-1])
+    out = torch.empty(lead + shape, dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out
+    span = randint_span(int(minval), int(maxval))
+    arr, n = _chain(data, "threefry_randint")
+    device, stream = stream_args(keys)
+    RANDINT_KERNEL.launch(keys.data_ptr(), out.data_ptr(), math.prod(lead),
+                          math.prod(shape), ctypes.addressof(arr), n, span,
+                          randint_mult(span), int(minval) & MASK, device,
+                          stream)
     return out

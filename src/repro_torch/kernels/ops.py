@@ -11,7 +11,7 @@ main path went through the kernels.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import torch
 
@@ -26,7 +26,9 @@ KERNELS = {"mh_sample": _mh.KERNEL, "alias_build": _ab.KERNEL,
            "delta_push": _dp.PUSH_KERNEL,
            "delta_apply_coo": _dp.COO_KERNEL,
            "mh_draws_train": _md.TRAIN_KERNEL,
-           "mh_draws_foldin": _md.FOLDIN_KERNEL}
+           "mh_draws_foldin": _md.FOLDIN_KERNEL,
+           "threefry_keys": _md.KEYS_KERNEL,
+           "threefry_randint": _md.RANDINT_KERNEL}
 
 
 def _route(t: torch.Tensor, name: str) -> bool:
@@ -69,6 +71,36 @@ def mh_draws_foldin(doc_keys, sweep: int, z, nd, cfg):
         return _md.mh_draws_foldin_cuda(doc_keys.contiguous(), sweep,
                                         _i32(z), _i32(nd), cfg)
     return ref.mh_draws_foldin_ref(doc_keys, sweep, z, nd, cfg)
+
+
+def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``rng.split``: keys [*B, 2] -> [*B, num, 2]; one launch of
+    ``threefry_keys`` on the card."""
+    if _route(keys, "threefry_keys"):
+        return _md.threefry_keys_cuda(keys.contiguous(), (), num)
+    return ref.threefry_keys_ref(keys, (), num)
+
+
+def fold_in(keys: torch.Tensor, *data: int) -> torch.Tensor:
+    """``rng.fold_in`` of each datum in turn: ``fold_in(keys, a, b)`` is
+    ``fold_in(fold_in(keys, a), b)``; keys [*B, 2] -> [*B, 2].  One launch
+    of ``threefry_keys`` on the card."""
+    if not data:
+        raise ValueError("fold_in needs at least one datum")
+    if _route(keys, "threefry_keys"):
+        return _md.threefry_keys_cuda(keys.contiguous(), data)
+    return ref.threefry_keys_ref(keys, data)
+
+
+def randint(keys: torch.Tensor, shape, minval: int, maxval: int,
+            fold_in: Sequence[int] = ()) -> torch.Tensor:
+    """``rng.randint(keys', shape, minval, maxval)`` (int32 [*B, *shape]),
+    ``keys'`` the keys after ``rng.fold_in`` of each datum of ``fold_in``:
+    one launch of ``threefry_randint`` on the card."""
+    if _route(keys, "threefry_randint"):
+        return _md.threefry_randint_cuda(keys.contiguous(), shape, minval,
+                                         maxval, fold_in)
+    return ref.threefry_randint_ref(keys, shape, minval, maxval, fold_in)
 
 
 def alias_build(weights: torch.Tensor) -> AliasTable:

@@ -43,6 +43,23 @@ def mh_draws_foldin_ref(doc_keys: torch.Tensor, sweep: int, z, nd,
         for r in _doc_randoms(jrng.fold_in(doc_keys, sweep), z, nd, cfg)))
 
 
+def threefry_keys_ref(keys: torch.Tensor, data=(), num: int = 0
+                      ) -> torch.Tensor:
+    """Plain version of ``kernels/mh_draws.py::threefry_keys_cuda``:
+    ``rng.fold_in`` for each datum in turn, then ``rng.split`` where
+    ``num`` > 0."""
+    for x in data:
+        keys = jrng.fold_in(keys, x)
+    return jrng.split(keys, num) if num else keys
+
+
+def threefry_randint_ref(keys: torch.Tensor, shape, minval: int,
+                         maxval: int, data=()) -> torch.Tensor:
+    """Plain version of ``kernels/mh_draws.py::threefry_randint_cuda``:
+    ``rng.randint`` of the keys after ``rng.fold_in`` for each datum."""
+    return jrng.randint(threefry_keys_ref(keys, data), shape, minval, maxval)
+
+
 def alias_build_ref(weights: torch.Tensor) -> "alias_mod.AliasTable":
     """Plain version of ``kernels/alias_build.py``: Vose construction; the
     kernel's tables equal these bitwise."""

@@ -170,10 +170,10 @@ class RankProgram:
         self.steps += 1
 
     def _sweep(self, i: int) -> None:
-        from repro_torch import rng as jrng
+        from repro_torch.kernels import ops
 
-        self.key, sub = jrng.split(self.key)
-        key = jrng.split(sub, self.mesh.world)[self.mesh.rank]
+        self.key, sub = ops.split(self.key)
+        key = ops.split(sub, self.mesh.world)[self.mesh.rank]
         self.z, self.ndk, self.nwk, self.nk = self.sweep_fn(
             self.w, self.d, self.z, self.valid, self.doc_start, self.doc_len,
             self.ndk, self.nwk, self.nk, key)
@@ -184,8 +184,8 @@ class RankProgram:
         return self.sched[g * w:(g + 1) * w]
 
     def _visit(self, g: int) -> None:
-        from repro_torch import rng as jrng
         from repro_torch.api import session as sess
+        from repro_torch.kernels import ops
 
         cfg, dev, meta = self.cfg, self.dev, self.reader.meta
         group = self.group(g)
@@ -206,9 +206,9 @@ class RankProgram:
             torch.ones(n, dtype=torch.int32, device=dev)
         ).view(meta.doc_cap, cfg.K)
         cur0 = group[0][0]
-        key = jrng.split(sess.stream_sweep_key(self.spec["seed"], cur0.epoch,
-                                               cur0.pos, dev),
-                         self.mesh.world)[self.mesh.rank]
+        key = ops.split(sess.stream_sweep_key(self.spec["seed"], cur0.epoch,
+                                              cur0.pos, dev),
+                        self.mesh.world)[self.mesh.rank]
         z2, ndk2, self.nwk, self.nk = self.sweep_fn(
             w, d, z, valid, ds, dl, ndk, self.nwk, self.nk, key)
         self.reader.write_z(sid, z2.cpu().numpy())

@@ -57,7 +57,6 @@ import torch
 
 from repro_torch import obs as _obs
 from repro_torch import ps
-from repro_torch import rng as jrng
 from repro_torch.core import lightlda as lda
 from repro_torch.kernels import ops
 from repro_torch.obs import ObsConfig
@@ -332,7 +331,7 @@ def pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
     nk, ndk, z_flat = state.nk.value, state.ndk, state.z.clone()
     if one_launch:
         nk, ndk = nk.clone(), ndk.clone()       # owned, merged in place
-    keys = jrng.split(key, n_groups)
+    keys = ops.split(key, n_groups)
     # with an obs session on the card, CUDA events around each z update;
     # their device ms is recorded once the sweep is done
     reg = _obs.metrics_registry() if z_flat.is_cuda else None
@@ -448,7 +447,7 @@ def snapshot_sweep(state: "lda.SamplerState", key: torch.Tensor,
     nwk_table = nwk_dense.to(torch.float32)
 
     z_flat = state.z.clone()
-    keys = jrng.split(key, n_groups)
+    keys = ops.split(key, n_groups)
     for grp in range(n_groups):
         lo, hi = grp * gtok, (grp + 1) * gtok
         w_b, d_b, valid_b = state.w[lo:hi], state.d[lo:hi], state.valid[lo:hi]
@@ -789,7 +788,7 @@ def make_tiered_executor(state: "lda.SamplerState", cfg: "lda.LDAConfig",
         tier_h = st.nwk
         tier = tier_h.tier
         nk, ndk, z = st.nk.value.clone(), st.ndk.clone(), st.z.clone()
-        keys = jrng.split(key, n_blocks)
+        keys = ops.split(key, n_blocks)
         pulled = tier_h.pull_block(0, rpb)
         for b in range(n_blocks):
             rows = pulled.result()

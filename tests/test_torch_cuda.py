@@ -170,6 +170,43 @@ def test_mh_draws_foldin_kernel_matches_plain_bitwise(card, k, sweep):
         assert torch.equal(g, w), name
 
 
+@pytest.mark.parametrize("nkeys,data,num", [(1, (), 244), (32, (), 2),
+                                             (1, (1, 3, 17), 0),
+                                             (32, (0x1d4,), 0),
+                                             (4, (0, 5), 3)])
+def test_threefry_keys_kernel_matches_plain_bitwise(card, nkeys, data, num):
+    """split and fold-in chains in one launch, as the LDA paths take them."""
+    from repro_torch import rng as trng
+    keys = trng.keys_from_seeds(range(9, 9 + nkeys), card)
+    if nkeys == 1:
+        keys = keys[0]
+    before = ops.launch_counts()["threefry_keys"]
+    got = ops.fold_in(keys, *data) if not num else ops.split(
+        ops.fold_in(keys, *data) if data else keys, num)
+    assert ops.launch_counts()["threefry_keys"] == before + (
+        2 if data and num else 1)
+    assert torch.equal(got, ref.threefry_keys_ref(keys, data, num))
+
+
+@pytest.mark.parametrize("nkeys,m,lo,hi,data", [
+    (32, 1024, 0, 7, (0x1d4,)), (32, 1024, 0, 130, (0x1d4,)),
+    (32, 1024, 0, 1000, (0x1d4,)), (1, 262_144, 0, 1000, (0, 5)),
+    (3, 1000, -5, 2 ** 31 - 1, ())])
+def test_threefry_randint_kernel_matches_plain_bitwise(card, nkeys, m, lo,
+                                                       hi, data):
+    """Serving's init draw, a stream shard's, and a range past int32's
+    half; one launch each."""
+    from repro_torch import rng as trng
+    keys = trng.keys_from_seeds(range(50, 50 + nkeys), card)
+    if nkeys == 1:
+        keys = keys[0]
+    before = ops.launch_counts()["threefry_randint"]
+    got = ops.randint(keys, (m,), lo, hi, fold_in=data)
+    assert ops.launch_counts()["threefry_randint"] == before + 1
+    assert torch.equal(got, ref.threefry_randint_ref(keys, (m,), lo, hi,
+                                                     data))
+
+
 def _delta_batch(card, rows, k, t, seed, frac):
     """Zipf-skewed rows (thousands of tokens on row 0), some past the
     matrix, ``changed`` at the given fraction."""

@@ -9,8 +9,12 @@ arithmetic against the plain version.
   * ``ops.mh_draws_foldin`` equals serving's ``_doc_randoms(fold_in(keys,
     s), z, nd)`` in the chain's [S, B*L] layout, at a fold-in batch's shape;
   * a numpy uint32 replay of what one thread of ``csrc/mh_draws.cu``
-    computes for element (s, i) -- its key derivation order included --
-    equals the plain version at a few hundred sampled elements.  It pins
+    writes -- in the training kernel's split layout the block's tile and
+    the thread's half (the three uniforms or the doc proposal) mapped to
+    (step, slot), in its whole layout the thread's slot at every step, in
+    the fold-in kernel the block's (tile, document, step) and the thread's
+    half; the key derivation order included -- equals the plain version at
+    a few hundred sampled (block, thread) pairs.  It pins
     the kernel's order on the CPU before any chip time is spent; on the
     card ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold the kernel
     itself to the plain version.
@@ -164,56 +168,121 @@ def _doc_draw(keys, c, nd_i, kalpha, k, mult, z_at):
     return z_at(pos) if use_tok else z_unif
 
 
-@pytest.mark.parametrize("k,steps", [(7, 2), (1000, 3)])
-def test_train_kernel_replay_equals_plain(k, steps):
-    batch = 8192
+TILE = 128       # csrc/mh_draws.cu kTile: elements of a tile, two threads each
+
+
+def _train_thread(block, t, whole, key, batch, steps, d_b, z, start, lens,
+                  kalpha, k, mult):
+    """What thread ``t`` of block ``block`` writes in its first work item
+    of ``mh_draws_train_kernel``: ``{array: [(flat offset, value)]}``,
+    empty past the batch.  ``whole``: a thread per slot, every draw at
+    every step; else the split layout, item ``block`` a tile of 128 slots
+    at one step, threads 0-127 its uniforms and 128-255 its doc proposals.
+    The block's keys come first, in its prologue's thread order: [kw, kwa,
+    kda], then four a step."""
+    shared = [_child(key, j) for j in (0, 1, 3)]
+    if whole:
+        i, ss, parts = block * 2 * TILE + t, range(steps), (0, 1)
+    else:
+        per_step = -(-batch // TILE)
+        s, half = block // per_step, int(t >= TILE)
+        i = (block - s * per_step) * TILE + t - TILE * half
+        ss, parts = (s,), (half,)
+    if i >= batch:
+        return {}
+    out = {}
+    for s in ss:
+        n = s * batch + i
+        if 0 in parts:
+            for name, kk in zip(("u_word", "u_waccept", "u_daccept"), shared):
+                out.setdefault(name, []).append((n, _uniform(_bits(kk, n))))
+        if 1 in parts:
+            ks = _child(_child(key, 2), s)                 # split(kd, S)[s]
+            d = int(d_b[i])
+            out.setdefault("z_doc", []).append((n, _doc_draw(
+                [_doc_key(ks, j) for j in range(4)], i, int(lens[d]), kalpha,
+                k, mult, lambda p: z[start[d] + p])))
+    return out
+
+
+@pytest.mark.parametrize("k,steps,whole", [(7, 2, False), (1000, 3, False),
+                                           (130, 2, True)])
+def test_train_kernel_replay_equals_plain(k, steps, whole):
+    batch = 8192 - 37                        # a ragged last tile
     got, (d_b, z, start, lens), cfg = _train_plain(k, steps, batch, 5, True)
     key = tuple(_key(5))
+    kalpha, mult = tdraws.k_alpha(cfg), tdraws.randint_mult(k)
+    blocks = -(-batch // (2 * TILE)) if whole else steps * -(-batch // TILE)
+    last = batch % (2 * TILE if whole else TILE)
+    rng = np.random.default_rng(0)
+    picks = [(blocks - 1, t) for t in (0, last - 1, last, 128, 128 + last,
+                                       255) if t < 256]
+    picks += [(int(a), int(b)) for a, b in
+              zip(rng.integers(0, blocks, 150), rng.integers(0, 256, 150))]
+    seen = set()
     with np.errstate(over="ignore"):
-        # the block's shared keys, in the kernel's thread order
-        shared = [_child(key, j) for j in (0, 1, 3)]
-        steps_keys = [[_doc_key(_child(_child(key, 2), s), j)
-                       for j in range(4)] for s in range(steps)]
-        kalpha, mult = tdraws.k_alpha(cfg), tdraws.randint_mult(k)
-        rng = np.random.default_rng(0)
-        for i in rng.choice(batch, 150, replace=False):
-            d = int(d_b[i])
-            for s in range(steps):
-                n = s * batch + int(i)
-                for arr, kk in zip((got.u_word, got.u_waccept,
-                                    got.u_daccept), shared):
-                    assert arr[s, i].item() == _uniform(_bits(kk, n))
-                want = _doc_draw(steps_keys[s], int(i), int(lens[d]), kalpha,
-                                 k, mult, lambda p: z[start[d] + p])
-                assert got.z_doc[s, i].item() == want, (s, i)
+        for block, t in picks:
+            out = _train_thread(block, t, whole, key, batch, steps, d_b, z,
+                                start, lens, kalpha, k, mult)
+            for name, writes in out.items():
+                for n, want in writes:
+                    assert getattr(got, name).reshape(-1)[n].item() == want, \
+                        (name, block, t)
+                seen.add(name)
+    assert seen == {"u_word", "u_waccept", "u_daccept", "z_doc"}
 
 
-@pytest.mark.parametrize("k,steps,sweep", [(7, 2, 0), (1000, 2, 29)])
-def test_foldin_kernel_replay_equals_plain(k, steps, sweep):
-    b, l = 32, 128
+def _foldin_thread(block, t, doc, b, l, sweep, nd, z, kalpha, k, mult):
+    """What thread ``t`` of block ``(x, row, m)`` writes in
+    ``mh_draws_foldin_kernel`` for a [b, l] batch, the document's key
+    ``doc``: ``{array: (flat offset, value)}``."""
+    tile = TILE
+    while tile > 32 and tile // 2 >= l:
+        tile //= 2
+    x, row, m = block
+    sw = _child(doc, sweep)                                # fold_in
+    keys = [_child(sw, j) for j in (0, 1, 3)]
+    keys += [_doc_key(_child(sw, 2), j) for j in range(4)]
+    half = t >= tile
+    col = x * tile + t - (tile if half else 0)
+    if col >= l:
+        return {}
+    c, o = m * l + col, (m * b + row) * l + col
+    if not half:
+        return {name: (o, _uniform(_bits(kk, c))) for name, kk in
+                zip(("u_word", "u_waccept", "u_daccept"), keys[:3])}
+    return {"z_doc": (o, _doc_draw(keys[3:], c, int(nd[row]), kalpha, k,
+                                   mult, lambda p: z[row, p]))}
+
+
+@pytest.mark.parametrize("k,steps,sweep,l", [(7, 2, 0, 128),
+                                             (1000, 2, 29, 200),
+                                             (130, 3, 5, 40)])
+def test_foldin_kernel_replay_equals_plain(k, steps, sweep, l):
+    b = 32
     seeds, z, nd = _foldin_inputs(k, b, l, 3)
     cfg = tlda.LDAConfig(num_topics=k, vocab_size=50, mh_steps=steps)
     keys = trng.keys_from_seeds(seeds)
     got = ops.mh_draws_foldin(keys, sweep, torch.from_numpy(z),
                               torch.from_numpy(nd), cfg)
     kalpha, mult = tdraws.k_alpha(cfg), tdraws.randint_mult(k)
+    tile = TILE
+    while tile > 32 and tile // 2 >= l:
+        tile //= 2
     rng = np.random.default_rng(1)
+    seen = set()
     with np.errstate(over="ignore"):
-        for row in rng.choice(b, 8, replace=False):
-            doc = tuple(keys[row].numpy().astype(np.uint32))
-            sw = _child(doc, sweep)                        # fold_in
-            shared = [_child(sw, j) for j in (0, 1, 3)]
-            dkeys = [_doc_key(_child(sw, 2), j) for j in range(4)]
-            for col in rng.choice(l, 20, replace=False):
-                for m in range(steps):
-                    c = m * l + int(col)
-                    o = int(row) * l + int(col)
-                    for arr, kk in zip((got.u_word, got.u_waccept,
-                                        got.u_daccept), shared):
-                        assert arr[m, o].item() == _uniform(_bits(kk, c))
-                    want = _doc_draw(dkeys, c, int(nd[row]), kalpha, k, mult,
-                                     lambda p: z[row, p])
-                    assert got.z_doc[m, o].item() == want, (row, col, m)
+        for _ in range(160):
+            block = (int(rng.integers(0, -(-l // tile))),
+                     int(rng.integers(0, b)), int(rng.integers(0, steps)))
+            doc = tuple(keys[block[1]].numpy().astype(np.uint32))
+            out = _foldin_thread(block, int(rng.integers(0, 2 * tile)), doc,
+                                 b, l, sweep, nd, z, kalpha, k, mult)
+            for name, (o, want) in out.items():
+                assert getattr(got, name).reshape(-1)[o].item() == want, \
+                    (name, block)
+                seen.add(name)
+    assert seen == {"u_word", "u_waccept", "u_daccept", "z_doc"}
 
 
 def test_kernel_constants_match_the_plain_arithmetic():

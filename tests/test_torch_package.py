@@ -154,8 +154,13 @@ def test_ops_dispatch_on_device():
         ops.mh_draws_foldin(torch.zeros((4, 2), dtype=torch.int64,
                                         device="meta"), 0, meta.int(),
                             meta[:, 0].int(), cfg)
+    for draw in (lambda k: ops.split(k, 3), lambda k: ops.fold_in(k, 1),
+                 lambda k: ops.randint(k, (4,), 0, 3)):
+        with pytest.raises(ValueError, match="no kernel for device"):
+            draw(key)
     names = {"mh_sample", "alias_build", "delta_push", "delta_apply_coo",
-             "mh_draws_train", "mh_draws_foldin"}
+             "mh_draws_train", "mh_draws_foldin", "threefry_keys",
+             "threefry_randint"}
     assert set(ops.launch_counts()) == names
     ops.KERNELS["mh_sample"].launches = 7
     ops.KERNELS["delta_apply_coo"].launches = 2
