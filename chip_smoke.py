@@ -105,7 +105,7 @@ Phases (any failure raises and the script exits non-zero):
                  on a 2M-token synthetic corpus, 3 sweeps of the snapshot
                  executor, then one sweep of the pipelined executor (16
                  model blocks, staleness 1; the z update's device ms from
-                 its obs metrics); launch counters (one mh_draws_train,
+                 its obs trace); launch counters (one mh_draws_train,
                  mh_sample and delta_push per group in both executors --
                  the draws and the whole merge -- and no delta_apply_coo;
                  alias_build once per snapshot sweep and once per
@@ -1100,7 +1100,7 @@ def train_slice(torch, seed: int, card: str, device: str = "cuda",
         "groups": groups_per_sweep(pinfo), "sweep_ms": sweep_ms,
         "dispatch_ms": dispatch_ms, "tokens_per_s": tokens / (sweep_ms / 1e3),
         "perplexity": row["perplexity"], "launches": pcounts,
-        "z_update_ms": z_update_ms(read_obs(pobs)[1]), "checks": "ok",
+        "z_update_ms": z_update_ms(read_obs(pobs)[0]), "checks": "ok",
         "card": card}}))
     del pest, pmodel
 
@@ -1571,7 +1571,7 @@ def stream_train(torch, seed: int, card: str, corp, device: str = "cuda",
             "tokens_per_s": [meta.num_tokens / s for s in check.epoch_s],
             "epoch_s": check.epoch_s, "corpus_perplexity": check.perplexity,
             "visit_ms": visit_split(events),
-            "z_update_ms": z_update_ms(metrics),
+            "z_update_ms": z_update_ms(events),
             "z_update_replica": z_replica,
             "prefetch": prefetch(metrics), "launches": counts}
         log(json.dumps({"stream_train": dict(out["blocked"], mode="blocked",
@@ -1800,15 +1800,23 @@ def launchers(torch, card: str, device: Optional[str] = None) -> dict:
 TIER_BLOCKS, TIER_HOT = 64, 8192     # the 400 MB table's 1/8 on the card
 
 
-def z_update_ms(metrics: dict) -> Optional[dict]:
+def z_update_ms(events: list) -> Optional[dict]:
     """The z update's device ms per sweep (or streamed visit) of a training
-    run, from its obs metrics: the ``exec.z_update_ms`` histogram the
-    pipelined executor records on the card (CUDA events around the
-    update); None off the card."""
-    h = metrics.get("exec.z_update_ms")
-    if h is None:
+    run, from its obs trace: the ``exec.write_z`` spans the pipelined
+    executor puts on its device lane (CUDA events around each group's
+    update), summed within each ``sweep.device``; None off the card."""
+    def card(name):
+        return [e for e in events if e.get("ph") == "X"
+                and e.get("cat") == "cuda" and e.get("name") == name]
+
+    sweeps, writes = card("sweep.device"), card("exec.write_z")
+    if not sweeps:
         return None
-    return {key: h[key] for key in ("count", "mean", "min", "max")}
+    ms = [sum(w["dur"] for w in writes
+              if sw["ts"] <= w["ts"] <= sw["ts"] + sw["dur"]) / 1e3
+          for sw in sweeps]
+    return {"count": len(ms), "mean": sum(ms) / len(ms), "min": min(ms),
+            "max": max(ms)}
 
 
 def nonempty_blocks(w: np.ndarray, rows_per_block: int) -> int:

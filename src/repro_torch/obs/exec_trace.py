@@ -1,12 +1,12 @@
 """Traced replay of the blocked executor's group schedule.
 
 The production blocked sweep (``train.async_exec.pipelined_sweep``) enqueues
-a group's launches without waiting on any of them, so from the host a
-sweep is one span (``exec.sweep``) and the card's work inside it has no
-per-phase timeline.
+a group's launches without waiting on any of them; its phases are timed on
+the device by CUDA events (``async_exec.DevicePhases``).
 
-This module runs that same sweep with a ``SweepPhases`` that closes every
-phase on a device synchronise, so each becomes a host-timed span:
+This module runs that same sweep with a ``SweepPhases`` that closes each of
+three coarser phases on a device synchronise, so each becomes a host-timed
+span:
 
   * ``pull.inflight``   -- the next group's ``pull_block`` window, from
                            issue to the await at the top of the next
@@ -14,9 +14,10 @@ phase on a device synchronise, so each becomes a host-timed span:
                            lane (tid >= ``LANE_BASE``);
   * ``alias.build``     -- alias tables for the group's rows (the
                            ``alias_build`` kernel on the card);
-  * ``sample``          -- the group's draws (``mh_draws_train``) and the
-                           Metropolis-Hastings chain (``mh_sample``,
-                           training mode);
+  * ``sample``          -- the group's gathers, its draws
+                           (``mh_draws_train``), the Metropolis-Hastings
+                           chain (``mh_sample``, training mode) and the
+                           topics kept at the valid slots;
   * ``merge.store``     -- the route's group-local delta (``delta_push``
                            for the dense part, ``delta_apply_coo`` for the
                            coordinate part), ``n_k``/``n_dk``, the rows'
@@ -55,13 +56,23 @@ from repro_torch.train import async_exec
 
 class _TracedPhases(async_exec.SweepPhases):
     """Spans of each group's phases into the installed obs session, each
-    closed on a device synchronise; the pull's window on the pull lane."""
+    closed on a device synchronise; the pull's window on the pull lane.
+    The executor's finer phases fold into three: ``alias.build`` is
+    ``kern.alias``, ``sample`` runs from ``exec.gather`` through
+    ``exec.select``, ``merge.store`` from ``kern.merge`` through
+    ``exec.write_z``."""
 
     routed = True
+    OPENS = {"kern.alias": "alias.build", "exec.gather": "sample",
+             "kern.merge": "merge.store"}
+    CLOSES = {"exec.gather", "kern.merge", "ps.pull"}
 
-    def __init__(self):
+    def __init__(self, route_label: str, device: torch.device):
         self.tr = _rt.tracer()
         self.reg = _rt.metrics_registry()
+        self.route_label = route_label
+        self.probe = torch.empty(0, device=device)   # what a close waits on
+        self.span = _rt.NULL_SPAN
         self.t_issue = 0
 
     def before_pull(self) -> None:
@@ -79,10 +90,22 @@ class _TracedPhases(async_exec.SweepPhases):
         if self.reg is not None:
             self.reg.counter("replay.groups").inc()
 
-    def phase(self, name: str, grp: int, **args):
-        if self.tr is None:
-            return _rt.NULL_SPAN
-        return self.tr.span(name, cat="exec", group=grp, **args)
+    def _close(self) -> None:
+        self.span.sync_on(self.probe)
+        self.span.end()
+        self.span = _rt.NULL_SPAN
+
+    def mark(self, name: str, grp: int = -1, **args) -> None:
+        if name in self.CLOSES:
+            self._close()
+        opens = self.OPENS.get(name)
+        if opens is not None and self.tr is not None:
+            extra = {"route": self.route_label} if opens == "merge.store" \
+                else {}
+            self.span = self.tr.span(opens, cat="exec", group=grp, **extra)
+
+    def end(self) -> None:
+        self._close()
 
     def drained(self, pending) -> None:
         # no copy stays in flight past the sweep
@@ -108,6 +131,6 @@ def traced_pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
         route = ps.route_for(None, cfg.V)
     idx, bval, counts, rows = async_exec.blocked_index(state, model_blocks,
                                                        staleness)
-    return async_exec.pipelined_sweep(state, key, cfg, idx, bval, rows,
-                                      route=route, block_counts=counts,
-                                      phases=_TracedPhases())
+    return async_exec.pipelined_sweep(
+        state, key, cfg, idx, bval, rows, route=route, block_counts=counts,
+        phases=_TracedPhases(route.label, state.z.device))

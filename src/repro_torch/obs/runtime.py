@@ -84,10 +84,15 @@ class ObsSession:
         return self
 
     def close(self, save: bool = True) -> "ObsSession":
+        """Uninstall; the device phases not yet on the tracer's lane are
+        put there (waiting for the last event that no wait has covered),
+        then both files are written when ``save``."""
         global _SESSION
         with _STATE_LOCK:
             if _SESSION is self:
                 _SESSION = self._prev
+        if self.tracer is not None:
+            self.tracer.flush_device(wait=True)
         if save:
             self.save()
         return self

@@ -7,6 +7,13 @@ serving threads' overlap is visible in the Perfetto timeline, and
 synthetic *lanes* (tids >= ``LANE_BASE``) hold timelines that are not
 threads, such as the device's share of a training sweep.
 
+While a ``torch.profiler`` records, each live span is also a
+``record_function`` range of its name, so the profiler's trace shows the
+program's spans (as ``user_annotation``s) on one clock with the device's
+operations.  A ``DeviceTimeline`` times phases on the device itself: CUDA
+events at each boundary, read once a wait the caller makes anyway has
+covered them, and put on the ``[device]`` lane by ``Tracer.flush_device``.
+
 Two invariants, enforced here rather than at every call site:
 
   * **zero perturbation** -- the tracer only ever *reads* clocks and
@@ -44,6 +51,17 @@ def _host_time_ok() -> bool:
     return not torch.compiler.is_compiling()
 
 
+def _profiler_range(name: str) -> Any:
+    """A ``torch.profiler.record_function`` range called ``name``, entered,
+    while a profiler records; None (and nothing entered) otherwise."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    rf = torch.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
 def _block(value: Any) -> None:
     """Wait for the device of ``value`` when it is a CUDA tensor; a no-op
     for anything else (CPU tensors are computed eagerly)."""
@@ -59,10 +77,11 @@ class Span:
 
     ``sync=value`` (or ``span.sync_on(value)``) makes the close a device
     boundary: the device of ``value`` is synchronised first, so the
-    recorded duration covers the device work the caller is timing.
+    recorded duration covers the device work the caller is timing.  While
+    a profiler records, the span is also a ``record_function`` range.
     """
 
-    __slots__ = ("tracer", "name", "cat", "args", "_t0", "_sync")
+    __slots__ = ("tracer", "name", "cat", "args", "_t0", "_sync", "_range")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str,
                  args: Optional[Dict[str, Any]], sync: Any = None):
@@ -72,6 +91,7 @@ class Span:
         self.args = args
         self._sync = sync
         self._t0 = time.perf_counter_ns()
+        self._range = _profiler_range(name)
 
     def sync_on(self, value: Any) -> Any:
         """Register ``value`` to be synchronised at span close; returns it
@@ -91,6 +111,9 @@ class Span:
             _block(self._sync)
             self._sync = None
         t1 = time.perf_counter_ns()
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
         self.tracer._complete(self.name, self.cat, self._t0, t1,
                               self.args)
         return (t1 - self._t0) / 1e6
@@ -127,6 +150,77 @@ class _NullSpan:
 NULL_SPAN = _NullSpan()
 
 
+class DeviceTimeline:
+    """One sweep's phases as the device ran them.
+
+    ``mark(name, group, args)`` starts phase ``name`` of ``group`` (-1:
+    outside any group) where the phase before it ends, and ``end()`` ends
+    the last.  On a CUDA device a mark records a timing event on the
+    device's current stream and nothing waits for it; the events are read
+    only once a wait the caller makes anyway has covered them
+    (``Tracer.device_waited``, then ``Tracer.flush_device``).  On the CPU,
+    which runs each operation as it is issued, a mark is the host clock.
+    ``cat`` names the device type (``"cuda"``, ``"cpu"``); ``waited`` is
+    ``(anchor, t_wait_ns)`` once a wait has covered the timeline.
+    """
+
+    __slots__ = ("cat", "ended", "waited", "_stream", "_marks", "_phases")
+
+    def __init__(self, device: Any):
+        self.cat = device.type
+        self.ended = False
+        self.waited: Optional[tuple] = None
+        self._stream = (sys.modules["torch"].cuda.current_stream(device)
+                        if self.cat == "cuda" else None)
+        self._marks: List[Any] = []
+        self._phases: List[tuple] = []
+
+    def _mark(self) -> None:
+        if self._stream is None:
+            self._marks.append(time.perf_counter_ns())
+            return
+        ev = sys.modules["torch"].cuda.Event(enable_timing=True)
+        ev.record(self._stream)
+        self._marks.append(ev)
+
+    def mark(self, name: str, group: int = -1,
+             args: Optional[dict] = None) -> None:
+        self._phases.append((name, group, args))
+        self._mark()
+
+    def end(self) -> None:
+        self._mark()
+        self.ended = True
+
+    def last_event(self) -> Any:
+        """The last CUDA event, or None on the CPU."""
+        return self._marks[-1] if self._stream is not None else None
+
+    def spans(self, anchor: Any, t_wait_ns: int) -> List[tuple]:
+        """``(name, t0_ns, t1_ns, args)`` of the whole sweep
+        (``sweep.device``), each group (``exec.group``, its first mark's
+        args) and each phase, on the host clock.  A CUDA event's time is
+        ``t_wait_ns`` less the device time from it to ``anchor``, the
+        last event that the wait covered."""
+        if self._stream is None:
+            ts = self._marks
+        else:
+            ts = [t_wait_ns - round(ev.elapsed_time(anchor) * 1e6)
+                  for ev in self._marks]
+        out = [("sweep.device", ts[0], ts[-1], None)]
+        for i, (name, grp, args) in enumerate(self._phases):
+            if grp < 0:
+                out.append((name, ts[i], ts[i + 1], None))
+                continue
+            if i == 0 or self._phases[i - 1][1] != grp:
+                first = i
+            out.append((name, ts[i], ts[i + 1], {"group": grp}))
+            if i + 1 == len(self._phases) or self._phases[i + 1][1] != grp:
+                out.append(("exec.group", ts[first], ts[i + 1],
+                            dict(self._phases[first][2] or {}, group=grp)))
+        return out
+
+
 class Tracer:
     """Process-wide Chrome-trace event collector.
 
@@ -143,6 +237,7 @@ class Tracer:
         self._lock = threading.Lock()
         self._tids: Dict[int, int] = {}      # thread ident -> small tid
         self._lanes: Dict[str, int] = {}     # lane name -> synthetic tid
+        self._pending: List[DeviceTimeline] = []
         self._epoch_ns = time.perf_counter_ns()
 
     # -- track bookkeeping ------------------------------------------------
@@ -199,6 +294,49 @@ class Tracer:
         """Record an interval measured elsewhere (``perf_counter_ns``
         endpoints), on the calling thread's track or on lane ``tid``."""
         self._complete(name, cat, t0_ns, t1_ns, args or None, tid)
+
+    def device_timeline(self, device: Any) -> DeviceTimeline:
+        """A timeline of phases on ``device`` (a ``torch.device``), put on
+        the ``[device]`` lane by the first ``flush_device`` after a wait
+        that covers it (``device_waited``)."""
+        tl = DeviceTimeline(device)
+        with self._lock:
+            self._pending.append(tl)
+        return tl
+
+    def device_waited(self, t_wait_ns: int) -> None:
+        """A wait on the device returned at ``t_wait_ns`` (host clock): it
+        covers every timeline that has ended, whose events are therefore
+        done.  Each is anchored at the last of them; nothing is read yet."""
+        with self._lock:
+            ended = [tl for tl in self._pending
+                     if tl.ended and tl.waited is None]
+            anchor = next((tl.last_event() for tl in reversed(ended)
+                           if tl.last_event() is not None), None)
+            for tl in ended:
+                tl.waited = (anchor, t_wait_ns)
+
+    def flush_device(self, wait: bool = False) -> None:
+        """Put the timelines that a wait has covered on the ``[device]``
+        lane (their ``cat`` the device type).  ``wait``: first wait for the
+        last event of those that ended uncovered (a session's close)."""
+        if wait:
+            with self._lock:
+                last = next((tl.last_event() for tl in reversed(self._pending)
+                             if tl.ended and tl.waited is None
+                             and tl.last_event() is not None), None)
+            if last is not None:
+                last.synchronize()
+            self.device_waited(time.perf_counter_ns())
+        with self._lock:
+            done = [tl for tl in self._pending if tl.waited is not None]
+            self._pending = [tl for tl in self._pending if tl.waited is None]
+        if not done:
+            return
+        tid = self.lane("device")
+        for tl in done:
+            for name, t0, t1, args in tl.spans(*tl.waited):
+                self._complete(name, tl.cat, t0, t1, args, tid)
 
     def instant(self, name: str, cat: str = "host", **args) -> None:
         """A Chrome instant event (``"ph": "i"``, thread scope) on the

@@ -241,12 +241,22 @@ def _weights(rows: torch.Tensor, nk: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class SweepPhases:
-    """What ``pipelined_sweep`` tells of each group's phases; this one
-    tells nothing.  ``obs.exec_trace`` subclasses it to close every phase
-    on a device synchronise.  ``routed`` True takes the routed merge on
-    every backend (the same result: all of it is integer addition)."""
+    """What ``pipelined_sweep`` tells of its phases; this one tells
+    nothing.  ``mark(name, grp, **args)`` comes at each boundary: phase
+    ``name`` of group ``grp`` (-1: the prologue) starts there and the one
+    before it ends; a group's first mark carries its args.  ``end()`` ends
+    the sweep's last phase.  ``DevicePhases`` times the phases on the
+    device; ``obs.exec_trace`` closes coarser ones on a synchronise.
+    ``routed`` True takes the routed merge on every backend (the same
+    result: all of it is integer addition)."""
 
     routed = False
+
+    def mark(self, name: str, grp: int = -1, **args) -> None:
+        """Phase ``name`` of group ``grp`` starts here."""
+
+    def end(self) -> None:
+        """The sweep's last phase ends here."""
 
     def before_pull(self) -> None:
         """A group's pull is about to be issued."""
@@ -254,15 +264,53 @@ class SweepPhases:
     def pulled(self, grp: int, rows: torch.Tensor) -> None:
         """Group ``grp``'s rows have been awaited."""
 
-    def phase(self, name: str, grp: int, **args):
-        """The span around phase ``name`` of group ``grp``."""
-        return NULL_SPAN
-
     def drained(self, pending) -> None:
         """The sweep's wrap-around pull, which no group awaits."""
 
 
 _NO_PHASES = SweepPhases()
+
+
+class DevicePhases(SweepPhases):
+    """A sweep's phases with an obs session installed, each twice: a live
+    host span (in a recording profiler's trace, a ``user_annotation``),
+    and on the device the interval between two marks of an
+    ``obs.trace.DeviceTimeline`` -- CUDA events on the card, which nothing
+    here waits for; the host clock on the CPU.  The tracer puts the device
+    side on its ``[device]`` lane once a wait has covered it
+    (``_obs_step``) or at the session's close: ``sweep.device`` encloses
+    ``exec.prologue`` and one ``exec.group`` a group, which encloses the
+    group's phases.  On the host, a group's phases nest in an
+    ``exec.group`` span."""
+
+    def __init__(self, tr, device):
+        self.tr = tr
+        self.timeline = tr.device_timeline(device)
+        self.grp = -1
+        self.span = self.group_span = NULL_SPAN
+
+    def mark(self, name: str, grp: int = -1, **args) -> None:
+        self.span.end()
+        if grp != self.grp:
+            self.group_span.end()
+            self.grp = grp
+            self.group_span = self.tr.span("exec.group", cat="exec",
+                                           group=grp, **args)
+        self.span = self.tr.span(name, cat="exec")
+        self.timeline.mark(name, grp, args)
+
+    def end(self) -> None:
+        self.timeline.end()
+        self.span.end()
+        self.group_span.end()
+        self.span = self.group_span = NULL_SPAN
+
+
+def sweep_phases(device) -> SweepPhases:
+    """``DevicePhases`` on ``device`` under an installed obs session with a
+    tracer, else the silent ``SweepPhases``."""
+    tr = _obs.tracer()
+    return _NO_PHASES if tr is None else DevicePhases(tr, device)
 
 
 def pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
@@ -272,7 +320,7 @@ def pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
                     hot_words: Optional[int] = None,
                     route: Optional[ps.PushRoute] = None,
                     block_counts: Optional[Sequence[int]] = None,
-                    phases: SweepPhases = _NO_PHASES
+                    phases: Optional[SweepPhases] = None
                     ) -> "lda.SamplerState":
     """One staleness-bounded, double-buffered, routed blocked sweep.
 
@@ -303,11 +351,13 @@ def pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
     after another.  ``block_counts`` gives the valid slots per block from
     the host that built the index; None reads them from ``block_valid``
     (one device-to-host copy a sweep).  ``phases`` is told of each phase
-    (``obs.exec_trace`` times them).  With an obs session installed, a sweep
-    on the card records the z updates' device ms (CUDA events around
-    them, read after the sweep's last one) in the ``exec.z_update_ms``
-    histogram.  ``staleness=0`` equals ``lightlda.sweep_blocked_ref``
-    bitwise.
+    boundary; None takes ``sweep_phases``: with an obs session installed,
+    ``DevicePhases`` times them on the device.  The phases tile the sweep:
+    ``exec.prologue`` (owned copies, the keys, the first pull), then per
+    group ``ps.pull``, ``kern.alias``, ``exec.gather``, ``kern.draws``,
+    ``kern.sample``, ``exec.select``, ``kern.merge``, ``ps.store``,
+    ``exec.write_z``.  ``staleness=0`` equals
+    ``lightlda.sweep_blocked_ref`` bitwise.
     """
     rpb = rows_per_block
     layout = state.nwk.layout
@@ -326,73 +376,66 @@ def pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
     if block_counts is None:
         block_counts = block_valid.sum(1).tolist()
 
+    if phases is None:
+        phases = sweep_phases(state.z.device)
+    phases.mark("exec.prologue")
     nwk = state.nwk.with_value(state.nwk.value.clone())   # owned copy
     one_launch = merges_in_one_launch(nwk) and not phases.routed
     nk, ndk, z_flat = state.nk.value, state.ndk, state.z.clone()
     if one_launch:
         nk, ndk = nk.clone(), ndk.clone()       # owned, merged in place
     keys = ops.split(key, n_groups)
-    # with an obs session on the card, CUDA events around each z update;
-    # their device ms is recorded once the sweep is done
-    reg = _obs.metrics_registry() if z_flat.is_cuda else None
-    marks = []
     phases.before_pull()
     pulled = nwk.pull_block(0, grp_rows)
     for grp in range(n_groups):
+        counts = block_counts[grp * group:(grp + 1) * group]
         # 1. double buffer: await this group's rows, issue the next pull
+        phases.mark("ps.pull", grp, slots=gcap, tokens=sum(counts))
         rows = pulled.result()
         phases.pulled(grp, rows)
         phases.before_pull()
         pulled = nwk.pull_block((grp + 1) % n_groups, grp_rows)
 
         # 2. alias tables for the group's rows only
-        with phases.phase("alias.build", grp) as sp:
-            table = ops.alias_build(_weights(rows, nk, cfg))
-            sp.sync_on(table.prob)
+        phases.mark("kern.alias", grp)
+        table = ops.alias_build(_weights(rows, nk, cfg))
 
         # 3. fused resample of the group's tokens against the stale view
-        with phases.phase("sample", grp) as sp:
-            idx = gidx[grp].long()
-            vb = gval[grp]
-            wb = state.w[idx]
-            db = state.d[idx]
-            z0 = z_flat[idx]
-            local = torch.clamp(layout.to_physical(wb) - grp * grp_rows, 0,
-                                grp_rows - 1).to(torch.int32)
-            rng = ops.mh_draws_train(keys[grp], db, z_flat, state.doc_start,
-                                     state.doc_len, gcap, cfg)
-            z_new = ops.mh_sample(rng, z0, local, db, rows.to(torch.float32),
-                                  ndk, nk.to(torch.float32), table.prob,
-                                  table.alias, cfg, frozen=False)
-            z_new = torch.where(vb, z_new, z0)
-            sp.sync_on(z_new)
+        phases.mark("exec.gather", grp)
+        idx = gidx[grp].long()
+        vb = gval[grp]
+        wb = state.w[idx]
+        db = state.d[idx]
+        z0 = z_flat[idx]
+        local = torch.clamp(layout.to_physical(wb) - grp * grp_rows, 0,
+                            grp_rows - 1).to(torch.int32)
+        phases.mark("kern.draws", grp)
+        rng = ops.mh_draws_train(keys[grp], db, z_flat, state.doc_start,
+                                 state.doc_len, gcap, cfg)
+        phases.mark("kern.sample", grp)
+        z_new = ops.mh_sample(rng, z0, local, db, rows.to(torch.float32),
+                              ndk, nk.to(torch.float32), table.prob,
+                              table.alias, cfg, frozen=False)
+        phases.mark("exec.select", grp)
+        z_new = torch.where(vb, z_new, z0)
+        changed = (z_new != z0) & vb
 
         # 4. group-boundary merge; the rows go back in
-        counts = block_counts[grp * group:(grp + 1) * group]
-        with phases.phase("merge.store", grp, route=route.label) as sp:
-            changed = (z_new != z0) & vb
-            if one_launch:
-                ops.delta_push(local, z0, z_new, changed, grp_rows, cfg.K,
-                               out=rows, docs=db, ndk_out=ndk, nk_out=nk)
-            else:
-                v = valid_slots(counts, cap, z0.device)
-                rows, nk, ndk = routed_merge_block(
-                    route, rows, nk, ndk, local[v], wb[v], db[v], z0[v],
-                    z_new[v], changed[v], cfg.K)
-            nwk.store_block_(grp, rows, grp_rows)
-            if reg is not None:
-                marks.append((torch.cuda.Event(enable_timing=True),
-                              torch.cuda.Event(enable_timing=True)))
-                marks[-1][0].record()
-            write_valid_z(z_flat, idx, z_new, cap, counts)
-            if reg is not None:
-                marks[-1][1].record()
-            sp.sync_on(z_flat)
+        phases.mark("kern.merge", grp)
+        if one_launch:
+            ops.delta_push(local, z0, z_new, changed, grp_rows, cfg.K,
+                           out=rows, docs=db, ndk_out=ndk, nk_out=nk)
+        else:
+            v = valid_slots(counts, cap, z0.device)
+            rows, nk, ndk = routed_merge_block(
+                route, rows, nk, ndk, local[v], wb[v], db[v], z0[v],
+                z_new[v], changed[v], cfg.K)
+        phases.mark("ps.store", grp)
+        nwk.store_block_(grp, rows, grp_rows)
+        phases.mark("exec.write_z", grp)
+        write_valid_z(z_flat, idx, z_new, cap, counts)
+    phases.end()
     phases.drained(pulled)
-    if marks:
-        marks[-1][1].synchronize()
-        reg.histogram("exec.z_update_ms").record(
-            sum(a.elapsed_time(b) for a, b in marks))
     return lda.SamplerState(state.w, state.d, z_flat, state.valid,
                             state.doc_start, state.doc_len, nwk,
                             state.nk.with_value(nk), ndk)
@@ -487,14 +530,17 @@ def _obs_step(step_fn, exec_cfg: ExecConfig, info: dict):
     """Wrap a sweep step with host-side sweep spans.
 
     Per sweep, when an obs session is installed: ``exec.dispatch`` (the
-    host's enqueue window: the step returned), ``exec.sweep`` (dispatch
-    plus device completion, closed by ``torch.cuda.synchronize`` on the new
-    ``z``), and a ``sweep.device`` span on the ``device`` lane for the
-    remainder -- how long the card ran after the host was done.  The
-    *overlap* is ``1 - dispatch/total``; histograms ``exec.sweep_ms`` and
-    ``exec.overlap_pct`` record both.  With no session the wrapper costs
-    one lookup per sweep; the unwrapped step is ``step.raw``.  Values are
-    bitwise identical with tracing on or off.
+    host's enqueue window: the step returned), ``exec.wait`` (a live span:
+    the host waits on ``torch.cuda.synchronize`` for the new ``z``) and
+    ``exec.sweep`` (dispatch plus wait).  The wait covers the device phases
+    the sweep marked (``DevicePhases``): ``Tracer.device_waited`` anchors
+    them at its end, and the next sweep's wait reads them onto the
+    tracer's ``[device]`` lane while the card still runs (the session's
+    close reads the last), so reading them waits for nothing and holds
+    the card idle for no time.  The *overlap* is ``1 - dispatch/total``; histograms
+    ``exec.sweep_ms`` and ``exec.overlap_pct`` record both.  With no
+    session the wrapper costs one lookup per sweep; the unwrapped step is
+    ``step.raw``.  Values are bitwise identical with tracing on or off.
     """
 
     def step(st, key, *rest):
@@ -504,16 +550,17 @@ def _obs_step(step_fn, exec_cfg: ExecConfig, info: dict):
         t0 = time.perf_counter_ns()
         out = step_fn(st, key, *rest)
         t1 = time.perf_counter_ns()
-        _block(out.z)
+        with tr.span("exec.wait", cat="exec"):
+            tr.flush_device()               # what the last wait covered
+            _block(out.z)
         t2 = time.perf_counter_ns()
+        tr.device_waited(t2)
         overlap = 1.0 - (t1 - t0) / max(t2 - t0, 1)
         tr.complete("exec.dispatch", t0, t1, cat="exec", mode=info["mode"])
         tr.complete("exec.sweep", t0, t2, cat="exec", mode=info["mode"],
                     staleness=info["staleness"], group=info.get("group"),
                     route=info["route"],
                     overlap_pct=round(overlap * 100.0, 2))
-        tr.complete("sweep.device", t1, t2, cat="device",
-                    tid=tr.lane("device"))
         reg = _obs.metrics_for(exec_cfg.obs)
         if reg is not None:
             reg.histogram("exec.sweep_ms").record((t2 - t0) / 1e6)

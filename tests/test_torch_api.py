@@ -17,6 +17,7 @@ from repro.data.corpus import synthetic_corpus as jcorpus
 from repro_torch import api as tapi
 from repro_torch.data.corpus import synthetic_corpus as tcorpus
 from repro_torch.infer.snapshot import SnapshotPublisher
+from repro_torch.obs.trace import LANE_BASE
 
 QUIET = dict(log_fn=lambda m: None)
 
@@ -250,15 +251,19 @@ def test_callbacks_and_tracing_do_not_perturb(corpora, tmp_path):
     assert events == ["fit_start", "sweep", "sweep", "fit_end"]
     trace = json.loads((tmp_path / "obs" / "trace.json").read_text())
     names = [e.get("name") for e in trace["traceEvents"]]
-    for span in ("exec.sweep", "exec.dispatch", "sweep.device",
-                 "session.step", "session.setup"):
+    for span in ("exec.sweep", "exec.dispatch", "exec.wait",
+                 "sweep.device", "session.step", "session.setup"):
         assert names.count(span) >= 1, span
     lanes = [e for e in trace["traceEvents"] if e.get("ph") == "M"
              and e["args"]["name"] == "[device]"]
     assert len(lanes) == 1
     device = [e for e in trace["traceEvents"]
               if e.get("name") == "sweep.device"]
+    assert len(device) == 2
     assert all(e["tid"] == lanes[0]["tid"] for e in device)
+    waits = [e for e in trace["traceEvents"] if e.get("name") == "exec.wait"]
+    assert len(waits) == 2
+    assert all(e["tid"] < LANE_BASE for e in waits)
     metrics = [json.loads(line)["name"] for line in
                (tmp_path / "obs" / "metrics.jsonl").read_text().splitlines()]
     assert {"exec.sweep_ms", "exec.overlap_pct"} <= set(metrics)

@@ -562,10 +562,12 @@ def test_tiered_training_on_card_matches_cpu(card, tmp_path):
                 == (tmp_path / "cpu" / name).read_bytes())
 
 
-def test_pipelined_sweep_times_the_z_update_under_obs(card):
-    """With an obs session installed, a pipelined sweep on the card records
-    its z updates' device ms (one histogram entry a sweep); the sweep's
-    values are the same with the session off."""
+def test_pipelined_sweep_phases_on_the_card(card, monkeypatch):
+    """With an obs session installed, a pipelined sweep on the card times
+    its phases by CUDA events and waits for none of them: the wrapped step
+    synchronises once, in its own wait, and its device phases land on the
+    ``[device]`` lane with positive durations.  The sweep's values are the
+    same with the session off."""
     from repro_torch import obs
     from repro_torch import rng as trng
     from repro_torch.api import LDAJob, Session
@@ -574,16 +576,40 @@ def test_pipelined_sweep_times_the_z_update_under_obs(card):
     job = LDAJob(corpus=synthetic_corpus(120, 900, true_topics=8, seed=2),
                  num_topics=24, block_tokens=1024, sweeps=1, eval_every=0,
                  model_blocks=4)
-    st, step, _ = Session(job, log_fn=lambda m: None).make_step()
-    plain = step.raw(st, trng.PRNGKey(5, "cuda"))
+    st, step, info = Session(job, log_fn=lambda m: None).make_step()
+    plain = step(st, trng.PRNGKey(5, "cuda"))
+    torch.cuda.synchronize()
+    waits = []
+
+    def counted(real):
+        def wait(*a, **k):
+            waits.append(real)
+            return real(*a, **k)
+        return wait
+
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        counted(torch.cuda.synchronize))
+    monkeypatch.setattr(torch.cuda.Event, "synchronize",
+                        counted(torch.cuda.Event.synchronize))
     s = obs.ObsSession(obs.ObsConfig(enabled=True)).install()
     try:
-        traced = step.raw(st, trng.PRNGKey(5, "cuda"))
-        h = obs.metrics_registry().get("exec.z_update_ms")
+        traced = step(st, trng.PRNGKey(5, "cuda"))
+        n_waits = len(waits)
     finally:
         s.close(save=False)
-    assert h is not None and h.count == 1 and h.total > 0
-    assert torch.equal(plain.z, traced.z)
+    assert n_waits == 1
+    for a, b in ((plain.z, traced.z), (plain.nwk.value, traced.nwk.value),
+                 (plain.nk.value, traced.nk.value), (plain.ndk, traced.ndk)):
+        assert torch.equal(a, b)
+    device = [e for e in s.tracer.events()
+              if e.get("ph") == "X" and e["cat"] == "cuda"]
+    groups = info["n_blocks"] // info["group"]
+    assert sum(e["name"] == "sweep.device" for e in device) == 1
+    write_z = [e for e in device if e["name"] == "exec.write_z"]
+    assert len(write_z) == groups
+    assert all(e["dur"] > 0 for e in write_z)
+    assert all(e["dur"] > 0 for e in device
+               if e["name"] in ("sweep.device", "kern.draws", "kern.sample"))
 
 
 @pytest.mark.parametrize("extra", [{"hot_words": 60}, {"staleness": 1}],
