@@ -28,7 +28,10 @@ Phases (any failure raises and the script exits non-zero):
                  training entry point at K in {7, 130, 1000} and a snapshot
                  group's, a pipelined group's, a tiered block's and a stream
                  visit's slots, with empty and one-token documents and
-                 padded slots; the fold-in entry point at serving's
+                 padded slots, and a pipelined group's valid prefix of
+                 3,000 and 600,000 slots at its row's counter stride
+                 (8,192 and 1,809,664; the split layout and a thread per
+                 slot); the fold-in entry point at serving's
                  [32 x 1024] batch, sweeps 0 and 29; its two threefry
                  entry points bitwise against rng's plain functions:
                  threefry_keys at split(key, 244), split(keys, 2) of 32
@@ -250,9 +253,10 @@ Phases (any failure raises and the script exits non-zero):
                  model blocks, staleness 1, HybridRoute(2000), 8 groups of
                  [12,500 x 1,000]) on the trained state under an obs
                  session: bitwise equal to the pipelined executor, one
-                 mh_draws_train, alias_build and mh_sample a group and one
-                 delta_push and delta_apply_coo (the route's dense and
-                 coordinate parts) a group that holds a token, each phase
+                 threefry_keys, one alias_build a group and one
+                 mh_draws_train, mh_sample, delta_push and delta_apply_coo
+                 (the route's dense and coordinate parts) a group that
+                 holds a token, each phase
                  span's median ms,
                  and the trace rendered by launch.obs_report; its merge
                  kernels held bitwise and timed at a group's shapes;
@@ -339,6 +343,9 @@ HASH_OPS = 20 * 3
 # a tiered block, and a stream visit's snapshot and blocked groups
 DRAW_CASES = ((8192, 8000), (1_809_664, 8000), (2_097_152, 8000),
               (8192, 32_768), (237_568, 32_768))
+# a pipelined group's valid prefix: (slots drawn, the row's counter stride,
+# documents), one in the split layout and one a thread per slot
+STRIDE_CASES = ((3_000, 8192, 8000), (600_000, 1_809_664, 8000))
 
 
 def log(msg: str) -> None:
@@ -650,9 +657,11 @@ def draws_match(torch, got, want) -> bool:
 
 def check_draws(torch) -> None:
     """mh_draws against its plain version on the card: the training entry
-    point at K in {7, 130, 1000} and each of DRAW_CASES' group shapes; the
-    fold-in entry point at serving's [32 x 1024] batch for sweeps 0 and
-    29.  Bitwise in all four arrays."""
+    point at K in {7, 130, 1000} and each of DRAW_CASES' group shapes, and
+    at STRIDE_CASES' prefixes of a row (also against the first columns of
+    the kernel's draw over the whole row); the fold-in entry point at
+    serving's [32 x 1024] batch for sweeps 0 and 29.  Bitwise in all four
+    arrays."""
     from repro_torch import rng as jrng
     from repro_torch.core.lightlda import LDAConfig
     from repro_torch.kernels import mh_draws, ref
@@ -670,6 +679,25 @@ def check_draws(torch) -> None:
                 raise AssertionError(f"mh_draws_train differs from its plain "
                                      f"version at K={k}, {slots} slots")
             del args, got, want
+        for i, (slots, stride, docs) in enumerate(STRIDE_CASES):
+            key, d_b, *rest = draw_inputs(torch, k, stride, docs,
+                                          seed=37 * k + i)[:-1]
+            got = mh_draws.mh_draws_train_cuda(key, d_b[:slots], *rest,
+                                               slots, cfg, stride)
+            want = ref.mh_draws_train_ref(key, d_b[:slots], *rest, slots,
+                                          cfg, stride)
+            row = mh_draws.mh_draws_train_cuda(key, d_b, *rest, stride, cfg)
+            match = (draws_match(torch, got, want)
+                     and draws_match(torch, got,
+                                     [a[:, :slots] for a in row]))
+            log(json.dumps({"check": "mh_draws_train", "K": k,
+                            "slots": slots, "stride": stride, "docs": docs,
+                            "match": match}))
+            if not match:
+                raise AssertionError(f"mh_draws_train differs from its plain "
+                                     f"version at K={k}, {slots} slots of "
+                                     f"stride {stride}")
+            del key, d_b, rest, got, want, row
         rng = np.random.default_rng(k)
         b, l = 32, 1024
         nd = rng.integers(0, l + 1, b).astype(np.int32)
@@ -995,7 +1023,9 @@ def expected_launches(groups: int, alias_builds: int) -> dict:
     (the group's randoms) and mh_sample once per group; delta_push once per
     group, the whole merge on one process, whatever the route; no
     delta_apply_coo and no fold-in draws; alias_build ``alias_builds``
-    times (once per snapshot sweep, once per pipelined group)."""
+    times (once per snapshot sweep, once per pipelined group).  A
+    pipelined group works its tokens alone, so only a group that holds a
+    token counts in ``groups`` there (``groups_filled``)."""
     return {"mh_sample": groups, "delta_push": groups, "delta_apply_coo": 0,
             "alias_build": alias_builds, "mh_draws_train": groups,
             "mh_draws_foldin": 0}
@@ -1082,8 +1112,10 @@ def train_slice(torch, seed: int, card: str, device: str = "cuda",
     pcounts = ops.launch_counts()
     # ---------------------------------------------------- end of main path
     pinfo = pest.result_.info
-    want = expected_launches(groups_per_sweep(pinfo),
-                             alias_builds=groups_per_sweep(pinfo))
+    want = expected_launches(
+        groups_filled(pest.result_.state,
+                      pinfo["rows_per_block"] * pinfo["group"]),
+        alias_builds=groups_per_sweep(pinfo))
     for name, n in want.items():
         if device == "cuda" and pcounts[name] != n:
             raise AssertionError(f"pipelined executor: {name} launched "
@@ -1251,15 +1283,31 @@ def stream_job(path: str, k: int, v: int, seed: int, epochs: int,
 
 def stream_launches(reader, visits: int, info: dict, block_tokens: int
                     ) -> dict:
-    """The stream path's launches for ``visits`` shard visits: one
-    mh_sample and one delta_push a group; alias_build once a visit in
-    snapshot mode, once a group in blocked mode; no delta_apply_coo."""
-    if info["mode"] == "blocked":
-        groups = visits * (info["n_blocks"] // info["group"])
-        return expected_launches(groups, alias_builds=groups)
+    """The snapshot-mode stream path's launches for ``visits`` shard
+    visits: one mh_sample and one delta_push a group; alias_build once a
+    visit; no delta_apply_coo."""
+    if info["mode"] != "snapshot":
+        raise ValueError(f"stream_launches counts snapshot mode, not "
+                         f"{info['mode']!r}")
     groups = visits * (reader.meta.tokens_per_shard // block_tokens
                        // (info["staleness"] + 1))
     return expected_launches(groups, alias_builds=visits)
+
+
+def stream_blocked_launches(reader, epochs: int, info: dict, layout) -> dict:
+    """The blocked-mode stream path's launches for ``epochs`` whole epochs:
+    alias_build once a group; one mh_draws_train, mh_sample and delta_push
+    a group that holds a token of the visited shard (its words' rows under
+    ``layout``); no delta_apply_coo."""
+    filled = 0
+    for sid in range(reader.num_shards):
+        sh = reader.shard(sid, load_z=False)
+        rows = layout.to_physical(sh.w[:sh.n_tokens].astype(np.int64))
+        filled += nonempty_blocks(rows, info["rows_per_step"])
+    return expected_launches(
+        epochs * filled,
+        alias_builds=epochs * reader.num_shards
+        * (info["n_blocks"] // info["group"]))
 
 
 def check_launches(counts: dict, want: dict, what: str, device: str) -> None:
@@ -1557,8 +1605,8 @@ def stream_train(torch, seed: int, card: str, corp, device: str = "cuda",
         counts = ops.launch_counts()
         # ----------------------------------------------- end of main path
         binfo = est.result_.info
-        check_launches(counts, stream_launches(readers[0], n_shards, binfo,
-                                               job.block_tokens),
+        check_launches(counts, stream_blocked_launches(
+                           readers[0], 1, binfo, est.result_.nwk.layout),
                        "stream blocked mode", device)
         events, metrics = read_obs(obs_root / "blocked")
         z_replica = (z_update_replica_ms(torch, readers[0], job,
@@ -5151,20 +5199,21 @@ def baselines(torch, seed: int, card: str, corp, train=None,
     return rows
 
 
-def replay_groups_filled(state, group_rows: int) -> int:
-    """The replay's groups that hold a valid token (of the state's words
-    in their physical rows)."""
+def groups_filled(state, group_rows: int) -> int:
+    """The groups of ``group_rows`` physical rows that hold a valid token
+    of the state's words."""
     w = state.nwk.layout.to_physical(state.w[state.valid])
     return nonempty_blocks(w.cpu().numpy(), group_rows)
 
 
 def replay_launches(route, group_rows: int, groups: int,
                     filled: int) -> dict:
-    """The replay's launches: per group one mh_draws_train, alias_build and
-    mh_sample, and per group that holds a token (``filled``) what the
-    route's group-local delta issues -- delta_push for a dense part,
-    delta_apply_coo for a coordinate part (a group with no token merges
-    nothing and launches neither)."""
+    """The replay's launches: one threefry_keys (the sweep's group keys),
+    per group one alias_build, and per group that holds a token
+    (``filled``) one mh_draws_train and mh_sample and what the route's
+    group-local delta issues -- delta_push for a dense part,
+    delta_apply_coo for a coordinate part (a group with no token draws,
+    samples and merges no slot and launches none of them)."""
     from repro_torch import ps
 
     dense = coo = 1
@@ -5175,9 +5224,10 @@ def replay_launches(route, group_rows: int, groups: int,
     else:
         hot = route.clamped(group_rows)
         dense, coo = int(hot > 0), int(hot < group_rows)
-    return {"mh_sample": groups, "alias_build": groups,
-            "mh_draws_train": groups, "mh_draws_foldin": 0,
-            "delta_push": dense * filled, "delta_apply_coo": coo * filled}
+    return {"mh_sample": filled, "alias_build": groups,
+            "mh_draws_train": filled, "mh_draws_foldin": 0,
+            "delta_push": dense * filled, "delta_apply_coo": coo * filled,
+            "threefry_keys": 1, "threefry_randint": 0}
 
 
 def replay(torch, seed: int, card: str, train: dict,
@@ -5231,7 +5281,7 @@ def replay(torch, seed: int, card: str, train: dict,
     del got
     groups = groups_per_sweep(info)
     group_rows = info["rows_per_block"] * info["group"]
-    filled = replay_groups_filled(st, group_rows)
+    filled = groups_filled(st, group_rows)
     check_launches(counts, replay_launches(route, group_rows, groups,
                                            filled), "replay", device)
     events, metrics = read_obs(out_dir)

@@ -195,16 +195,21 @@ class MHRandoms(NamedTuple):
 
 
 def draw_mh_randoms(key: torch.Tensor, doc_draw_fn, batch: int,
-                    cfg: LDAConfig) -> MHRandoms:
+                    cfg: LDAConfig, stride: Optional[int] = None
+                    ) -> MHRandoms:
     """The chain's randoms for ``batch`` tokens from one key: split in
     four, the doc proposals drawn with ``doc_draw_fn`` over
-    ``split(kd, mh_steps)`` (jax's ``vmap``, written as a key batch)."""
+    ``split(kd, mh_steps)`` (jax's ``vmap``, written as a key batch).
+    ``stride`` (default ``batch``): the slots are the first ``batch`` of a
+    row of ``stride``, so slot ``i`` at step ``s`` draws at counter ``s *
+    stride + i``, bitwise the first columns of the draw at ``stride``
+    slots; the doc proposals' counter is ``i`` either way."""
     kw, kwa, kd, kda = jrng.split(key, 4)
     shape = (cfg.mh_steps, batch)
-    return MHRandoms(u_word=jrng.uniform(kw, shape),
-                     u_waccept=jrng.uniform(kwa, shape),
+    return MHRandoms(u_word=jrng.uniform(kw, shape, stride),
+                     u_waccept=jrng.uniform(kwa, shape, stride),
                      z_doc=doc_draw_fn(jrng.split(kd, cfg.mh_steps)),
-                     u_daccept=jrng.uniform(kda, shape))
+                     u_daccept=jrng.uniform(kda, shape, stride))
 
 
 def make_doc_draw(d_b: torch.Tensor, z_snapshot: torch.Tensor,

@@ -6,8 +6,10 @@
 // points share one hash:
 //
 //   * mh_draws_train: lightlda.draw_mh_randoms(key, make_doc_draw(d_b,
-//     z_snapshot, doc_start, doc_len, cfg), B, cfg) for one group or block.
-//     u_word, u_waccept, u_daccept at counter s*B+i from split(key, 4)'s
+//     z_snapshot, doc_start, doc_len, cfg), B, cfg, stride) for one group
+//     or block: B slots written as [S, B], u_word, u_waccept, u_daccept at
+//     counter s*stride+i (stride >= B; B where the slots are the whole
+//     row, more where they are a row's valid prefix) from split(key, 4)'s
 //     0th, 1st and 3rd keys; the doc draw from the step keys
 //     split(split(split(key, 4)[2], S)[s], 3): pos from uniform(k1),
 //     randint(k2, 0, K) from split(k2, 2)'s two words, use_tok from
@@ -176,6 +178,7 @@ struct TrainParams {
   int* z_doc;
   float* u_daccept;
   long long B;
+  long long stride;  // the counters' row length, >= B
   int steps;
   int tiles_per_step;  // ceil(B / kTile)
   bool whole;          // a thread per slot, every draw of it
@@ -215,9 +218,10 @@ __global__ void __launch_bounds__(kThreads)
       const unsigned long long ui = (unsigned long long)i;
       for (int s = 0; s < p.steps; ++s) {
         const unsigned long long n = (unsigned long long)s * p.B + ui;
-        p.u_word[n] = uniform(bits(sk[0], n));
-        p.u_waccept[n] = uniform(bits(sk[1], n));
-        p.u_daccept[n] = uniform(bits(sk[2], n));
+        const unsigned long long c = (unsigned long long)s * p.stride + ui;
+        p.u_word[n] = uniform(bits(sk[0], c));
+        p.u_waccept[n] = uniform(bits(sk[1], c));
+        p.u_daccept[n] = uniform(bits(sk[2], c));
         const Key* ks = sk + 3 + 4 * s;
         const int pos = min((int)(uniform(bits(ks[0], ui)) * ndc), pos_max);
         const int z_unif =
@@ -240,9 +244,10 @@ __global__ void __launch_bounds__(kThreads)
     if (i >= p.B) continue;
     const unsigned long long n = (unsigned long long)s * p.B + i;
     if (!half) {
-      p.u_word[n] = uniform(bits(sk[0], n));
-      p.u_waccept[n] = uniform(bits(sk[1], n));
-      p.u_daccept[n] = uniform(bits(sk[2], n));
+      const unsigned long long c = (unsigned long long)s * p.stride + i;
+      p.u_word[n] = uniform(bits(sk[0], c));
+      p.u_waccept[n] = uniform(bits(sk[1], c));
+      p.u_daccept[n] = uniform(bits(sk[2], c));
     } else {
       const int d = p.d[i];
       p.z_doc[n] = doc_draw(sk + 3 + 4 * s, (unsigned long long)i,
@@ -382,10 +387,10 @@ bool chain_of(const unsigned int* data, int n, Chain* c) {
 extern "C" int mh_draws_train_launch(
     const void* key, const void* d, const void* z_snap, const void* doc_start,
     const void* doc_len, void* u_word, void* u_waccept, void* z_doc,
-    void* u_daccept, long long B, int steps, int K, float kalpha,
-    unsigned int mult, int device, void* stream) {
+    void* u_daccept, long long B, long long stride, int steps, int K,
+    float kalpha, unsigned int mult, int device, void* stream) {
   const long long per_step = (B + kTile - 1) / kTile;
-  if (steps < 1 || steps > kMaxSteps || K < 1 || B < 1 ||
+  if (steps < 1 || steps > kMaxSteps || K < 1 || B < 1 || stride < B ||
       per_step * steps > 0x7FFFFFFFLL)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
@@ -400,9 +405,9 @@ extern "C" int mh_draws_train_launch(
   TrainParams a{(const long long*)key, (const int*)d, (const int*)z_snap,
                 (const int*)doc_start, (const int*)doc_len, (float*)u_word,
                 (float*)u_waccept,     (int*)z_doc,   (float*)u_daccept,
-                B,                     steps,         (int)per_step,
-                whole,                 (uint32_t)K,   kalpha,
-                (uint32_t)mult};
+                B,                     stride,        steps,
+                (int)per_step,         whole,         (uint32_t)K,
+                kalpha,                (uint32_t)mult};
   const long long work = whole ? slot_blocks : per_step * steps;
   const int blocks = (int)(work <= wave ? work : work <= 2 * wave ? wave
                                                                 : 2 * wave);

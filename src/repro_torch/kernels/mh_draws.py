@@ -7,8 +7,9 @@ hundreds of small int64 tensor ops each; each entry point here is one
 launch:
 
   * ``mh_draws_train_cuda`` -- ``lightlda.draw_mh_randoms(key,
-    make_doc_draw(d_b, z_snapshot, doc_start, doc_len, cfg), B, cfg)``
-    for one group or block;
+    make_doc_draw(d_b, z_snapshot, doc_start, doc_len, cfg), B, cfg,
+    stride)`` for one group or block, or a group's valid prefix at its
+    row's counters;
   * ``mh_draws_foldin_cuda`` -- serving's ``_doc_randoms(fold_in(doc_keys,
     sweep), z, nd, cfg)`` for a [B, L] batch, in the [S, B*L] layout the
     chain reads;
@@ -27,7 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -37,7 +38,7 @@ from repro_torch.kernels._build import CudaKernel, stream_args
 _P, _I, _F, _L, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                       ctypes.c_longlong, ctypes.c_uint)
 TRAIN_KERNEL = CudaKernel("mh_draws_train",
-                          [_P] * 9 + [_L, _I, _I, _F, _U, _I, _P],
+                          [_P] * 9 + [_L, _L, _I, _I, _F, _U, _I, _P],
                           source="mh_draws")
 FOLDIN_KERNEL = CudaKernel("mh_draws_foldin",
                            [_P] * 7 + [_I] * 5 + [_F, _U, _I, _P],
@@ -101,16 +102,23 @@ def _check_steps(cfg) -> None:
 
 def mh_draws_train_cuda(key: torch.Tensor, d_b: torch.Tensor,
                         z_snapshot: torch.Tensor, doc_start: torch.Tensor,
-                        doc_len: torch.Tensor, batch: int, cfg):
+                        doc_len: torch.Tensor, batch: int, cfg,
+                        stride: Optional[int] = None):
     """Launch the training draw: ``key`` [2] int64 (a row of a key
     batch), ``d_b`` [batch] int32, ``z_snapshot`` [N], ``doc_start`` and
     ``doc_len`` [D] int32, all on one card.  ``d_b < D`` and every
     document's tokens inside ``z_snapshot`` are the caller's contract.
-    Returns ``MHRandoms`` of four [mh_steps, batch] arrays."""
+    ``stride`` (at least ``batch``; default ``batch``): slot ``i`` at step
+    ``s`` draws at counter ``s * stride + i``.  Returns ``MHRandoms`` of
+    four [mh_steps, batch] arrays."""
     dev = d_b.device
     if dev.type != "cuda":
         raise ValueError(f"mh_draws_train_cuda needs CUDA tensors, got {dev}")
     _check_steps(cfg)
+    stride = batch if stride is None else int(stride)
+    if stride < batch:
+        raise ValueError(f"mh_draws_train: stride {stride} is shorter than "
+                         f"the {batch} slots drawn")
     _require(key, "key", torch.int64, (2,), dev)
     _require(d_b, "d_b", torch.int32, (batch,), dev)
     _require(z_snapshot, "z_snapshot", torch.int32, None, dev)
@@ -124,7 +132,7 @@ def mh_draws_train_cuda(key: torch.Tensor, d_b: torch.Tensor,
                         doc_start.data_ptr(), doc_len.data_ptr(),
                         out.u_word.data_ptr(), out.u_waccept.data_ptr(),
                         out.z_doc.data_ptr(), out.u_daccept.data_ptr(),
-                        batch, cfg.mh_steps, cfg.K, k_alpha(cfg),
+                        batch, stride, cfg.mh_steps, cfg.K, k_alpha(cfg),
                         randint_mult(cfg.K), device, stream)
     return out
 

@@ -11,7 +11,7 @@ main path went through the kernels.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -49,18 +49,20 @@ def mh_sample(rng, z0, w, d, nwk, ndk, nk, aprob, aalias, cfg,
 
 
 def mh_draws_train(key, d_b, z_snapshot, doc_start, doc_len, batch: int,
-                   cfg):
+                   cfg, stride: Optional[int] = None):
     """The MH chain's randoms for one training group of ``batch`` slots
     from one key (``[2]``, a row of the sweep's key batch): what
     ``lightlda.draw_mh_randoms(key, make_doc_draw(d_b, z_snapshot,
-    doc_start, doc_len, cfg), batch, cfg)`` draws, one launch on the
-    card."""
+    doc_start, doc_len, cfg), batch, cfg, stride)`` draws, one launch on
+    the card (none for no slot).  ``stride`` (default ``batch``) is the
+    counters' row length: the ``batch`` slots draw what the first ``batch``
+    of ``stride`` slots would."""
     if _route(d_b, "mh_draws_train"):
         return _md.mh_draws_train_cuda(key.contiguous(), _i32(d_b),
                                        _i32(z_snapshot), _i32(doc_start),
-                                       _i32(doc_len), batch, cfg)
+                                       _i32(doc_len), batch, cfg, stride)
     return ref.mh_draws_train_ref(key, d_b, z_snapshot, doc_start, doc_len,
-                                  batch, cfg)
+                                  batch, cfg, stride)
 
 
 def mh_draws_foldin(doc_keys, sweep: int, z, nd, cfg):

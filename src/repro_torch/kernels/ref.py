@@ -22,12 +22,13 @@ def mh_sample_ref(rng: "lda.MHRandoms", z0, w, d, nwk, ndk, nk, aprob,
 
 
 def mh_draws_train_ref(key: torch.Tensor, d_b, z_snapshot, doc_start,
-                       doc_len, batch: int,
-                       cfg: "lda.LDAConfig") -> "lda.MHRandoms":
+                       doc_len, batch: int, cfg: "lda.LDAConfig",
+                       stride=None) -> "lda.MHRandoms":
     """Plain version of ``kernels/mh_draws.py::mh_draws_train_cuda``: the
-    eager composition ``draw_mh_randoms(key, make_doc_draw(...))``."""
+    eager composition ``draw_mh_randoms(key, make_doc_draw(...))``, the
+    counters of ``batch`` slots alone at the row length ``stride``."""
     doc_draw = lda.make_doc_draw(d_b, z_snapshot, doc_start, doc_len, cfg)
-    return lda.draw_mh_randoms(key, doc_draw, batch, cfg)
+    return lda.draw_mh_randoms(key, doc_draw, batch, cfg, stride)
 
 
 def mh_draws_foldin_ref(doc_keys: torch.Tensor, sweep: int, z, nd,

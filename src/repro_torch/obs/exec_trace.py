@@ -17,7 +17,7 @@ span:
   * ``sample``          -- the group's gathers, its draws
                            (``mh_draws_train``), the Metropolis-Hastings
                            chain (``mh_sample``, training mode) and the
-                           topics kept at the valid slots;
+                           changed mask, over the group's valid slots;
   * ``merge.store``     -- the route's group-local delta (``delta_push``
                            for the dense part, ``delta_apply_coo`` for the
                            coordinate part), ``n_k``/``n_dk``, the rows'

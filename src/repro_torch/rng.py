@@ -23,7 +23,7 @@ code: jax draws these numbers outside its Pallas kernels too.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -82,12 +82,21 @@ def _hash(keys: torch.Tensor, hi: torch.Tensor, lo: torch.Tensor
     return threefry2x32(k1, k2, hi, lo)
 
 
-def _counters(shape: Tuple[int, ...], device) -> Tuple[torch.Tensor,
-                                                       torch.Tensor]:
+def _counters(shape: Tuple[int, ...], device, stride: Optional[int] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row-major uint64 iota over ``shape`` as (hi, lo) uint32 halves
-    (jax ``prng.iota_2x32_shape``)."""
-    n = torch.arange(math.prod(shape),
-                     dtype=torch.int64, device=device).reshape(shape)
+    (jax ``prng.iota_2x32_shape``).  ``stride`` (default ``shape[-1]``):
+    the iota's rows are that long, of which ``shape[-1]`` leading columns
+    are kept -- the counters of the first columns of a draw over
+    ``shape[:-1] + (stride,)``."""
+    if not shape:
+        n = torch.zeros((), dtype=torch.int64, device=device)
+    else:
+        stride = shape[-1] if stride is None else stride
+        rows = torch.arange(math.prod(shape[:-1]), dtype=torch.int64,
+                            device=device).reshape(shape[:-1] + (1,))
+        n = rows * stride + torch.arange(shape[-1], dtype=torch.int64,
+                                         device=device)
     return n >> 32, n & MASK
 
 
@@ -105,19 +114,24 @@ def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([x0, x1], dim=-1)
 
 
-def random_bits(keys: torch.Tensor, shape: Shape) -> torch.Tensor:
-    """32 random bits per element (uint32 values in int64): [*B, *shape]."""
-    hi, lo = _counters(_as_shape(shape), keys.device)
+def random_bits(keys: torch.Tensor, shape: Shape,
+                stride: Optional[int] = None) -> torch.Tensor:
+    """32 random bits per element (uint32 values in int64): [*B, *shape].
+    With ``stride``, the first ``shape[-1]`` columns of the bits over
+    ``shape[:-1] + (stride,)``, computed for those columns alone."""
+    hi, lo = _counters(_as_shape(shape), keys.device, stride)
     x0, x1 = _hash(keys, hi, lo)
     return x0 ^ x1
 
 
-def uniform(keys: torch.Tensor, shape: Shape) -> torch.Tensor:
+def uniform(keys: torch.Tensor, shape: Shape,
+            stride: Optional[int] = None) -> torch.Tensor:
     """``jax.random.uniform`` in float32 on [0, 1): the top 23 bits become
     the mantissa of a float in [1, 2), minus 1.  (Other ranges are left out:
     XLA on the CPU fuses jax's ``x * (max - min) + min`` into one FMA, which
-    a plain tensor expression does not reproduce; on [0, 1) it is exact.)"""
-    bits = random_bits(keys, shape)
+    a plain tensor expression does not reproduce; on [0, 1) it is exact.)
+    ``stride`` as in ``random_bits``."""
+    bits = random_bits(keys, shape, stride)
     one = 0x3F800000                                # float32 1.0
     return ((bits >> 9) | one).to(torch.int32).view(torch.float32) - 1.0
 

@@ -202,14 +202,10 @@ def routed_merge_block(route: ps.PushRoute, rows, nk, ndk, local, words,
     return d_rows.add_(rows), nk, ndk
 
 
-def valid_slots(counts: Sequence[int], cap: int, device
-                ) -> Union[slice, torch.Tensor]:
-    """The valid slots of a group's row of the token index: the first
-    ``counts[j]`` of each run of ``cap`` slots.  A slice when the group is
-    one block (every blocked executor's index), else an index tensor on
-    ``device``."""
-    if len(counts) == 1:
-        return slice(0, counts[0])
+def valid_slots(counts: Sequence[int], cap: int, device) -> torch.Tensor:
+    """The valid slots of a group's row of the token index, as an index
+    tensor on ``device``: the first ``counts[j]`` of each run of ``cap``
+    slots."""
     return torch.cat([torch.arange(j * cap, j * cap + n)
                       for j, n in enumerate(counts)]).to(device)
 
@@ -346,12 +342,20 @@ def pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
 
     Each block's valid slots are a prefix of its row of ``block_idx``, as
     ``lightlda.block_token_index`` builds it, and each names a token of
-    its own; the padding all names token 0, so the routed merge leaves it
-    out (``valid_slots``) rather than add its zeros into one address one
-    after another.  ``block_counts`` gives the valid slots per block from
-    the host that built the index; None reads them from ``block_valid``
-    (one device-to-host copy a sweep).  ``phases`` is told of each phase
-    boundary; None takes ``sweep_phases``: with an obs session installed,
+    its own; the padding all names token 0.  Where a group is one block
+    (``staleness`` 0 over an index at merge-unit granularity, as every
+    executor builds it), the group works its ``n`` valid slots alone: the
+    gathers, draws, sampler, merge and ``z`` run over the row's prefix,
+    and the draws keep the row's capacity as their counters' stride, so
+    each token draws what it would in the padded row, bitwise.  A group
+    with no token launches no per-slot kernel.  A group of several blocks
+    works its whole row, keeps the padding's old topics, and the routed
+    merge leaves the padding out (``valid_slots``) rather than add its
+    zeros into one address one after another.  ``block_counts`` gives the
+    valid slots per block from the host that built the index; None reads
+    them from ``block_valid`` (one device-to-host copy a sweep).
+    ``phases`` is told of each phase boundary; None takes
+    ``sweep_phases``: with an obs session installed,
     ``DevicePhases`` times them on the device.  The phases tile the sweep:
     ``exec.prologue`` (owned copies, the keys, the first pull), then per
     group ``ps.pull``, ``kern.alias``, ``exec.gather``, ``kern.draws``,
@@ -373,6 +377,7 @@ def pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
     gidx = block_idx.reshape(n_groups, group * cap)
     gval = block_valid.reshape(n_groups, group * cap)
     gcap = group * cap
+    prefix = group == 1
     if block_counts is None:
         block_counts = block_valid.sum(1).tolist()
 
@@ -389,8 +394,10 @@ def pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
     pulled = nwk.pull_block(0, grp_rows)
     for grp in range(n_groups):
         counts = block_counts[grp * group:(grp + 1) * group]
+        # a group of one block works its valid prefix alone
+        n = counts[0] if prefix else gcap
         # 1. double buffer: await this group's rows, issue the next pull
-        phases.mark("ps.pull", grp, slots=gcap, tokens=sum(counts))
+        phases.mark("ps.pull", grp, slots=n, stride=gcap, tokens=sum(counts))
         rows = pulled.result()
         phases.pulled(grp, rows)
         phases.before_pull()
@@ -402,8 +409,7 @@ def pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
 
         # 3. fused resample of the group's tokens against the stale view
         phases.mark("exec.gather", grp)
-        idx = gidx[grp].long()
-        vb = gval[grp]
+        idx = gidx[grp, :n].long()
         wb = state.w[idx]
         db = state.d[idx]
         z0 = z_flat[idx]
@@ -411,14 +417,15 @@ def pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
                             grp_rows - 1).to(torch.int32)
         phases.mark("kern.draws", grp)
         rng = ops.mh_draws_train(keys[grp], db, z_flat, state.doc_start,
-                                 state.doc_len, gcap, cfg)
+                                 state.doc_len, n, cfg, stride=gcap)
         phases.mark("kern.sample", grp)
         z_new = ops.mh_sample(rng, z0, local, db, rows.to(torch.float32),
                               ndk, nk.to(torch.float32), table.prob,
                               table.alias, cfg, frozen=False)
         phases.mark("exec.select", grp)
-        z_new = torch.where(vb, z_new, z0)
-        changed = (z_new != z0) & vb
+        if not prefix:
+            z_new = torch.where(gval[grp], z_new, z0)
+        changed = z_new != z0
 
         # 4. group-boundary merge; the rows go back in
         phases.mark("kern.merge", grp)
@@ -426,7 +433,8 @@ def pipelined_sweep(state: "lda.SamplerState", key: torch.Tensor,
             ops.delta_push(local, z0, z_new, changed, grp_rows, cfg.K,
                            out=rows, docs=db, ndk_out=ndk, nk_out=nk)
         else:
-            v = valid_slots(counts, cap, z0.device)
+            v = slice(None) if prefix else valid_slots(counts, cap,
+                                                       z0.device)
             rows, nk, ndk = routed_merge_block(
                 route, rows, nk, ndk, local[v], wb[v], db[v], z0[v],
                 z_new[v], changed[v], cfg.K)

@@ -149,6 +149,38 @@ def test_mh_draws_train_kernel_matches_plain_bitwise(card, k, batch, steps):
         assert torch.equal(g, w), name
 
 
+@pytest.mark.parametrize("n,stride", [(3000, 8192), (400_000, 1_000_000)],
+                         ids=["split", "whole"])
+def test_mh_draws_train_kernel_keeps_the_stride(card, n, stride):
+    """``n`` slots drawn at a counter ``stride`` are the first ``n``
+    columns of each step of the kernel's draw at ``stride`` slots and the
+    plain draw at the same stride, bitwise, in one launch.  3,000 slots
+    fill no wave of blocks (the split layout); 400,000 give 1,563 blocks
+    of 256 threads, past the H100's resident blocks at any occupancy (132
+    SMs x 8): a thread per slot."""
+    rng = np.random.default_rng(n)
+    lens = rng.integers(0, 400, 5000).astype(np.int32)
+    lens[::7], lens[1::7] = 0, 1
+    start = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int32)
+    z = rng.integers(0, 130, int(lens.sum())).astype(np.int32)
+    d = rng.integers(0, lens.size, stride).astype(np.int32)
+    d_b, z, start, lens = (torch.from_numpy(x).to(card)
+                           for x in (d, z, start, lens))
+    cfg = tlda.LDAConfig(num_topics=130, vocab_size=50, mh_steps=3)
+    key = torch.tensor([0x9E3779B9, n], dtype=torch.int64, device=card)
+    full = ops.mh_draws_train(key, d_b, z, start, lens, stride, cfg)
+    before = ops.launch_counts()["mh_draws_train"]
+    got = ops.mh_draws_train(key, d_b[:n], z, start, lens, n, cfg,
+                             stride=stride)
+    assert ops.launch_counts()["mh_draws_train"] == before + 1
+    want = ref.mh_draws_train_ref(key, d_b[:n], z, start, lens, n, cfg,
+                                  stride)
+    for name, g, f, w in zip(got._fields, got, full, want):
+        assert g.shape == (3, n)
+        assert torch.equal(g, f[:, :n]), name
+        assert torch.equal(g, w), name
+
+
 @pytest.mark.parametrize("k,sweep", [(7, 0), (1000, 0), (1000, 29)])
 def test_mh_draws_foldin_kernel_matches_plain_bitwise(card, k, sweep):
     """Serving's [32 x 1024] batch, empty and full rows included."""
@@ -694,9 +726,66 @@ def test_replay_on_card_matches_cpu(card, route):
     rpb, n_blocks, stale = blocked_geometry(cpu.nwk.layout, 4, 1)
     group_rows = rpb * (stale + 1)
     cs = _chip_smoke()
-    assert counts == cs.replay_launches(
-        rt, group_rows, n_blocks // (stale + 1),
-        cs.replay_groups_filled(st, group_rows))
+    filled = cs.groups_filled(st, group_rows)
+    assert counts == cs.replay_launches(rt, group_rows,
+                                        n_blocks // (stale + 1), filled)
+    # the sweep's keys in one threefry_keys launch; no initial draw
+    assert counts["threefry_keys"] == 1 and counts["threefry_randint"] == 0
+
+
+def test_pipelined_prefix_on_card_matches_cpu(card):
+    """A corpus whose tokens crowd into physical block 0 of 6 and leave
+    block 3 empty (its words moved onto block 0's rows): one pipelined
+    sweep at staleness 0 on the card equals the CPU's bitwise (z, n_wk,
+    n_k, n_dk) and the synchronous oracle's.  Each group works its valid
+    prefix alone, so an empty group (block 3, and the blocks of the
+    rarest words) launches no per-slot kernel: one mh_draws_train,
+    mh_sample and delta_push a group that holds a token, one alias_build
+    for each of the six groups."""
+    from repro_torch import rng as trng
+    from repro_torch.core.pserver import CyclicLayout
+    from repro_torch.data.corpus import synthetic_corpus
+    from repro_torch.train import async_exec
+
+    blocks, empty = 6, 3
+    corp = synthetic_corpus(300, 3000, true_topics=16, seed=0)
+    cfg = tlda.LDAConfig(num_topics=64, vocab_size=3000, num_shards=2)
+    layout = CyclicLayout(cfg.V, cfg.num_shards)
+    rpb = layout.pad_rows // blocks
+    phys = layout.to_physical(corp.w.astype(np.int64))
+    w = np.where(phys // rpb == empty, layout.to_logical(phys - empty * rpb),
+                 corp.w).astype(np.int32)
+    valid = np.ones(w.size, bool)
+    idx, bval = tlda.block_token_index(w, valid, rpb, layout)
+    counts = bval.sum(1).tolist()
+    assert counts[empty] == 0 and counts[0] > sum(counts) / 2
+    filled = sum(1 for c in counts if c)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        st = tlda.init_state(trng.PRNGKey(0, dev),
+                             torch.from_numpy(w).to(dev),
+                             torch.from_numpy(corp.d).to(dev),
+                             corp.num_docs, cfg)
+        args = (st, trng.PRNGKey(7, dev), cfg,
+                torch.from_numpy(idx).to(dev), torch.from_numpy(bval).to(dev),
+                rpb)
+        ops.reset_launch_counts()
+        out[dev] = async_exec.pipelined_sweep(*args, block_counts=counts)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+        else:
+            oracle = tlda.sweep_blocked_ref(*args)
+    gpu, cpu = out["cuda"], out["cpu"]
+    for a, b, c in ((gpu.z, cpu.z, oracle.z),
+                    (gpu.nwk.value, cpu.nwk.value, oracle.nwk.value),
+                    (gpu.nk.value, cpu.nk.value, oracle.nk.value),
+                    (gpu.ndk, cpu.ndk, oracle.ndk)):
+        assert torch.equal(a.cpu(), b) and torch.equal(b, c)
+    assert launches == {"mh_sample": filled, "alias_build": blocks,
+                        "delta_push": filled, "delta_apply_coo": 0,
+                        "mh_draws_train": filled, "mh_draws_foldin": 0,
+                        "threefry_keys": 1, "threefry_randint": 0}
 
 
 def test_baselines_on_card_match_cpu(card):

@@ -5,7 +5,8 @@ arithmetic against the plain version.
   * ``ops.mh_draws_train`` on CPU tensors (the plain version) equals
     ``repro.core.lightlda.draw_mh_randoms(key, make_doc_draw(...))``
     bitwise, at a snapshot group's shape with empty and one-token documents
-    and padded slots;
+    and padded slots; ``n`` slots drawn at a counter ``stride`` equal the
+    first ``n`` columns of the draw at ``stride`` slots;
   * ``ops.mh_draws_foldin`` equals serving's ``_doc_randoms(fold_in(keys,
     s), z, nd)`` in the chain's [S, B*L] layout, at a fold-in batch's shape;
   * a numpy uint32 replay of what one thread of ``csrc/mh_draws.cu``
@@ -13,7 +14,8 @@ arithmetic against the plain version.
     the thread's half (the three uniforms or the doc proposal) mapped to
     (step, slot), in its whole layout the thread's slot at every step, in
     the fold-in kernel the block's (tile, document, step) and the thread's
-    half; the key derivation order included -- equals the plain version at
+    half; the key derivation order included; the training kernel also
+    with a counter stride past its slots -- equals the plain version at
     a few hundred sampled (block, thread) pairs.  It pins
     the kernel's order on the CPU before any chip time is spent; on the
     card ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold the kernel
@@ -57,12 +59,13 @@ def _key(seed):
     return np.asarray(jax.random.PRNGKey(seed), np.uint32)
 
 
-def _train_plain(k, steps, batch, seed, empty_first=False):
+def _train_plain(k, steps, batch, seed, empty_first=False, stride=None):
     d_b, z, start, lens = _group(k, batch, seed, empty_first)
     cfg = tlda.LDAConfig(num_topics=k, vocab_size=50, mh_steps=steps)
     key = torch.from_numpy(_key(seed).astype(np.int64))
     got = ops.mh_draws_train(key, *(torch.from_numpy(x) for x in
-                                    (d_b, z, start, lens)), batch, cfg)
+                                    (d_b, z, start, lens)), batch, cfg,
+                             stride=stride)
     return got, (d_b, z, start, lens), cfg
 
 
@@ -172,14 +175,16 @@ TILE = 128       # csrc/mh_draws.cu kTile: elements of a tile, two threads each
 
 
 def _train_thread(block, t, whole, key, batch, steps, d_b, z, start, lens,
-                  kalpha, k, mult):
+                  kalpha, k, mult, stride=None):
     """What thread ``t`` of block ``block`` writes in its first work item
     of ``mh_draws_train_kernel``: ``{array: [(flat offset, value)]}``,
     empty past the batch.  ``whole``: a thread per slot, every draw at
     every step; else the split layout, item ``block`` a tile of 128 slots
     at one step, threads 0-127 its uniforms and 128-255 its doc proposals.
     The block's keys come first, in its prologue's thread order: [kw, kwa,
-    kda], then four a step."""
+    kda], then four a step.  The uniforms' counter is ``s * stride + i``
+    (``stride`` None: the batch), the offset written ``s * batch + i``."""
+    stride = batch if stride is None else stride
     shared = [_child(key, j) for j in (0, 1, 3)]
     if whole:
         i, ss, parts = block * 2 * TILE + t, range(steps), (0, 1)
@@ -192,10 +197,10 @@ def _train_thread(block, t, whole, key, batch, steps, d_b, z, start, lens,
         return {}
     out = {}
     for s in ss:
-        n = s * batch + i
+        n, c = s * batch + i, s * stride + i
         if 0 in parts:
             for name, kk in zip(("u_word", "u_waccept", "u_daccept"), shared):
-                out.setdefault(name, []).append((n, _uniform(_bits(kk, n))))
+                out.setdefault(name, []).append((n, _uniform(_bits(kk, c))))
         if 1 in parts:
             ks = _child(_child(key, 2), s)                 # split(kd, S)[s]
             d = int(d_b[i])
@@ -205,11 +210,11 @@ def _train_thread(block, t, whole, key, batch, steps, d_b, z, start, lens,
     return out
 
 
-@pytest.mark.parametrize("k,steps,whole", [(7, 2, False), (1000, 3, False),
-                                           (130, 2, True)])
-def test_train_kernel_replay_equals_plain(k, steps, whole):
-    batch = 8192 - 37                        # a ragged last tile
-    got, (d_b, z, start, lens), cfg = _train_plain(k, steps, batch, 5, True)
+def _replay_train(k, steps, whole, batch, stride=None):
+    """The replay of sampled (block, thread) pairs of the training kernel
+    against the plain draw of ``batch`` slots at ``stride``."""
+    got, (d_b, z, start, lens), cfg = _train_plain(k, steps, batch, 5, True,
+                                                   stride)
     key = tuple(_key(5))
     kalpha, mult = tdraws.k_alpha(cfg), tdraws.randint_mult(k)
     blocks = -(-batch // (2 * TILE)) if whole else steps * -(-batch // TILE)
@@ -223,13 +228,49 @@ def test_train_kernel_replay_equals_plain(k, steps, whole):
     with np.errstate(over="ignore"):
         for block, t in picks:
             out = _train_thread(block, t, whole, key, batch, steps, d_b, z,
-                                start, lens, kalpha, k, mult)
+                                start, lens, kalpha, k, mult, stride)
             for name, writes in out.items():
                 for n, want in writes:
                     assert getattr(got, name).reshape(-1)[n].item() == want, \
                         (name, block, t)
                 seen.add(name)
     assert seen == {"u_word", "u_waccept", "u_daccept", "z_doc"}
+
+
+@pytest.mark.parametrize("k,steps,whole", [(7, 2, False), (1000, 3, False),
+                                           (130, 2, True)])
+def test_train_kernel_replay_equals_plain(k, steps, whole):
+    _replay_train(k, steps, whole, 8192 - 37)        # a ragged last tile
+
+
+@pytest.mark.parametrize("whole", [False, True], ids=["split", "whole"])
+def test_train_kernel_replay_keeps_the_stride(whole):
+    """A group's valid prefix of 3,000 slots in a row of 8,192: each
+    layout writes ``[S, 3000]`` at the row's counters."""
+    _replay_train(130, 3, whole, 3000, stride=8192)
+
+
+STRIDE = 3000
+
+
+@pytest.mark.parametrize("n", [0, 1, STRIDE // 3, STRIDE])
+def test_train_draws_keep_the_stride(n):
+    """``n`` slots drawn at ``stride`` equal the first ``n`` columns of
+    each step of the draw at ``batch = stride``, bitwise; three steps,
+    since step 0's counters do not depend on the stride.  Where ``n <
+    stride`` the stride matters: the same slots drawn without it differ
+    from step 1 on."""
+    want, (d_b, z, start, lens), cfg = _train_plain(130, 3, STRIDE, 11)
+    key = torch.from_numpy(_key(11).astype(np.int64))
+    args = [torch.from_numpy(x) for x in (d_b[:n], z, start, lens)]
+    got = ops.mh_draws_train(key, *args, n, cfg, stride=STRIDE)
+    for name, g, w in zip(got._fields, got, want):
+        assert g.shape == (3, n)
+        assert torch.equal(g, w[:, :n]), name
+    if 0 < n < STRIDE:
+        alone = ops.mh_draws_train(key, *args, n, cfg)
+        assert torch.equal(alone.u_word[0], got.u_word[0])
+        assert not torch.equal(alone.u_word[1:], got.u_word[1:])
 
 
 def _foldin_thread(block, t, doc, b, l, sweep, nd, z, kalpha, k, mult):

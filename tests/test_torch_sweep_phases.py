@@ -1,6 +1,7 @@
 """The pipelined sweep's phases under an obs session: on the ``[device]``
 lane each group's phases tile its ``exec.group`` span in order, inside one
-``sweep.device`` a sweep; a group's ``tokens``/``slots`` are the index's;
+``sweep.device`` a sweep; a group's ``tokens`` and ``slots`` are its
+valid slots in the index and its ``stride`` the index's capacity;
 the swept state is bitwise the same with tracing on and off on both merge
 branches; with no session nothing is marked; a live span is a profiler
 range only while a profiler records; and CUDA events are read back onto
@@ -115,7 +116,10 @@ def test_groups_carry_the_index_counts(made):
         state, info["n_blocks"], info["staleness"])
     assert [e["args"]["tokens"] for e in groups] == counts
     assert sum(counts) == int(state.valid.sum())
-    assert {e["args"]["slots"] for e in groups} == {idx.shape[1]}
+    # a group works its valid slots alone; its counters keep the row's
+    # capacity as their stride
+    assert [e["args"]["slots"] for e in groups] == counts
+    assert {e["args"]["stride"] for e in groups} == {idx.shape[1]}
 
 
 @pytest.mark.parametrize("routed", [False, True], ids=["one_launch",

@@ -1,8 +1,10 @@
 """The port's training path against the JAX package's: initialisation,
 the chain's randoms, one sweep of each executor from the same state and
 key (bitwise z and count tables), the synchronous blocked oracle, count
-conservation at every staleness, and a sweep never writing into the state
-it was given."""
+conservation at every staleness, a sweep never writing into the state
+it was given, and the pipelined sweep's prefix path (a group of one
+block works its valid slots alone) on a corpus whose tokens crowd into
+one block and leave another empty."""
 import dataclasses
 import sys
 from pathlib import Path
@@ -17,11 +19,15 @@ import jax.numpy as jnp
 
 from conftest import make_lda_state
 from repro.core import lightlda as jlda
+from repro.data import corpus as jcorpus
+from repro.obs import exec_trace as jtrace
 from repro.train import async_exec as jexec
 from repro_torch import ps as tps
 from repro_torch import rng as trng
 from repro_torch.convert import sampler_state_from_arrays
 from repro_torch.core import lightlda as tlda
+from repro_torch.core.pserver import CyclicLayout
+from repro_torch.obs import exec_trace
 from repro_torch.train import async_exec as texec
 
 sys.path.append(str(Path(__file__).resolve().parents[1]))
@@ -324,3 +330,86 @@ def test_neither_merge_writes_into_the_input(carried, blocked, routed):
     assert not torch.equal(out.ndk, st.ndk)
     for name, t in _snapshot_of(st).items():
         assert torch.equal(t, before[name]), name
+
+
+SKEW_BLOCKS, EMPTY_BLOCK = 6, 3
+
+
+@pytest.fixture(scope="module")
+def skewed():
+    """(jax cfg, jax state, port state) of ``carried``'s corpus with the
+    words of physical block 3 (of 6) moved onto the rows of block 0: block
+    0 then holds most of the tokens, block 3 none, as the index's groups
+    are in a Zipf corpus (the hottest group's capacity, the rest mostly
+    padding)."""
+    corp = jcorpus.generate_lda_corpus(seed=0, num_docs=120, mean_doc_len=40,
+                                       vocab_size=300, num_topics=6)
+    cfg = jlda.LDAConfig(num_topics=8, vocab_size=300, block_tokens=512,
+                         num_shards=2)
+    layout = CyclicLayout(cfg.V, cfg.num_shards)
+    rpb = layout.pad_rows // SKEW_BLOCKS
+    phys = layout.to_physical(corp.w.astype(np.int64))
+    moved = phys // rpb == EMPTY_BLOCK
+    w = np.where(moved, layout.to_logical(phys - EMPTY_BLOCK * rpb),
+                 corp.w).astype(corp.w.dtype)
+    jst = jlda.init_state(jax.random.PRNGKey(0), jnp.asarray(w),
+                          jnp.asarray(corp.d), corp.num_docs, cfg)
+    return cfg, jst, _carry(jst, cfg)
+
+
+SKEW_CASES = ["ref", "ref_routed", "jax", "jax_routed", "executor",
+              "stream", "replay"]
+
+
+@pytest.mark.parametrize("case", SKEW_CASES)
+def test_prefix_path_is_exact_on_a_skewed_corpus(skewed, case):
+    """At staleness 0 every group is one block, so the sweep works each
+    group's valid prefix alone, its draws at the padded row's counters:
+    bitwise the synchronous oracle and the JAX package's padded sweep,
+    through the one-launch and the routed merge, ``make_executor``, the
+    stream executor's step on its own index (capacity rounded to 2,048)
+    and the trace replay; counts conserved.  The empty group draws,
+    samples and merges no slot (on the card it launches none of
+    ``mh_draws_train``, ``mh_sample`` and ``delta_push``:
+    ``tests/test_torch_cuda.py``)."""
+    cfg, jst, tst = skewed
+    idx, bval, rpb = _block_index(tst, SKEW_BLOCKS)
+    counts = bval.sum(1).tolist()
+    assert counts[EMPTY_BLOCK] == 0 and counts[0] > sum(counts) / 2
+    st = _routed(tst) if case.endswith("routed") else tst
+    key, jkey = trng.PRNGKey(21), jax.random.PRNGKey(21)
+    ec = dict(model_blocks=SKEW_BLOCKS, hot_words=37)
+    if case.startswith("ref"):
+        want = tlda.sweep_blocked_ref(tst, key, cfg, idx, bval, rpb)
+        got = texec.pipelined_sweep(st, key, cfg, idx, bval, rpb,
+                                    hot_words=37)
+    elif case.startswith("jax"):
+        want = jexec.pipelined_sweep(jst, jkey, cfg, jnp.asarray(idx.numpy()),
+                                     jnp.asarray(bval.numpy()), rpb,
+                                     hot_words=37)
+        got = texec.pipelined_sweep(st, key, cfg, idx, bval, rpb,
+                                    hot_words=37)
+    elif case == "executor":
+        jstep, _ = jexec.make_executor(jst, cfg, jexec.ExecConfig(**ec))
+        tstep, info = texec.make_executor(tst, cfg, texec.ExecConfig(**ec))
+        assert info["group"] == 1
+        want, got = jstep(jst, jkey), tstep(tst, key)
+    elif case == "stream":
+        jstep, _, _ = jexec.make_stream_executor(
+            cfg, jexec.ExecConfig(**ec), jst.nwk.layout)
+        tstep, build, info = texec.make_stream_executor(
+            cfg, texec.ExecConfig(**ec), tst.nwk.layout)
+        sidx, sbval = build(tst.w.numpy(), tst.valid.numpy())
+        assert sidx.shape[1] % 2048 == 0
+        want = jstep(jst, jkey, jnp.asarray(sidx.numpy()),
+                     jnp.asarray(sbval.numpy()))
+        got = tstep(tst, key, sidx, sbval)
+        _assert_same(tlda.sweep_blocked_ref(tst, key, cfg, sidx, sbval,
+                                            info["rows_per_step"]), got)
+    else:
+        want = jtrace.traced_pipelined_sweep(jst, jkey, cfg,
+                                             model_blocks=SKEW_BLOCKS)
+        got = exec_trace.traced_pipelined_sweep(tst, key, cfg,
+                                                model_blocks=SKEW_BLOCKS)
+    _assert_same(want, got)
+    _assert_conserved(got, cfg, sum(counts))
