@@ -1,7 +1,13 @@
-"""Faults planted under a training cell's timed path, one for each fault the
-cell can have.  Each replaces a function of the program (``patch`` says
-which); a run with it planted has to read ``correct`` false.  The benchmark's
-own runs plant nothing: ``bench/control.py`` and ``bench/tests`` do."""
+"""The control and the faults of the ``train`` driver's cells, found by the
+driver's name (``bench/faults/<driver>.py``).
+
+``CONTROL`` gives, for each precision a configuration of this driver may
+state, the dtype one below it in which the reference takes the program's
+place (``bench/run.py --control``).  ``FAULTS`` are planted under the timed
+path, one for each fault the cell can have: each replaces a function of the
+program (``module, attribute, replacement``).  A run with the control or a
+fault has to read ``correct`` false.  The benchmark's own runs plant
+nothing: ``bench/control.py`` and ``bench/tests`` do."""
 from __future__ import annotations
 
 import torch
@@ -24,12 +30,17 @@ def unchanged(state, key, cfg, *args, **kw):
     return state
 
 
-def half_the_batch(state, key, cfg, idx, bval, *args, **kw):
-    """Half of every group's tokens left out: only every other slot is
-    resampled."""
+def half_the_batch(state, key, cfg, idx, bval, *args, block_counts=None,
+                   **kw):
+    """Half of every group's tokens left out: every other slot of a padded
+    row is resampled, and a group that works its valid prefix alone works
+    the first half of it."""
     keep = torch.zeros_like(bval)
     keep[:, ::2] = True
-    return REAL(state, key, cfg, idx, bval & keep, *args, **kw)
+    if block_counts is not None:
+        block_counts = [c // 2 for c in block_counts]
+    return REAL(state, key, cfg, idx, bval & keep, *args,
+                block_counts=block_counts, **kw)
 
 
 def merge_left_out(state, key, cfg, *args, **kw):
@@ -48,6 +59,8 @@ def token_altered(state, key, cfg, *args, **kw):
     z[0] = (z[0] + 1) % cfg.K
     return out._replace(z=z)
 
+
+CONTROL = {"float32": "bfloat16"}
 
 # name -> (module, attribute, replacement)
 FAULTS = {

@@ -15,6 +15,47 @@ The run needs CUDA cards, as many as the cell asks for, and the program
 under test (``src/repro_torch``); without either it prints no result and
 exits with a code other than 0.  It also refuses to print a result when
 the JAX package or JAX itself was loaded in this process.
+
+A driver, ``bench/drivers/<driver>.py``, is what a traffic's ``driver``
+names, and the harness knows no other part of a cell.  It defines:
+
+* ``CHECKS``, a tuple of the names of the numbers its check compares; the cell's ``bench/workloads/<cell>.json`` gives a limit for
+  exactly these names, under ``limits``;
+* ``run(cell, seed, seconds, trace, device, t_start, log=..., control=None)``.
+  ``cell`` is ``load_cell``'s: the configuration file's object under
+  ``config``, the traffic file's under ``traffic``, ``limits``, ``chips``
+  and the metric entries.  It makes its inputs from ``seed``, sets up and
+  warms every shape, measures for ``seconds`` (traced by the profiler when
+  ``trace``), then checks what the window produced against its plain
+  reference, after reading the peak memory.  ``t_start`` is the process's
+  start, from which ``setup_s`` is counted; ``log`` takes lines for
+  standard error; ``control`` names the dtype in which the reference takes
+  the program's place (``bench/control.py``'s runs only), a value of its
+  ``CONTROL``.  It returns a dict of
+
+  - ``e2e``: each end-to-end metric the cell reports, by name, ``setup_s``
+    among them;
+  - ``ctx``: what the per-layer readers take: ``trace`` (a
+    ``bench.trace.Trace`` of the window, or None untraced), ``spans`` (the
+    program's), and the driver's own keys, such as ``sweeps`` and the
+    ``shape`` that ``bench/counts`` counts from;
+  - ``checks``: ``(name, value, limit)`` for each name of ``CHECKS``; the
+    run is ``correct`` when no value is above its limit;
+  - ``attempted`` and ``failed``: the window's steps or requests, and
+    those that failed;
+  - ``memory_peak_bytes``: the peak on the fullest card.
+
+Beside it, ``bench/faults/<driver>.py`` defines the driver's ``CONTROL``,
+the dtype one below each precision its configurations may state (for
+``train``, bfloat16 below float32), and its ``FAULTS``, each a name mapped
+to ``(module, attribute, replacement)``: a function of the program and what
+``bench/control.py`` plants in its place.
+
+``train_tokens_per_s``, whatever the driver, is the tokens trained in the
+window over the window's length (first timed dispatch to the synchronise
+after the last step): for LDA the valid tokens the window's sweeps
+resample, for a model the target tokens of the batches trained in the
+window, padding excluded.
 """
 from __future__ import annotations
 
@@ -114,9 +155,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
-    ap.add_argument("--control", choices=("bfloat16",), default=None,
-                    help="judge the control (the reference in this dtype "
-                    "in the program's place) instead of the program; "
+    ap.add_argument("--control", default=None,
+                    help="judge the control (the reference in this dtype, "
+                    "one of the CONTROL of bench/faults/<driver>.py, in "
+                    "the program's place) instead of the program; "
                     "bench/control.py's runs, never the benchmark's")
     args = ap.parse_args(argv)
 

@@ -32,6 +32,27 @@ def test_int32_peak_from_the_data_sheet():
     assert peaks.floor_s(16.727e12, 1.0) == pytest.approx(1.0, rel=1e-3)
 
 
+def test_matrix_peaks_from_the_data_sheet():
+    # H100 SXM, dense, 700 W: bf16 and fp16 989 T, TF32 495 T, float32
+    # outside the tensor cores 67 T
+    assert peaks.BF16_FLOPS_PER_S == peaks.FP16_FLOPS_PER_S == 989e12
+    assert peaks.TF32_FLOPS_PER_S == 495e12
+    assert peaks.FP32_FLOPS_PER_S == 67e12
+    assert peaks.floor_s(989e12, 1.0, peak=peaks.BF16_FLOPS_PER_S) == 1.0
+    assert peaks.floor_s(1.0, 3.35e12, peak=peaks.BF16_FLOPS_PER_S) == 1.0
+
+
+@pytest.mark.parametrize("ops,nbytes", [(0, 3.35e12), (16.727e12, 1.0),
+                                        (7 * 2 * 60 * 32e6, 1.7e9),
+                                        (123456789.0, 987654321.0)])
+def test_floor_without_the_keyword_is_the_int32_floor(ops, nbytes):
+    # every LDA roofline and train.mfu reads bit for bit what it read
+    # before the keyword came
+    want = max(ops / (132 * 64 * 1.98e9), nbytes / 3.35e12)
+    assert peaks.floor_s(ops, nbytes) == want
+    assert peaks.floor_s(ops, nbytes, peak=peaks.INT32_OPS_PER_S) == want
+
+
 def _reader(name):
     path = ROOT / "bench" / "metrics" / f"{name}.py"
     spec = importlib.util.spec_from_file_location(name.replace(".", "_"),

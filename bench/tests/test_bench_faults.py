@@ -8,7 +8,7 @@ from __future__ import annotations
 import pytest
 
 from bench_cases import correct, run_tiny, tiny_cell
-from bench import faults
+from bench.faults import train as faults
 
 
 def test_start_fault_reads_incorrect(monkeypatch):
@@ -34,7 +34,8 @@ def test_control_in_bfloat16_reads_incorrect():
     """The reference in bfloat16 in the program's place, judged by the
     run's own check against the float32 reference from the same start."""
     cell = tiny_cell(vocab=1000, topics=64, docs=120)
-    out = run_tiny(cell, seed=23, control="bfloat16")
+    assert faults.CONTROL["float32"] == "bfloat16"
+    out = run_tiny(cell, seed=23, control=faults.CONTROL["float32"])
     assert not correct(out), out["checks"]
     sound = run_tiny(cell, seed=23)
     assert correct(sound), sound["checks"]
