@@ -8,7 +8,7 @@ same ``models/transformer.py`` assembly and the same launcher.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import ClassVar, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +91,22 @@ class ModelConfig:
     attn_chunk_kv: int = 2048
     source: str = ""               # citation for the config
 
+    # --- where a published model departs from its registry twin ---
+    # Class-level defaults, not fields, so that a registry config's fields
+    # stay the JAX package's, field for field; ``PublishedConfig`` makes
+    # them fields.  The defaults are what every registry config computes.
+    norm_topk_prob: ClassVar[bool] = True   # renormalise the top-k gates
+    yarn_factor: ClassVar[float] = 0.0      # YaRN rope scaling; <= 1: none
+    yarn_original_max_pos: ClassVar[int] = 4096
+    yarn_beta_fast: ClassVar[float] = 32.0
+    yarn_beta_slow: ClassVar[float] = 1.0
+    yarn_mscale: ClassVar[float] = 1.0
+    yarn_mscale_all_dim: ClassVar[float] = 0.0
+    seq_aux: ClassVar[bool] = False         # balance loss per sequence
+    scale_embed: ClassVar[bool] = True      # embeddings times sqrt(d_model)
+    experts_held: ClassVar[int] = 0         # routed experts on this device
+    expert_rank: ClassVar[int] = 0          # which: e = rank (mod E / held)
+
     # ----- derived -----
     @property
     def head_dim_(self) -> int:
@@ -105,6 +121,13 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.num_experts > 0
+
+    @property
+    def held_experts_(self) -> int:
+        """The routed experts this device holds (all unless a share is
+        set): experts ``e = expert_rank (mod num_experts / held)``, the
+        cyclic placement of expert parallelism."""
+        return self.experts_held or self.num_experts
 
     @property
     def is_ssm_only(self) -> bool:
@@ -181,6 +204,39 @@ class ModelConfig:
         all_experts = moe_layers * self.num_experts * 3 * self.d_model * fe
         active = moe_layers * self.top_k * 3 * self.d_model * fe
         return int(total - all_experts + active)
+
+
+@dataclasses.dataclass(frozen=True)
+class PublishedConfig(ModelConfig):
+    """A ``ModelConfig`` with the settings in which a published model
+    departs from its registry twin as fields (``ModelConfig`` holds their
+    defaults): raw or renormalised top-k gates, YaRN rope scaling (the
+    factor, the original context, the correction rotations ``beta_fast``
+    and ``beta_slow``, ``mscale`` and ``mscale_all_dim``), the balance
+    loss per sequence, the embedding scale, and the expert-parallel share
+    this device holds (``experts_held`` of ``num_experts``, rank
+    ``expert_rank``)."""
+
+    norm_topk_prob: bool = True
+    yarn_factor: float = 0.0
+    yarn_original_max_pos: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
+    seq_aux: bool = False
+    scale_embed: bool = True
+    experts_held: int = 0
+    expert_rank: int = 0
+
+    def __post_init__(self):
+        held = self.held_experts_
+        if self.num_experts and (self.num_experts % held
+                                 or not 0 <= self.expert_rank
+                                 < self.num_experts // held):
+            raise ValueError(
+                f"{held} held experts of {self.num_experts} at rank "
+                f"{self.expert_rank}: the share must split the experts")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -51,7 +51,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (RMSNorm, _bmm_f32, apply_rope, block,
                                        dtype_of, full_shape, lse_combine,
                                        model_copy, model_gather, normal_,
-                                       param, rms_norm, row_parallel)
+                                       param, rms_norm, rope_for,
+                                       row_parallel)
 from repro_torch.sharding.specs import SINGLE, MeshCtx
 
 _NEG = -1e30
@@ -90,14 +91,16 @@ def kv_chunk_ranges(n_q: int, n_k: int, qc: int, kc: int, *, causal: bool,
 
 def _attend_chunked(q, k, v, q_pos, kv_pos, *, causal: bool, window: int,
                     q_chunk: int, kv_chunk: int,
-                    q_offset: int = 0) -> torch.Tensor:
+                    q_offset: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """q: [B, Tq, KV, G, hd]; k, v: [B, Tk, KV, hd].
     Positions are int [Tq] / [Tk] (aligned aranges for self-attention;
-    the queries' start at ``q_offset``).
+    the queries' start at ``q_offset``).  ``scale``: the scores' factor,
+    ``hd ** -0.5`` by default.
     Returns [B, Tq, KV, G, hd] in q's dtype."""
     b, tq, nkv, g, hd = q.shape
     tk = k.shape[1]
-    scale = hd ** -0.5
+    scale = hd ** -0.5 if scale is None else scale
     qc = min(q_chunk, tq)
     kc = min(kv_chunk, tk)
     n_q = -(-tq // qc)
@@ -470,20 +473,29 @@ class MLA(nn.Module):
         return tuple(model_gather(t, self.ctx, 0 if i == 3 else 1, "weights")
                      for i, t in enumerate(w))
 
-    def _q(self, x, positions, wq):
+    def _rope(self, device):
+        """The decoupled RoPE part's rotation (YaRN's where the config
+        has it) and the softmax scale, ``(dn + dr) ** -0.5`` times YaRN's
+        factor."""
+        cfg = self.cfg
+        rope = rope_for(cfg, cfg.qk_rope_dim, cfg.rope_theta, device)
+        return rope, (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5 \
+            * rope.softmax
+
+    def _q(self, x, positions, wq, rope):
         cfg = self.cfg
         dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
         q = (x @ wq).reshape(*x.shape[:-1], -1, dn + dr)
         qn, qr = q[..., :dn], q[..., dn:]
-        return qn, apply_rope(qr, positions, cfg.rope_theta)
+        return qn, apply_rope(qr, positions, cfg.rope_theta, rope)
 
-    def _compress(self, x, positions):
+    def _compress(self, x, positions, rope):
         cfg = self.cfg
         r = cfg.kv_lora_rank
         c = x @ self.w_dkv
         ckv = self.kv_norm(c[..., :r])
         krope = apply_rope(c[..., None, r:], positions,
-                           cfg.rope_theta)[..., 0, :]
+                           cfg.rope_theta, rope)[..., 0, :]
         return ckv, krope
 
     def _out(self, out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -498,10 +510,11 @@ class MLA(nn.Module):
         b, t, _ = x.shape
         dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
         wq, w_uk, w_uv, wo = self.weights()
+        rope, scale = self._rope(x.device)
         xq = model_copy(x, ctx, "attn_in") if self.tp else x
-        qn, qr = self._q(xq, positions, wq)
+        qn, qr = self._q(xq, positions, wq, rope)
         h = qn.shape[2]
-        ckv, krope = self._compress(x, positions)
+        ckv, krope = self._compress(x, positions, rope)
         if self.tp:
             # the whole latent enters this rank's heads
             ckv = model_copy(ckv, ctx, "latent")
@@ -516,7 +529,7 @@ class MLA(nn.Module):
         out = _attend_chunked(q[:, :, :, None, :], k, vp, positions,
                               positions, causal=True, window=0,
                               q_chunk=cfg.attn_chunk_q,
-                              kv_chunk=cfg.attn_chunk_kv)
+                              kv_chunk=cfg.attn_chunk_kv, scale=scale)
         out = self._out(out[..., 0, :dv].reshape(b, t, h * dv), wo)
         return out, (ckv, krope)
 
@@ -539,9 +552,10 @@ class MLA(nn.Module):
         dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
         positions = torch.tensor([pos], dtype=torch.int64, device=x.device)
         wq, w_uk, w_uv, wo = self.weights()
-        qn, qr = self._q(x, positions, wq)
+        rope, scale = self._rope(x.device)
+        qn, qr = self._q(x, positions, wq, rope)
         h = qn.shape[2]
-        ckv_new, krope_new = self._compress(x, positions)
+        ckv_new, krope_new = self._compress(x, positions, rope)
         base, lo, hi = seq_block(cache_ckv, self.ctx, 0, pos + 1, seq_shard)
         if lo <= pos < hi:
             _write_slot(cache_ckv, ckv_new, pos - base)
@@ -554,7 +568,7 @@ class MLA(nn.Module):
         q_eff = torch.einsum("bqhd,rhd->bhr", qn.to(f32), w_uk)  # absorb W_uk
         scores = (torch.einsum("bhr,bsr->bhs", q_eff, ckv)
                   + torch.einsum("bqhd,bsd->bhs", qr.to(f32), krope))
-        m, l, p = _softmax_part(scores * (dn + dr) ** -0.5)
+        m, l, p = _softmax_part(scores * scale)
         ctx_lat = lse_combine(m, l, torch.einsum("bhs,bsr->bhr", p, ckv),
                               self.ctx.comm if seq_shard else None, "lse")
         ctx = torch.einsum("bhr,rhd->bhd", ctx_lat, w_uv)

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -402,14 +402,60 @@ def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / dim))
 
 
+class Rope(NamedTuple):
+    """How a layer rotates: the inverse frequencies ``[D/2]``, the factor
+    on cos and sin, and the factor on the softmax scale (both 1 for plain
+    RoPE)."""
+
+    inv_freq: torch.Tensor
+    cos_sin: float
+    softmax: float
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature: ``0.1 mscale ln(factor) + 1``."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def rope_for(cfg: ModelConfig, dim: int, theta: float, device=None) -> Rope:
+    """Plain RoPE, or YaRN where ``cfg.yarn_factor > 1`` (DeepSeek-V2's
+    ``DeepseekV2YarnRotaryEmbedding``): the inverse frequencies blend the
+    original ones (``extra``) and ones divided by the factor (``inter``)
+    by a linear ramp between the correction dimensions of ``beta_fast``
+    and ``beta_slow`` rotations over the original context; cos and sin
+    take mscale(factor, mscale) / mscale(factor, mscale_all_dim), the
+    softmax scale mscale(factor, mscale_all_dim)^2."""
+    extra = rope_freqs(dim, theta, device)
+    f = cfg.yarn_factor
+    if f <= 1:
+        return Rope(extra, 1.0, 1.0)
+
+    def corr_dim(rot: float) -> float:
+        return dim * math.log(cfg.yarn_original_max_pos
+                              / (rot * 2 * math.pi)) / (2 * math.log(theta))
+
+    low = max(math.floor(corr_dim(cfg.yarn_beta_fast)), 0)
+    high = min(math.ceil(corr_dim(cfg.yarn_beta_slow)), dim - 1)
+    ramp = torch.clamp((torch.arange(dim // 2, dtype=torch.float32,
+                                     device=device) - low)
+                       / (max(high - low, 0) or 0.001), 0.0, 1.0)
+    inv = extra / f * ramp + extra * (1.0 - ramp)
+    every = yarn_mscale(f, cfg.yarn_mscale_all_dim)
+    return Rope(inv, yarn_mscale(f, cfg.yarn_mscale) / every, every * every)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: [..., T, H, D]; positions: broadcastable to [..., T]."""
+               theta: float, rope: Optional[Rope] = None) -> torch.Tensor:
+    """x: [..., T, H, D]; positions: broadcastable to [..., T].  ``rope``
+    (``rope_for``) replaces plain RoPE of base ``theta``."""
     d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                   # [D/2]
+    freqs = rope_freqs(d, theta, x.device) if rope is None \
+        else rope.inv_freq                                   # [D/2]
     angles = positions[..., None].to(torch.float32) * freqs  # [..., T, D/2]
     cos = torch.cos(angles)[..., None, :]                    # [..., T, 1, D/2]
     sin = torch.sin(angles)[..., None, :]
+    if rope is not None and rope.cos_sin != 1.0:
+        cos, sin = cos * rope.cos_sin, sin * rope.cos_sin
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -513,6 +559,35 @@ class Embedding(nn.Module):
         return embed_lookup(self, tokens, self.layout)
 
 
+class _Rows(torch.autograd.Function):
+    """``table[idx]``, whose backward adds each row's gradients in float32
+    and rounds once.  (The backward of plain indexing adds in the table's
+    dtype, rounding after each repeat of an id: in bf16 the rows of a
+    Zipf vocabulary's commonest ids, thousands of repeats a batch, lose
+    a tenth of their gradient's norm.)"""
+
+    @staticmethod
+    def forward(ctx, table: torch.Tensor, idx: torch.Tensor):
+        ctx.save_for_backward(idx)
+        ctx.shape, ctx.dtype = table.shape, table.dtype
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        idx, = ctx.saved_tensors
+        acc = torch.zeros(ctx.shape, dtype=wide(g.dtype), device=g.device)
+        acc.index_add_(0, idx.reshape(-1),
+                       g.reshape(-1, ctx.shape[1]).to(acc.dtype))
+        return acc.to(ctx.dtype), None
+
+
+def rows_of(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` (rows), with ``_Rows``' backward when it has one."""
+    if table.requires_grad and torch.is_grad_enabled():
+        return _Rows.apply(table, idx)
+    return table[idx]
+
+
 def embed_lookup(embed: Embedding, tokens: torch.Tensor,
                  layout: VocabLayout) -> torch.Tensor:
     """Token ids -> embeddings via the physical (cyclic) index formula; on
@@ -521,11 +596,11 @@ def embed_lookup(embed: Embedding, tokens: torch.Tensor,
     any dtype: every other addend is zero)."""
     phys = layout.to_physical(tokens.to(torch.int64))
     if _model_comm(embed.ctx) is None:
-        return embed.table[phys]
+        return rows_of(embed.table, phys)
     rows = embed.table.shape[0]
     local = phys - embed.shard * rows
     mine = (local >= 0) & (local < rows)
-    out = embed.table[local.clamp(0, rows - 1)]
+    out = rows_of(embed.table, local.clamp(0, rows - 1))
     out = torch.where(mine[..., None], out, torch.zeros((), dtype=out.dtype,
                                                         device=out.device))
     return model_sum(out, embed.ctx, "embed")

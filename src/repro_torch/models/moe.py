@@ -11,6 +11,11 @@ by the symmetric all-to-all.
 Paths:
   * ``moe_block_dense`` -- every expert on every token, gate-masked: exact,
     no drops; the single-device path;
+  * ``moe_block_held`` -- one expert-parallel rank's share on one device
+    (``cfg.experts_held`` of the experts, ``cfg.expert_rank``'s in the
+    cyclic placement): routed over all experts, only the (token, held
+    expert) pairs computed, grouped by expert, with no capacity; the
+    other ranks' experts and the exchange are left out;
   * ``moe_block_spmd`` -- one rank's part on a mesh: two-level grouping
     (destination-shard buckets, then local-expert buckets) and a pair of
     model-group all-to-alls, every buffer capacity-bounded;
@@ -39,6 +44,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (MLP, all_to_all, apply_mlp, block,
                                        dtype_of, full_shape, gather_dim,
                                        mesh_sum, model_copy, normal_, param)
+from repro_torch.obs import marks
 from repro_torch.sharding.specs import SINGLE, MeshCtx
 
 
@@ -85,7 +91,11 @@ class MoE(nn.Module):
         self.count_drops = True        # off while remat recomputes a layer
         self.last_routed = None
         self.router = param((d, e), torch.float32, device)
-        self.experts = Experts(e, d, fe, dt, device, ctx=ctx)
+        held = cfg.held_experts_
+        if held != e and ctx.mesh is not None:
+            raise ValueError(f"{held} of {e} experts held: a share is a "
+                             "single device's (no mesh)")
+        self.experts = Experts(held, d, fe, dt, device, ctx=ctx)
         if cfg.num_shared_experts > 0:
             self.shared = MLP(d, fe * cfg.num_shared_experts, dt, device,
                               ctx=ctx)
@@ -107,12 +117,15 @@ def _route(moe: MoE, x: torch.Tensor, cfg: ModelConfig,
     uses it (``moe.router`` by default).  Ties go to the lower expert id,
     as XLA's ``top_k`` breaks them (the expert-parallel path's padding
     rows are zeros, whose probabilities all tie, and they take buffer
-    slots)."""
+    slots).  The gates are the top-k probabilities renormalised to sum
+    to 1, or the raw probabilities where ``cfg.norm_topk_prob`` is off."""
     logits = x.to(torch.float32) @ (moe.router if router is None
                                     else router)
     probs = torch.softmax(logits, dim=-1)
     vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     vals, ids = vals[:, :cfg.top_k], ids[:, :cfg.top_k]
+    if not cfg.norm_topk_prob:
+        return vals, ids, probs
     gates = vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9)
     return gates, ids, probs
 
@@ -142,11 +155,31 @@ def aux_from_stats(stats: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return e * torch.sum(frac * (stats[e:2 * e] / n))
 
 
-def moe_block_dense(moe: MoE, x: torch.Tensor, cfg: ModelConfig
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [T, D].  Exact MoE (no capacity drops); O(E) compute."""
+def balance_loss(ids: torch.Tensor, probs: torch.Tensor, cfg: ModelConfig,
+                 seqs: int = 1) -> torch.Tensor:
+    """The load-balance loss of ``ids [T, k]`` and ``probs [T, E]``, the
+    rows ``seqs`` sequences of ``T / seqs`` tokens each: of the whole
+    batch (``aux_stats``), or with ``cfg.seq_aux`` the mean over the
+    sequences of each one's (DeepSeek-V2's expert-level balance loss:
+    ``E / (S k) sum_i count_i P_i``, ``P_i`` its mean probability)."""
+    if not cfg.seq_aux:
+        return aux_from_stats(aux_stats(ids, probs, cfg, ids.shape[0]), cfg)
+    e, k = cfg.num_experts, cfg.top_k
+    s = ids.shape[0] // seqs
+    counts = torch.zeros((seqs, e), dtype=torch.float32,
+                         device=probs.device).scatter_add_(
+        1, ids.reshape(seqs, s * k),
+        torch.ones((seqs, s * k), dtype=torch.float32, device=probs.device))
+    frac = counts / (s * k)
+    return e * torch.sum(frac * probs.reshape(seqs, s, e).mean(1)) / seqs
+
+
+def moe_block_dense(moe: MoE, x: torch.Tensor, cfg: ModelConfig,
+                    seqs: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [T, D], ``seqs`` sequences.  Exact MoE (no capacity drops);
+    O(E) compute."""
     gates, ids, probs = _route(moe, x, cfg)
-    aux = aux_from_stats(aux_stats(ids, probs, cfg, x.shape[0]), cfg)
+    aux = balance_loss(ids, probs, cfg, seqs)
     t = x.shape[0]
     # [T, E] combined gate per expert
     gate_e = torch.zeros((t, cfg.num_experts), dtype=x.dtype,
@@ -159,6 +192,59 @@ def moe_block_dense(moe: MoE, x: torch.Tensor, cfg: ModelConfig
     out = torch.einsum("ted,te->td", y, gate_e)
     if cfg.num_shared_experts > 0:
         out = out + moe.shared(x, cfg.act)
+    return out, aux
+
+
+def held_pairs(ids: torch.Tensor, cfg: ModelConfig):
+    """The (token, expert) pairs of ``ids [T, k]`` whose expert this
+    device holds (``e = rank (mod E / held)``, local index ``e div (E /
+    held)``), grouped by local expert, in token order within each.
+    Returns the pairs' flat indices into ``ids`` and each held expert's
+    count, a host list: the one wait of the path."""
+    held = cfg.held_experts_
+    m = cfg.num_experts // held
+    flat = ids.reshape(-1)
+    local = torch.where(flat % m == cfg.expert_rank, flat // m, held)
+    counts = torch.bincount(local, minlength=held + 1)[:held].tolist()
+    order = torch.argsort(local, stable=True)
+    return order[:sum(counts)], counts
+
+
+def moe_block_held(moe: MoE, x: torch.Tensor, cfg: ModelConfig,
+                   seqs: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [T, D], ``seqs`` sequences.  This device's share of the MoE: the
+    router's ``E`` float32 outputs and top-k over all of them, then only
+    the pairs of the held experts (``held_pairs``), each held expert's
+    SwiGLU on its own rows (one product an expert, no capacity, nothing
+    dropped or padded), the rows times their gates added back into their
+    tokens in float32, rounded once, and the shared experts added.  With
+    every expert held it is ``moe_block_dense``'s function.  Returns
+    ``(y, aux)``, the balance loss over all ``E`` experts."""
+    t, d = x.shape
+    k = cfg.top_k
+    with marks.span("lm.moe.route"):
+        gates, ids, probs = _route(moe, x, cfg)
+        aux = balance_loss(ids, probs, cfg, seqs)
+        pairs, counts = held_pairs(ids, cfg)
+        tok = pairs // k
+        rows = x[tok]
+    marks.held(counts)
+    we = moe.experts
+    with marks.span("lm.moe.experts"):
+        ys = [_expert_ffn(we.w_gate[j], we.w_up[j], we.w_down[j], r)
+              for j, r in enumerate(torch.split(rows, counts)) if len(r)]
+        shared = (apply_mlp(moe.shared, x, cfg.act)
+                  if cfg.num_shared_experts > 0 else None)
+    with marks.span("lm.moe.combine"):
+        g = gates.reshape(-1)[pairs].to(torch.float32)
+        out = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+        if ys:
+            out = out.index_add(0, tok, torch.cat(ys).to(torch.float32)
+                                * g[:, None])
+        out = out.to(x.dtype)
+        moe.last_routed = out.detach()
+        if shared is not None:
+            out = out + shared
     return out, aux
 
 
@@ -230,9 +316,10 @@ def moe_dispatch(moe: MoE, x_loc: torch.Tensor, cfg: ModelConfig, m: int,
 
 
 def _expert_ffn(w_gate, w_up, w_down, xg: torch.Tensor) -> torch.Tensor:
-    """xg: [E_local, C, D] -> [E_local, C, D] (per-expert SwiGLU)."""
-    return torch.bmm(F.silu(torch.bmm(xg, w_gate)) * torch.bmm(xg, w_up),
-                     w_down)
+    """xg: [E_local, C, D] -> [E_local, C, D] (per-expert SwiGLU); or one
+    expert's ``[C, D]`` rows with its ``[D, F]`` weights."""
+    mm = torch.bmm if xg.dim() == 3 else torch.matmul
+    return mm(F.silu(mm(xg, w_gate)) * mm(xg, w_up), w_down)
 
 
 def moe_experts(recv: torch.Tensor, we, cfg: ModelConfig, m: int,
@@ -333,12 +420,15 @@ def moe_block(moe: MoE, x: torch.Tensor, cfg: ModelConfig,
     replicated hidden.  Where this data row's tokens do not split over the
     model ranks (a decode batch smaller than the model axis), the rank's
     rows cross data rows: the tokens are all-gathered over the data axis
-    first and the output over the world after."""
+    first and the output over the world after.  Without a mesh, a device
+    that holds a share of the experts runs ``moe_block_held``."""
     b, s, d = x.shape
     ctx = ctx if ctx is not None else moe.ctx
     comm = ctx.comm if ctx is not None else None
     if comm is None:
-        y, aux = moe_block_dense(moe, x.reshape(b * s, d), cfg)
+        block_fn = (moe_block_held if cfg.held_experts_ != cfg.num_experts
+                    else moe_block_dense)
+        y, aux = block_fn(moe, x.reshape(b * s, d), cfg, b)
         return y.reshape(b, s, d), aux
     flat = x.reshape(b * s, d)
     m = comm.model

@@ -63,6 +63,7 @@ from repro_torch.models.layers import (MLP, Embedding, RMSNorm, VocabLayout,
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.moe import MoE
 from repro_torch.models.ssm import SSM
+from repro_torch.obs import marks
 from repro_torch.sharding import specs
 from repro_torch.sharding.specs import SINGLE, MeshCtx
 
@@ -179,8 +180,11 @@ class Block(nn.Module):
         h = self.ln2(x)
         if hasattr(self, "moe"):
             y, aux = self.moe(h)
+            marks.backward("lm.moe.bwd", h, y)
             return x + y, aux
-        return x + self.mlp(h, self.cfg.act), aux
+        with marks.span("lm.ffn.dense"):
+            y = self.mlp(h, self.cfg.act)
+        return x + y, aux
 
     # -- full sequence -----------------------------------------------------
 
@@ -193,13 +197,15 @@ class Block(nn.Module):
         if self.ssm_only:
             out, (state, tail) = self.ssm(h)
             return x + out, {"ssm": state, "conv": tail}, zero
-        if self.cfg.use_mla:
-            a_out, (c0, c1) = self.attn(h, positions=positions)
-            entry = {"ckv": c0, "krope": c1}
-        else:
-            a_out, (c0, c1) = self.attn(h, positions=positions, window=window,
-                                        theta=theta)
-            entry = {"k": c0, "v": c1}
+        with marks.span("lm.attn"):
+            if self.cfg.use_mla:
+                a_out, (c0, c1) = self.attn(h, positions=positions)
+                entry = {"ckv": c0, "krope": c1}
+            else:
+                a_out, (c0, c1) = self.attn(h, positions=positions,
+                                            window=window, theta=theta)
+                entry = {"k": c0, "v": c1}
+        marks.backward("lm.attn.bwd", h, a_out)
         if self.cfg.hybrid:
             s_out, (state, tail) = self.ssm(h)
             x = self._mix(x, a_out, s_out)
@@ -310,9 +316,10 @@ class Transformer(nn.Module):
 
     def _recompute_context(self):
         """``checkpoint``'s contexts: none for the forward; for the
-        recompute in the backward, the MoE layers count no drops (the
-        pairs were counted once, in the forward)."""
-        return contextlib.nullcontext(), _drops_uncounted(self)
+        recompute in the backward, the MoE layers count no drops and the
+        step's spans and counters mark nothing (all was counted once, in
+        the forward)."""
+        return contextlib.nullcontext(), _recomputing(self)
 
     def reset_parameters(self, g: torch.Generator) -> None:
         for child in self.children():
@@ -337,7 +344,9 @@ class Transformer(nn.Module):
             yield "main", i, self.blocks[i], wins[i], thetas[i]
 
     def _embed(self, tokens):
-        return scale_embeddings(self.embed(tokens), self.cfg.d_model)
+        x = self.embed(tokens)
+        return scale_embeddings(x, self.cfg.d_model) if self.cfg.scale_embed \
+            else x
 
     def forward(self, tokens: torch.Tensor, cond: Optional[torch.Tensor] = None,
                 *, caches: Optional[dict] = None, head_at=None,
@@ -387,8 +396,9 @@ class Transformer(nn.Module):
                         base = self.ctx.comm.data_idx * dst.shape[1]
                         n = max(0, min(s, base + dst.shape[1]) - base)
                         dst[:, :n].copy_(val[:, base:base + n])
-        x = self.final_norm(x if head_at is None else x[:, head_at])
-        return lm_head_logits(self.head, x), aux
+        with marks.span("lm.head"):
+            x = self.final_norm(x if head_at is None else x[:, head_at])
+            return lm_head_logits(self.head, x), aux
 
     def decode_step(self, token: torch.Tensor, caches: dict, pos: int,
                     cond: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -525,12 +535,13 @@ def _attach_fill(name: str, p: torch.Tensor, cfg: ModelConfig,
 
 
 @contextlib.contextmanager
-def _drops_uncounted(model: Transformer):
+def _recomputing(model: Transformer):
     moes = [m for m in model.modules() if isinstance(m, MoE)]
     for m in moes:
         m.count_drops = False
     try:
-        yield
+        with marks.paused():
+            yield
     finally:
         for m in moes:
             m.count_drops = True
@@ -636,12 +647,13 @@ def loss_fn(model: Transformer, tokens: torch.Tensor, targets: torch.Tensor,
     batch's (``layers.softmax_xent_sharded``; the MoE's ``aux`` is the
     whole batch's too), the same on every rank."""
     logits, aux = model(tokens, cond, remat=remat)
-    if model.ctx.comm is None:
-        xent = softmax_xent_physical(logits, targets, model.layout, mask)
-    else:
-        xent = softmax_xent_sharded(logits, targets, model.layout, mask,
-                                    model.ctx, model.head.shard)
-    loss = xent + model.cfg.router_aux_weight * aux
+    with marks.span("lm.head"):
+        if model.ctx.comm is None:
+            xent = softmax_xent_physical(logits, targets, model.layout, mask)
+        else:
+            xent = softmax_xent_sharded(logits, targets, model.layout, mask,
+                                        model.ctx, model.head.shard)
+        loss = xent + model.cfg.router_aux_weight * aux
     return loss, {"xent": xent, "aux": aux}
 
 

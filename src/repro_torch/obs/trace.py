@@ -150,7 +150,46 @@ class _NullSpan:
 NULL_SPAN = _NullSpan()
 
 
-class DeviceTimeline:
+class _DeviceMarks:
+    """Marks on a device: CUDA events on the card's current stream, which
+    nothing here waits for, or the host clock on the CPU (which runs each
+    operation as it is issued).  ``cat`` names the device type; ``waited``
+    is ``(anchor, t_wait_ns)`` once a wait has covered the marks."""
+
+    __slots__ = ("cat", "ended", "waited", "_stream", "_marks")
+
+    def __init__(self, device: Any):
+        self.cat = device.type
+        self.ended = False
+        self.waited: Optional[tuple] = None
+        self._stream = (sys.modules["torch"].cuda.current_stream(device)
+                        if self.cat == "cuda" else None)
+        self._marks: List[Any] = []
+
+    def _mark(self) -> int:
+        if self._stream is None:
+            self._marks.append(time.perf_counter_ns())
+        else:
+            ev = sys.modules["torch"].cuda.Event(enable_timing=True)
+            ev.record(self._stream)
+            self._marks.append(ev)
+        return len(self._marks) - 1
+
+    def last_event(self) -> Any:
+        """The last CUDA event, or None on the CPU."""
+        return self._marks[-1] if self._stream is not None else None
+
+    def _times(self, anchor: Any, t_wait_ns: int) -> List[int]:
+        """Each mark on the host clock: a CUDA event's is ``t_wait_ns``
+        less the device time from it to ``anchor``, the last event that
+        the wait covered."""
+        if self._stream is None:
+            return self._marks
+        return [t_wait_ns - round(ev.elapsed_time(anchor) * 1e6)
+                for ev in self._marks]
+
+
+class DeviceTimeline(_DeviceMarks):
     """One sweep's phases as the device ran them.
 
     ``mark(name, group, args)`` starts phase ``name`` of ``group`` (-1:
@@ -160,28 +199,13 @@ class DeviceTimeline:
     only once a wait the caller makes anyway has covered them
     (``Tracer.device_waited``, then ``Tracer.flush_device``).  On the CPU,
     which runs each operation as it is issued, a mark is the host clock.
-    ``cat`` names the device type (``"cuda"``, ``"cpu"``); ``waited`` is
-    ``(anchor, t_wait_ns)`` once a wait has covered the timeline.
     """
 
-    __slots__ = ("cat", "ended", "waited", "_stream", "_marks", "_phases")
+    __slots__ = ("_phases",)
 
     def __init__(self, device: Any):
-        self.cat = device.type
-        self.ended = False
-        self.waited: Optional[tuple] = None
-        self._stream = (sys.modules["torch"].cuda.current_stream(device)
-                        if self.cat == "cuda" else None)
-        self._marks: List[Any] = []
+        super().__init__(device)
         self._phases: List[tuple] = []
-
-    def _mark(self) -> None:
-        if self._stream is None:
-            self._marks.append(time.perf_counter_ns())
-            return
-        ev = sys.modules["torch"].cuda.Event(enable_timing=True)
-        ev.record(self._stream)
-        self._marks.append(ev)
 
     def mark(self, name: str, group: int = -1,
              args: Optional[dict] = None) -> None:
@@ -192,21 +216,11 @@ class DeviceTimeline:
         self._mark()
         self.ended = True
 
-    def last_event(self) -> Any:
-        """The last CUDA event, or None on the CPU."""
-        return self._marks[-1] if self._stream is not None else None
-
     def spans(self, anchor: Any, t_wait_ns: int) -> List[tuple]:
         """``(name, t0_ns, t1_ns, args)`` of the whole sweep
         (``sweep.device``), each group (``exec.group``, its first mark's
-        args) and each phase, on the host clock.  A CUDA event's time is
-        ``t_wait_ns`` less the device time from it to ``anchor``, the
-        last event that the wait covered."""
-        if self._stream is None:
-            ts = self._marks
-        else:
-            ts = [t_wait_ns - round(ev.elapsed_time(anchor) * 1e6)
-                  for ev in self._marks]
+        args) and each phase, on the host clock (``_times``)."""
+        ts = self._times(anchor, t_wait_ns)
         out = [("sweep.device", ts[0], ts[-1], None)]
         for i, (name, grp, args) in enumerate(self._phases):
             if grp < 0:
@@ -219,6 +233,42 @@ class DeviceTimeline:
                 out.append(("exec.group", ts[first], ts[i + 1],
                             dict(self._phases[first][2] or {}, group=grp)))
         return out
+
+
+class DeviceSpans(_DeviceMarks):
+    """One step's spans as the device ran them, each between two marks
+    that need not be neighbours: the step itself (``name``) and any
+    ``open``/``close`` pair inside it, nested or apart, closed in any
+    order.  The marks are read as a ``DeviceTimeline``'s, and a span left
+    open is dropped."""
+
+    __slots__ = ("_spans",)
+
+    def __init__(self, device: Any, name: str):
+        super().__init__(device)
+        self._spans: List[list] = []
+        self.open(name)
+
+    def open(self, name: str, **args) -> list:
+        """Start span ``name`` here; ``close`` ends it."""
+        span = [name, self._mark(), None, args or None]
+        self._spans.append(span)
+        return span
+
+    def close(self, span: list) -> None:
+        span[2] = self._mark()
+
+    def end(self) -> None:
+        """End the step (its first span)."""
+        self.close(self._spans[0])
+        self.ended = True
+
+    def spans(self, anchor: Any, t_wait_ns: int) -> List[tuple]:
+        """``(name, t0_ns, t1_ns, args)`` of each closed span on the host
+        clock."""
+        ts = self._times(anchor, t_wait_ns)
+        return [(name, ts[i0], ts[i1], args)
+                for name, i0, i1, args in self._spans if i1 is not None]
 
 
 class Tracer:
@@ -303,6 +353,14 @@ class Tracer:
         with self._lock:
             self._pending.append(tl)
         return tl
+
+    def device_spans(self, device: Any, name: str) -> DeviceSpans:
+        """A step's spans on ``device``, put on the ``[device]`` lane as a
+        ``device_timeline``'s are."""
+        ds = DeviceSpans(device, name)
+        with self._lock:
+            self._pending.append(ds)
+        return ds
 
     def device_waited(self, t_wait_ns: int) -> None:
         """A wait on the device returned at ``t_wait_ns`` (host clock): it

@@ -44,6 +44,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.device import Device
 from repro_torch.models import transformer as tfm
+from repro_torch.obs import marks
 from repro_torch.sharding import specs
 from repro_torch.sharding.specs import SINGLE, MeshCtx
 from repro_torch.train import optimizer as opt
@@ -202,8 +203,9 @@ def apply_grads(state: TrainState, grads: Dict[str, torch.Tensor],
     ``grad_norm``)."""
     params = state.params
     zero = zero_of(state.model)     # one device: the reference's 4 arguments
-    _, new_opt, om = opt.apply(grads, state.opt, params, tc,
-                               *(() if zero is None else (zero,)))
+    with marks.span("lm.optimizer"):
+        _, new_opt, om = opt.apply(grads, state.opt, params, tc,
+                                   *(() if zero is None else (zero,)))
     for p in params.values():
         p.grad = None
     return TrainState(state.model, new_opt), om
@@ -217,13 +219,17 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig, ctx: MeshCtx = SINGLE
     tensors (``loss``, ``xent``, ``aux``, ``lr``, ``grad_norm``) left on
     the device.  On a mesh every rank calls it with the whole batch and
     takes its rows (``mesh_grads``); the metrics are the same on every
-    rank."""
+    rank.  With an obs session installed the step marks its spans and
+    counters on the device (``obs.marks``: ``lm.step.device`` and the
+    parts inside it)."""
     mb = max(tc.microbatch, 1)
 
     def train_step(state: TrainState, tokens, targets, mask, cond=None):
-        grads, metrics = step_grads(state, mb, tokens, targets, mask, cond)
-        state, om = apply_grads(state, grads, tc)
-        del grads
+        with marks.step(state.model.device):
+            grads, metrics = step_grads(state, mb, tokens, targets, mask,
+                                        cond)
+            state, om = apply_grads(state, grads, tc)
+            del grads
         loss = metrics.pop("loss")
         return state, dict(metrics, loss=loss, **om)
 
