@@ -229,7 +229,13 @@ Phases (any failure raises and the script exits non-zero):
                  group, a tiered block and a fold-in batch, threefry_keys
                  at a snapshot sweep's split and threefry_randint at
                  serving's and training's init draws; the SPMD path's
-                 rows, delta_apply_coo at its gathered COO), the whole
+                 rows, delta_apply_coo at its gathered COO; the fused MLA
+                 attention core, mla_attention_rows: its launches in one
+                 step of the LM cell, its output and gradients against
+                 float64 at the cell's and the mesh ranks' shapes no less
+                 accurate than 1.25 times the plain version, forward and
+                 backward timed beside the plain version and SDPA), the
+                 whole
                  merge of one group as the
                  executors composed it before (route plan, token_deltas,
                  adds) against the one-launch merge, in turns, then one
@@ -5213,7 +5219,8 @@ def replay_launches(route, group_rows: int, groups: int,
     (``filled``) one mh_draws_train and mh_sample and what the route's
     group-local delta issues -- delta_push for a dense part,
     delta_apply_coo for a coordinate part (a group with no token draws,
-    samples and merges no slot and launches none of them)."""
+    samples and merges no slot and launches none of them), and no
+    attention kernel."""
     from repro_torch import ps
 
     dense = coo = 1
@@ -5227,7 +5234,8 @@ def replay_launches(route, group_rows: int, groups: int,
     return {"mh_sample": filled, "alias_build": groups,
             "mh_draws_train": filled, "mh_draws_foldin": 0,
             "delta_push": dense * filled, "delta_apply_coo": coo * filled,
-            "threefry_keys": 1, "threefry_randint": 0}
+            "threefry_keys": 1, "threefry_randint": 0, "mla_fwd": 0,
+            "mla_bwd_dq": 0, "mla_bwd_dkdv": 0}
 
 
 def replay(torch, seed: int, card: str, train: dict,
@@ -6553,6 +6561,239 @@ def threefry_rows(torch, timer: Timer, serve: dict, train: dict, keys,
                   card)]
 
 
+# -- MLA's fused attention core on the LM paths -------------------------------
+
+# train-dsv2lite-ep8-4k's step: 16 rows of 4,096 in 2 microbatches of 8, 9
+# layers, 8 of 64 experts held, 12,800 vocabulary rows (its config file)
+MLA_CELL = dict(rows=16, seq=4096, layers=9, microbatches=2, experts_held=8,
+                vocab=12_800)
+# (B, T, H, gradients) of each call of the core on the card's main paths:
+# the cell's microbatch (DeepSeek-V2-Lite's 16 heads), a rank's share of
+# lm_mesh_train's bf16 deepseek cell (2 x 2 mesh: each microbatch of 2 rows
+# over 2 data ranks, 8 heads) and of lm_mesh_serve's prefill (1 x 4 mesh:
+# 4 prompts, 4 heads, no gradient)
+MLA_SHAPES = {
+    "cell": (MLA_CELL["rows"] // MLA_CELL["microbatches"], MLA_CELL["seq"],
+             16, True),
+    "mesh_train_rank": (LM_MT_BATCH // LM_MT_MB // LM_MT_SHAPE[0],
+                        LM_MT_SEQ, 16 // LM_MT_SHAPE[1], True),
+    "mesh_serve_prefill": (LM_MESH_BATCH // LM_MESH_SHAPE[0], LM_MESH_PROMPT,
+                           16 // LM_MESH_SHAPE[1], False)}
+MLA_PARTS = ("out", "dq_nope", "dq_rope", "dk_nope", "dk_rope", "dv")
+# the kernel's ||x - x64|| / ||x64|| against float64 at most this times the
+# plain version's, for the output and each gradient: the kernel rounds P
+# once more than the plain version before dV (the plain version's largest
+# entry of a row is exactly 1), so dv reads up to ~1.2 times the plain
+# version's error where rows are short; everything else reads at most 1.0
+MLA_ERR_RATIO = 1.25
+
+
+def mla_inputs(torch, device, b, t, h, seed=0, dtype=None):
+    """q_nope, q_rope, k_nope, k_rope, v at DeepSeek-V2-Lite's head parts
+    (128, 64, 128), and an output gradient, standard normal rounded to
+    ``dtype`` (bf16)."""
+    dtype = dtype or torch.bfloat16
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device).to(dtype)
+
+    return ([randn(b, t, h, 128), randn(b, t, h, 64), randn(b, t, h, 128),
+             randn(b, t, 64), randn(b, t, h, 128)], randn(b, t, h, 128))
+
+
+def mla_f64(torch, args, do, scale):
+    """The output and (with ``do``) the five gradients in float64 from the
+    same values: whole score matrices, four heads of one row at a time."""
+    qn, qr, kn, kr, v = args
+    f = torch.float64
+    b, t, h, _ = qn.shape
+    res = [torch.zeros(x.shape, dtype=f, device=x.device)
+           for x in (v, qn, qr, kn, kr, v)[:6 if do is not None else 1]]
+    causal = torch.ones(t, t, dtype=torch.bool, device=v.device).tril()
+    for i in range(b):
+        kr_i = kr[i].to(f)
+        for h0 in range(0, h, 4):
+            hs = slice(h0, min(h0 + 4, h))
+            Qn, Qr, Kn, V = (x[i, :, hs].to(f).transpose(0, 1)
+                             for x in (qn, qr, kn, v))
+            s = scale * (Qn @ Kn.transpose(1, 2) + Qr @ kr_i.T)
+            p = torch.softmax(s.masked_fill(~causal, float("-inf")), -1)
+            o = p @ V
+            res[0][i, :, hs] = o.transpose(0, 1)
+            if do is None:
+                continue
+            dO = do[i, :, hs].to(f).transpose(0, 1)
+            ds = p * (dO @ V.transpose(1, 2)
+                      - (dO * o).sum(-1, keepdim=True))
+            _, dqn, dqr, dkn, dkr, dv = res
+            dqn[i, :, hs] = (scale * ds @ Kn).transpose(0, 1)
+            dqr[i, :, hs] = (scale * ds @ kr_i).transpose(0, 1)
+            dkn[i, :, hs] = (scale * ds.transpose(1, 2) @ Qn).transpose(0, 1)
+            dkr[i] += (scale * ds.transpose(1, 2) @ Qr).sum(0)
+            dv[i, :, hs] = (p.transpose(1, 2) @ dO).transpose(0, 1)
+    return res
+
+
+def mla_run(torch, fn, args, do):
+    """``fn``'s output and, with ``do``, the five inputs' gradients; without
+    it under no_grad (the forward saves nothing for a backward)."""
+    if do is None:
+        with torch.no_grad():
+            return [fn(*args)]
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    out = fn(*leaves)
+    return [out.detach()] + list(torch.autograd.grad(out, leaves, do))
+
+
+def mla_rel_err(x, w) -> float:
+    return float((x.double() - w).norm() / w.norm())
+
+
+def mla_cell_launches(torch, cfg, seed: int) -> dict:
+    """The fused kernels' launches in one training step of the LM cell
+    (``train.loop.make_train_step`` at MLA_CELL's rows, microbatches and
+    cuts), counted from 0 after a warm step."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels import ops
+    from repro_torch.train import loop
+
+    state = loop.init_state(seed, cfg, device="cuda")
+    step = loop.make_train_step(
+        cfg, TrainConfig(microbatch=MLA_CELL["microbatches"]))
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size,
+                        (MLA_CELL["rows"], MLA_CELL["seq"] + 1), generator=g,
+                        device="cuda")
+    batch = (ids[:, :-1].contiguous(), ids[:, 1:].contiguous(),
+             torch.ones(ids[:, 1:].shape, device="cuda"))
+    state, _ = step(state, *batch)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    state, _ = step(state, *batch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    launched = {k: counts[k] for k in ("mla_fwd", "mla_bwd_dq",
+                                       "mla_bwd_dkdv")}
+    calls = cfg.num_layers * MLA_CELL["microbatches"]
+    want = {"mla_fwd": calls * (2 if cfg.remat else 1), "mla_bwd_dq": calls,
+            "mla_bwd_dkdv": calls}
+    if launched != want:
+        raise AssertionError(f"the LM cell's step launched {launched}, not "
+                             f"{want}")
+    del state, step, batch
+    torch.cuda.empty_cache()
+    return launched
+
+
+def mla_attention_rows(torch, timer: Timer, card: str, seed: int = 0
+                       ) -> list:
+    """The fused MLA core (kernels/mla_attention.py): (a) its launches in
+    one step of the LM cell, counted from 0; (b) at each shape of
+    MLA_SHAPES the output and each gradient against float64 on the card,
+    the kernel's norm-relative error at most MLA_ERR_RATIO times the
+    plain version's (``_mla_attention_plain``); (c) forward and backward
+    timed at the cell's shape beside the plain version and beside SDPA on
+    the concatenated query and key (``library_ms``, a yardstick only: the
+    port never calls it).  Bound: the counted FLOPs at the bf16
+    tensor-core rate, 2 (dn + dr + dv) a causal pair forward and twice
+    that backward (``lm.mfu``'s count)."""
+    from repro_torch.configs import deepseek_v2_lite_16b as ds
+    from repro_torch.kernels import mla_attention as fused
+    from repro_torch.models import attention
+    from repro_torch.models.layers import rope_for
+
+    cfg = ds.published(dict(ds.PUBLISHED), num_layers=MLA_CELL["layers"],
+                       experts_held=MLA_CELL["experts_held"],
+                       vocab_size=MLA_CELL["vocab"], dtype="bfloat16")
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    if (dn, dr, dv, cfg.num_heads) != (*fused.DIMS, 16):
+        raise AssertionError(f"not DeepSeek-V2-Lite's heads: {cfg}")
+    launched = mla_cell_launches(torch, cfg, seed)
+    scale = (dn + dr) ** -0.5 * rope_for(cfg, dr, cfg.rope_theta,
+                                         "cuda").softmax
+
+    def plain(*a):
+        return attention._mla_attention_plain(
+            *a, scale, q_chunk=cfg.attn_chunk_q, kv_chunk=cfg.attn_chunk_kv)
+
+    errs = {}
+    for name, (b, t, h, grad) in MLA_SHAPES.items():
+        args, do = mla_inputs(torch, "cuda", b, t, h, seed)
+        do = do if grad else None
+        want = mla_f64(torch, args, do, scale)
+        got = mla_run(torch, lambda *a: attention.mla_attention(*a, scale),
+                      args, do)
+        kern = [mla_rel_err(x, w) for x, w in zip(got, want)]
+        del got
+        ref = mla_run(torch, plain, args, do)
+        errs[name] = {part: {"kernel": k, "plain": mla_rel_err(x, w)}
+                      for part, k, x, w in zip(MLA_PARTS, kern, ref, want)}
+        del ref, want
+        torch.cuda.empty_cache()
+        bad = {p: e for p, e in errs[name].items()
+               if not e["kernel"] <= MLA_ERR_RATIO * e["plain"]}
+        if bad:
+            raise AssertionError(f"mla_attention at {name} {(b, t, h)} is "
+                                 f"less accurate than {MLA_ERR_RATIO} times "
+                                 f"the plain version: {bad}")
+
+    b, t, h, _ = MLA_SHAPES["cell"]
+    args, do = mla_inputs(torch, "cuda", b, t, h, seed)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    out, out32, lse = fused.forward(*args, scale, True)
+    kern_fwd = timer.ms(lambda: fused.forward(*args, scale, True), reps=20)
+    kern_bwd = timer.ms(lambda: fused.backward(do, *args, out32, lse, scale),
+                        reps=10)
+    del out, out32, lse
+    plain_fwd_ms = timer.ms(lambda: plain(*leaves), reps=3,
+                            device_only=False)
+    ref = plain(*leaves)
+    plain_bwd_ms = timer.ms(lambda: torch.autograd.grad(
+        ref, leaves, do, retain_graph=True), reps=3, device_only=False)
+    del ref, leaves
+    torch.cuda.empty_cache()
+    # SDPA on the concatenated query and key, [B, H, T, dn + dr]
+    q = torch.cat(args[:2], -1).transpose(1, 2).contiguous()
+    k = torch.cat([args[2], args[3][:, :, None].expand(b, t, h, dr)],
+                  -1).transpose(1, 2).contiguous()
+    v = args[4].transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_fwd, lib_fwd_seen = time_library(
+        torch, timer, lambda: sdpa(q, k, v, is_causal=True, scale=scale))
+    qs, ks, vs = (x.requires_grad_(True) for x in (q, k, v))
+    lib_out = sdpa(qs, ks, vs, is_causal=True, scale=scale)
+    do_t = do.transpose(1, 2).contiguous()
+    lib_bwd, lib_bwd_seen = time_library(
+        torch, timer, lambda: torch.autograd.grad(
+            lib_out, (qs, ks, vs), do_t, retain_graph=True))
+    del lib_out, qs, ks, vs, q, k, v
+    torch.cuda.empty_cache()
+    flops = 2 * (dn + dr + dv) * b * h * t * (t + 1) // 2
+    log(json.dumps({"mla_attention": {
+        "shape": [b, t, h, dn, dr, dv], "scale": scale, "card": card,
+        "cell_step_launches": launched, "rel_err_vs_float64": errs,
+        "fwd_ms": kern_fwd, "bwd_ms": kern_bwd, "plain_fwd_ms": plain_fwd_ms,
+        "plain_bwd_ms": plain_bwd_ms, "sdpa_fwd_ms": lib_fwd,
+        "sdpa_bwd_ms": lib_bwd, "sdpa_fwd_seen": lib_fwd_seen,
+        "sdpa_bwd_seen": lib_bwd_seen,
+        "fwd_tflops": flops / kern_fwd / 1e9,
+        "bwd_tflops": 2 * flops / kern_bwd / 1e9}}))
+    source = "src/repro_torch/kernels/csrc/mla_attention.cu"
+    none = "none: the JAX twin leaves attention to XLA"
+    cell = errs["cell"]
+    return [
+        kernel_row("mla_attention forward", source, none,
+                   launched["mla_fwd"], cell["out"]["kernel"], kern_fwd,
+                   plain_fwd_ms, 0, flops, library_ms=lib_fwd,
+                   ops_rate=BF16_FLOPS),
+        kernel_row("mla_attention backward", source, none,
+                   launched["mla_bwd_dq"] + launched["mla_bwd_dkdv"],
+                   max(e["kernel"] for p, e in cell.items() if p != "out"),
+                   kern_bwd, plain_bwd_ms, 0, 2 * flops,
+                   library_ms=lib_bwd, ops_rate=BF16_FLOPS)]
+
+
 def kernel_row(name, source, replaces, launches, err, ms, plain_ms, nbytes,
                flops, library_ms=None, ops_rate=FP32_FLOPS) -> dict:
     # the delta kernels' integer operations are held to the fp32 rate (the
@@ -6961,6 +7202,8 @@ def main(argv=None) -> int:
                   tiered, card)
     rows += phase("spmd_kernels", spmd_kernel_rows, torch, timer, rows,
                   train, spmd, card)
+    rows += phase("mla_attention", mla_attention_rows, torch, timer, card,
+                  args.seed)
     phase("merge_compare", merge_compare, torch, timer, train, groups, card)
     phase("sweep_compare", sweep_compare, torch, train, card)
     phase("profile_batch", profile_batch, torch, serve, card)

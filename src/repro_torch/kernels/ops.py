@@ -20,6 +20,7 @@ from repro_torch.kernels import alias_build as _ab
 from repro_torch.kernels import delta_push as _dp
 from repro_torch.kernels import mh_draws as _md
 from repro_torch.kernels import mh_sample as _mh
+from repro_torch.kernels import mla_attention as _mla
 from repro_torch.kernels import ref
 
 KERNELS = {"mh_sample": _mh.KERNEL, "alias_build": _ab.KERNEL,
@@ -28,7 +29,9 @@ KERNELS = {"mh_sample": _mh.KERNEL, "alias_build": _ab.KERNEL,
            "mh_draws_train": _md.TRAIN_KERNEL,
            "mh_draws_foldin": _md.FOLDIN_KERNEL,
            "threefry_keys": _md.KEYS_KERNEL,
-           "threefry_randint": _md.RANDINT_KERNEL}
+           "threefry_randint": _md.RANDINT_KERNEL,
+           "mla_fwd": _mla.FWD_KERNEL, "mla_bwd_dq": _mla.DQ_KERNEL,
+           "mla_bwd_dkdv": _mla.DKDV_KERNEL}
 
 
 def _route(t: torch.Tensor, name: str) -> bool:

@@ -2,7 +2,9 @@
 
 The twin of the JAX package's ``models/attention.py``, in plain tensor
 operations as the reference is in XLA operations (no library attention
-kernel).  Prefill runs **chunked online-softmax attention**: the [Tq, Tk]
+kernel), but for MLA's causal core on the card (``mla_attention``: a
+hand-written fused kernel in bf16 and fp16, ``kernels/mla_attention.py``).
+Prefill runs **chunked online-softmax attention**: the [Tq, Tk]
 score matrix is never built, only [q_chunk, kv_chunk] tiles with running
 (max, sum, acc) statistics, and tiles that the mask empties entirely are
 never visited (the causal upper triangle, and for a sliding-window layer
@@ -48,11 +50,13 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import mla_attention as _fused
 from repro_torch.models.layers import (RMSNorm, _bmm_f32, apply_rope, block,
                                        dtype_of, full_shape, lse_combine,
                                        model_copy, model_gather, normal_,
                                        param, rms_norm, rope_for,
                                        row_parallel)
+from repro_torch.obs import marks
 from repro_torch.sharding.specs import SINGLE, MeshCtx
 
 _NEG = -1e30
@@ -154,6 +158,104 @@ def _attend_chunked(q, k, v, q_pos, kv_pos, *, causal: bool, window: int,
         out = acc / torch.clamp(l, min=1e-30)[..., None]
         outs.append(out.permute(0, 3, 1, 2, 4))   # [B, qc, KV, G, hd]
     return torch.cat(outs, dim=1)[:, :tq].to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA's causal core: the fused kernel on the card, the chunked core elsewhere
+# ---------------------------------------------------------------------------
+
+def _mla_attention_plain(q_nope, q_rope, k_nope, k_rope, v, scale: float, *,
+                         q_chunk: int, kv_chunk: int) -> torch.Tensor:
+    """The plain version: the whole query and key (``k_rope`` expanded to
+    every head) and V padded to the query width, through the chunked
+    core; returns [B, T, H, dv]."""
+    b, t, h, dn = q_nope.shape
+    dr, dv = q_rope.shape[-1], v.shape[-1]
+    q = torch.cat([q_nope, q_rope], dim=-1)                 # [B,T,H,dn+dr]
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, t, h, dr)],
+                  dim=-1)
+    # pad V up to the qk head dim so the shared core can run, slice after
+    vp = torch.nn.functional.pad(v, (0, (dn + dr) - dv))
+    pos = torch.arange(t, device=q.device)
+    out = _attend_chunked(q[:, :, :, None, :], k, vp, pos, pos, causal=True,
+                          window=0, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                          scale=scale)
+    return out[..., 0, :dv]
+
+
+class _MLAFused(torch.autograd.Function):
+    """The fused kernel (``kernels.mla_attention``) and its backward."""
+
+    @staticmethod
+    def forward(ctx, q_nope, q_rope, k_nope, k_rope, v, scale: float):
+        save = any(ctx.needs_input_grad[:5])
+        out, out32, lse = _fused.forward(q_nope, q_rope, k_nope, k_rope, v,
+                                         scale, save)
+        if save:
+            ctx.save_for_backward(q_nope, q_rope, k_nope, k_rope, v, out32,
+                                  lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        marks.attention("bwd")
+        return (*_fused.backward(grad, *ctx.saved_tensors, ctx.scale), None)
+
+
+def _check_mla(q_nope, q_rope, k_nope, k_rope, v) -> None:
+    if q_nope.dim() != 4:
+        raise ValueError(f"mla_attention: q_nope must be [B, T, H, dn]; got "
+                         f"shape {tuple(q_nope.shape)}")
+    b, t, h, dn = q_nope.shape
+    dr, dv = q_rope.shape[-1], v.shape[-1]
+    want = {"q_nope": (b, t, h, dn), "q_rope": (b, t, h, dr),
+            "k_nope": (b, t, h, dn), "k_rope": (b, t, dr),
+            "v": (b, t, h, dv)}
+    args = {"q_nope": q_nope, "q_rope": q_rope, "k_nope": k_nope,
+            "k_rope": k_rope, "v": v}
+    for name, x in args.items():
+        if tuple(x.shape) != want[name]:
+            raise ValueError(f"mla_attention: {name} must have shape "
+                             f"{want[name]} beside q_nope "
+                             f"{tuple(q_nope.shape)}; got {tuple(x.shape)}")
+        if x.dtype != q_nope.dtype or x.device != q_nope.device:
+            raise ValueError(f"mla_attention: {name} is {x.dtype} on "
+                             f"{x.device}, q_nope {q_nope.dtype} on "
+                             f"{q_nope.device}: all five must agree")
+        if not x.is_contiguous():
+            raise ValueError(f"mla_attention: {name} must be contiguous")
+    if q_nope.dtype not in (torch.float32, *_fused.HALF):
+        raise ValueError(f"mla_attention: no core for {q_nope.dtype}")
+
+
+def mla_attention(q_nope: torch.Tensor, q_rope: torch.Tensor,
+                  k_nope: torch.Tensor, k_rope: torch.Tensor,
+                  v: torch.Tensor, scale: float, *, q_chunk: int = 1024,
+                  kv_chunk: int = 2048) -> torch.Tensor:
+    """MLA's causal self-attention core: q_nope, k_nope [B, T, H, dn],
+    q_rope [B, T, H, dr], k_rope [B, T, dr] (one RoPE key a token, shared
+    by the heads), v [B, T, H, dv], one dtype, contiguous; scores
+    ``scale * (q_nope . k_nope + q_rope . k_rope)``.  Returns [B, T, H, dv]
+    in that dtype.
+
+    Dispatch by what the input shows: bf16 or fp16 on the card launch the
+    fused kernel (``kernels.mla_attention``), or raise; a float32 input,
+    or one on the CPU, takes the plain version (``_attend_chunked``, with
+    ``q_chunk`` and ``kv_chunk``)."""
+    _check_mla(q_nope, q_rope, k_nope, k_rope, v)
+    if q_nope.is_cuda and q_nope.dtype in _fused.HALF:
+        dims = (q_nope.shape[-1], q_rope.shape[-1], v.shape[-1])
+        if not _fused.supported(*dims):
+            raise ValueError(f"mla_attention: the fused kernel is built for "
+                             f"head parts (dn, dr, dv) {_fused.DIMS}; got "
+                             f"{dims}")
+        marks.attention("fwd")
+        return _MLAFused.apply(q_nope, q_rope, k_nope, k_rope, v,
+                               float(scale))
+    marks.attention("chunked")
+    return _mla_attention_plain(q_nope, q_rope, k_nope, k_rope, v, scale,
+                                q_chunk=q_chunk, kv_chunk=kv_chunk)
 
 
 def _softmax_part(s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
@@ -504,11 +606,11 @@ class MLA(nn.Module):
 
     def forward(self, x: torch.Tensor, *, positions: torch.Tensor):
         """Prefill MLA: expand the latent into per-head K/V and run the
-        chunked core.  Returns ``(out, (ckv, krope))``: the cache stores only
-        the (r + dr)-dim latent per token."""
+        causal core (``mla_attention``).  Returns ``(out, (ckv, krope))``:
+        the cache stores only the (r + dr)-dim latent per token."""
         cfg, ctx = self.cfg, self.ctx
         b, t, _ = x.shape
-        dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        dn, dv = cfg.qk_nope_dim, cfg.v_head_dim
         wq, w_uk, w_uv, wo = self.weights()
         rope, scale = self._rope(x.device)
         xq = model_copy(x, ctx, "attn_in") if self.tp else x
@@ -521,16 +623,11 @@ class MLA(nn.Module):
             krope = model_copy(krope, ctx, "latent")
         k_nope = (ckv @ w_uk).reshape(b, t, h, dn)
         val = (ckv @ w_uv).reshape(b, t, h, dv)
-        q = torch.cat([qn, qr], dim=-1)                      # [B,T,H,dn+dr]
-        k = torch.cat([k_nope, krope[:, :, None, :].expand(b, t, h, dr)],
-                      dim=-1)
-        # pad V up to the qk head dim so the shared core can run, slice after
-        vp = torch.nn.functional.pad(val, (0, (dn + dr) - dv))
-        out = _attend_chunked(q[:, :, :, None, :], k, vp, positions,
-                              positions, causal=True, window=0,
-                              q_chunk=cfg.attn_chunk_q,
-                              kv_chunk=cfg.attn_chunk_kv, scale=scale)
-        out = self._out(out[..., 0, :dv].reshape(b, t, h * dv), wo)
+        out = mla_attention(qn.contiguous(), qr.contiguous(), k_nope,
+                            krope.contiguous(), val, scale,
+                            q_chunk=cfg.attn_chunk_q,
+                            kv_chunk=cfg.attn_chunk_kv)
+        out = self._out(out.reshape(b, t, h * dv), wo)
         return out, (ckv, krope)
 
     def decode(self, x: torch.Tensor, cache_ckv: torch.Tensor,

@@ -5,8 +5,9 @@ With an obs session installed, ``step`` opens the step's ``DeviceSpans``
 ("cuda" on the card): the whole step, and inside it the spans the model
 and the loop mark by name (``span``: a forward part or the optimizer;
 ``backward``: a module's backward, between autograd hooks on its output's
-and its input's gradients).  The counters the step was told of (``held``)
-go on the tracer as Chrome counter events when it ends.  A
+and its input's gradients).  The counters the step was told of (``held``;
+``attention``: which core MLA's calls took) go on the tracer as Chrome
+counter events when it ends.  A
 rematerialised layer's recompute marks nothing (``paused``): it runs
 inside the backward spans.
 
@@ -31,9 +32,12 @@ class _Step:
     def __init__(self, tr, spans: DeviceSpans):
         self.tr, self.spans = tr, spans
         self.held: List[int] = []        # tokens of each held expert
+        self.attn = {"fwd": 0, "bwd": 0, "chunked": 0}
 
     def finish(self) -> None:
         self.spans.end()
+        if any(self.attn.values()):
+            self.tr.counter("lm.attn.fused", **self.attn)
         if self.held:
             self.tr.counter("lm.moe.held_pairs", pairs=sum(self.held))
             self.tr.counter("lm.moe.expert_tokens", max=max(self.held),
@@ -102,6 +106,14 @@ def held(counts) -> None:
     st = _live()
     if st is not None:
         st.held.extend(int(c) for c in counts)
+
+
+def attention(kind: str) -> None:
+    """One MLA core call: ``"fwd"`` or ``"bwd"`` of the fused kernel, or
+    ``"chunked"`` (the plain core)."""
+    st = _live()
+    if st is not None:
+        st.attn[kind] += 1
 
 
 @contextlib.contextmanager

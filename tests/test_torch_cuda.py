@@ -785,7 +785,8 @@ def test_pipelined_prefix_on_card_matches_cpu(card):
     assert launches == {"mh_sample": filled, "alias_build": blocks,
                         "delta_push": filled, "delta_apply_coo": 0,
                         "mh_draws_train": filled, "mh_draws_foldin": 0,
-                        "threefry_keys": 1, "threefry_randint": 0}
+                        "threefry_keys": 1, "threefry_randint": 0,
+                        "mla_fwd": 0, "mla_bwd_dq": 0, "mla_bwd_dkdv": 0}
 
 
 def test_baselines_on_card_match_cpu(card):
@@ -874,3 +875,92 @@ def test_lm_train_step_on_card_matches_cpu(card):
     assert set(out) == {"gemma3-4b", "gemma3-4b (microbatch 2)"}
     for row in out.values():
         assert row["loss_rel_err"] <= cs.LM_LOSS_RTOL
+
+
+# -- MLA's fused attention core ----------------------------------------------
+
+MLA_SCALE = 0.1147      # DeepSeek-V2-Lite's: 192 ** -0.5 times YaRN's factor
+
+
+@pytest.mark.parametrize("b,t,h", [(8, 4096, 16), (2, 1000, 2)],
+                         ids=["cell", "ragged"])
+def test_mla_attention_kernel_is_as_accurate_as_plain(card, b, t, h):
+    """The output and each of the five gradients against float64 on the
+    card: the kernel's ||x - x64|| / ||x64|| at most 1.25 times the plain
+    version's (the chunked core, as MLA.forward ran it before)."""
+    from repro_torch.models import attention as tattn
+    cs = _chip_smoke()
+    args, do = cs.mla_inputs(torch, card, b, t, h)
+    want = cs.mla_f64(torch, args, do, MLA_SCALE)
+    plain = cs.mla_run(torch, lambda *a: tattn._mla_attention_plain(
+        *a, MLA_SCALE, q_chunk=1024, kv_chunk=2048), args, do)
+    plain_err = [cs.mla_rel_err(x, w) for x, w in zip(plain, want)]
+    del plain
+    torch.cuda.empty_cache()
+    got = cs.mla_run(torch, lambda *a: tattn.mla_attention(*a, MLA_SCALE),
+                     args, do)
+    for name, x, w, pe in zip(cs.MLA_PARTS, got, want, plain_err):
+        assert x.dtype == torch.bfloat16 and bool(torch.isfinite(x).all())
+        assert cs.mla_rel_err(x, w) <= 1.25 * pe, (name, cs.mla_rel_err(x, w),
+                                                   pe)
+
+
+@pytest.mark.parametrize("b,t,h,dtype", [
+    (3, 1, 1, torch.bfloat16), (1, 17, 3, torch.bfloat16),
+    (2, 64, 1, torch.bfloat16), (1, 129, 2, torch.bfloat16),
+    (1, 200, 2, torch.float16)])
+def test_mla_attention_kernel_on_short_and_ragged_rows(card, b, t, h, dtype):
+    """Fewer rows than a tile, one tile's rows exactly, a tile and one
+    row, and fp16: the output and the five gradients within 1 % of
+    float64 (a bf16 rounding is 0.4 %).  With one row the query's and
+    key's gradients are 0 (the softmax of one score is 1); the kernel's
+    then differ from 0 by float32 rounding alone."""
+    from repro_torch.models import attention as tattn
+    cs = _chip_smoke()
+    args, do = cs.mla_inputs(torch, card, b, t, h, seed=t, dtype=dtype)
+    want = cs.mla_f64(torch, args, do, MLA_SCALE)
+    got = cs.mla_run(torch, lambda *a: tattn.mla_attention(*a, MLA_SCALE),
+                     args, do)
+    for name, x, w in zip(cs.MLA_PARTS, got, want):
+        assert x.dtype == dtype and x.shape == w.shape, name
+        if float(w.norm()) == 0.0:
+            assert float(x.abs().max()) <= 1e-3, name
+            continue
+        assert cs.mla_rel_err(x, w) <= 0.01, (name, cs.mla_rel_err(x, w))
+
+
+def test_mla_attention_counts_its_launches(card):
+    """One forward launch a call, two a backward (counted in ops.KERNELS,
+    reset with the others); without gradients the same output bits, also
+    with an operand that starts off 16 bytes;
+    float32 takes the chunked core and launches none; head parts the
+    kernel is not built for are refused on the card."""
+    from repro_torch.kernels import mla_attention as fused
+    from repro_torch.models import attention as tattn
+    cs = _chip_smoke()
+    args, do = cs.mla_inputs(torch, card, 1, 300, 2, seed=1)
+    ops.reset_launch_counts()
+    got = cs.mla_run(torch, lambda *a: tattn.mla_attention(*a, MLA_SCALE),
+                     args, do)
+    counts = ops.launch_counts()
+    assert fused.launch_counts() == {"fwd": 1, "bwd": 2}
+    assert (counts["mla_fwd"], counts["mla_bwd_dq"],
+            counts["mla_bwd_dkdv"]) == (1, 1, 1)
+    with torch.no_grad():
+        assert torch.equal(tattn.mla_attention(*args, MLA_SCALE), got[0])
+        # a contiguous view starting 2 bytes into its storage: copied
+        off = torch.empty(args[3].numel() + 1, dtype=args[3].dtype,
+                          device=card)[1:].view(args[3].shape)
+        off.copy_(args[3])
+        assert off.data_ptr() % 16 != 0
+        assert torch.equal(tattn.mla_attention(*args[:3], off, args[4],
+                                               MLA_SCALE), got[0])
+    before = fused.launch_counts()
+    wide = [a.float() for a in args]
+    out = tattn.mla_attention(*wide, MLA_SCALE)
+    assert out.dtype == torch.float32
+    assert fused.launch_counts() == before
+    odd = [a[..., :48].contiguous() if i in (0, 2) else a for i, a in
+           enumerate(args)]
+    with pytest.raises(ValueError, match="is built for head parts"):
+        tattn.mla_attention(*odd, MLA_SCALE)

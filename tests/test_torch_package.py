@@ -160,7 +160,7 @@ def test_ops_dispatch_on_device():
             draw(key)
     names = {"mh_sample", "alias_build", "delta_push", "delta_apply_coo",
              "mh_draws_train", "mh_draws_foldin", "threefry_keys",
-             "threefry_randint"}
+             "threefry_randint", "mla_fwd", "mla_bwd_dq", "mla_bwd_dkdv"}
     assert set(ops.launch_counts()) == names
     ops.KERNELS["mh_sample"].launches = 7
     ops.KERNELS["delta_apply_coo"].launches = 2
